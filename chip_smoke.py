@@ -1,0 +1,425 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch + CUDA port (fpr_tpu_torch) on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Phases, in order; the first failure stops the run with a non-zero exit:
+
+1. environment: the card's name and power limit (nvidia-smi), torch, CUDA
+   and nvcc versions; TF32 matmuls must be off.
+2. build: the four CUDA kernels from ``fpr_tpu_torch/csrc``.
+3. each kernel against its plain PyTorch version on the card, at the main
+   path's shapes and flags: field outputs bitwise equal, sums within a
+   relative 1e-5 (a different summation order), maxima equal; times of a
+   wrapper call from CUDA events over 20 calls after a warm-up, and the
+   device time of its CUDA kernels from torch.profiler.
+4. the MG row: ``mg_solve_ds`` at 4097^2, DST coarse 513, V(5,5), tol 1e-6,
+   with a true float64 residual checked on the card.
+5. NS explicit at 2049x513, Pr=0.01, tol 1e-7, ttot 0.005 (the main path):
+   8736 timed steps, launch counts of all four kernels, and its first 20
+   steps against the plain versions.
+6. NS semi-implicit (beta=0.5) at the same size, kernels against plain.
+
+The second-to-last line is the kernel table as JSON; the last line is
+``{"ok": true, "device": {...}}``.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import json
+import os
+import subprocess
+import sys
+import time
+
+REL_SUM = 1e-5  # sums in another order: a few float32 ulps of ~1e6 terms
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+class Failed(Exception):
+    pass
+
+
+def require(cond, msg: str) -> None:
+    if not cond:
+        raise Failed(msg)
+
+
+def run(cmd: list[str]) -> str:
+    return subprocess.run(cmd, capture_output=True, text=True, check=True).stdout.strip()
+
+
+def time_ms(fn, reps: int = 20) -> float:
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def device_us(fn, names, reps: int = 20):
+    """Device time per call of the CUDA kernels whose names contain one of
+    names, from torch.profiler; None if the profiler saw no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(getattr(ev, "device_time_total", None) or getattr(ev, "cuda_time_total", 0.0)
+                for ev in prof.key_averages() if any(n in ev.key for n in names))
+    return total / reps if total > 0 else None
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """Route the CUDA wrappers to their plain PyTorch versions."""
+    from fpr_tpu_torch.ops import ds, ns_fused, vcycle_legs
+
+    swaps = [(ds, "_defect_cuda", ds.defect_pass_plain),
+             (vcycle_legs, "_smooth_down_cuda", vcycle_legs.smooth_down_plain),
+             (vcycle_legs, "_corr_up_cuda", vcycle_legs.corr_up_plain),
+             (ns_fused, "_ns_fused_cuda", ns_fused.ns_fused_plain)]
+    saved = [getattr(m, n) for m, n, _ in swaps]
+    try:
+        for m, n, f in swaps:
+            setattr(m, n, f)
+        yield
+    finally:
+        for (m, n, _), f in zip(swaps, saved):
+            setattr(m, n, f)
+
+
+class KernelCheck:
+    """Kernel-vs-plain comparisons and times, one record per kernel."""
+
+    def __init__(self):
+        self.rows = {}
+
+    def fields(self, name, got, want, what):
+        import torch
+
+        for g, w in zip(got, want):
+            if g is None and w is None:
+                continue
+            err = float((g.double() - w.double()).abs().max())
+            row = self.rows.setdefault(name, {"max_abs_err": 0.0})
+            row["max_abs_err"] = max(row["max_abs_err"], err)
+            require(torch.equal(g, w), f"{name} {what}: field differs from plain "
+                                       f"(max abs err {err:.3e})")
+
+    def sums(self, name, got, want, what, exact=False):
+        for g, w in zip(got, want):
+            g, w = float(g), float(w)
+            if exact:
+                require(g == w, f"{name} {what}: maximum {g!r} != plain {w!r}")
+            else:
+                require(abs(g - w) <= REL_SUM * max(abs(w), 1e-30),
+                        f"{name} {what}: sum {g!r} vs plain {w!r}")
+
+
+def phase_env():
+    import torch
+
+    log("== phase 1: environment")
+    smi = run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"])
+    log(smi.splitlines()[0])
+    from fpr_tpu_torch import kernels
+
+    log(f"torch {torch.__version__}  cuda {torch.version.cuda}  "
+        f"device {torch.cuda.get_device_name(0)}")
+    log(run([kernels._nvcc(), "--version"]).splitlines()[-1])
+    require(torch.backends.cuda.matmul.allow_tf32 is False, "TF32 matmuls are on")
+    return smi.splitlines()[0]
+
+
+def phase_build():
+    from fpr_tpu_torch import kernels
+
+    log("== phase 2: build")
+    t0 = time.perf_counter()
+    path = kernels.build()
+    kernels.lib()
+    log(f"built and loaded {path.name} in {time.perf_counter() - t0:.1f} s")
+
+
+def phase_kernels(kc: KernelCheck):
+    import numpy as np
+    import torch
+
+    from fpr_tpu_torch.ops import ds, ns_fused, stencil2d, transfer, vcycle_legs
+
+    log("== phase 3: kernels against their plain versions")
+    dev = torch.device("cuda", 0)
+    rng = np.random.default_rng(0)
+
+    def rand(*shape, scale=1.0):
+        return torch.tensor(rng.standard_normal(shape) * scale, dtype=torch.float32,
+                            device=dev)
+
+    def ds_pair(ny, nx):
+        u64 = torch.tensor(rng.standard_normal((ny, nx)), dtype=torch.float64, device=dev)
+        hi = u64.float()
+        return torch.stack([hi, (u64 - hi.double()).float()])
+
+    # K1, the defect pass: the flag sets of the S, T and W solves and the MG row
+    ny, nx = 513, 2049
+    h = 1.0 / 512
+    u, f, e = ds_pair(ny, nx), rand(1, ny, nx), rand(ny, nx, scale=1e-3)
+    cT = torch.tensor(41.25, dtype=torch.float32, device=dev)
+    cases = [
+        ("S", 0.0, dict(velocity_max=True), (0.0, 1.0)),
+        ("T", cT, dict(apply_bcs=True), (0.0, 1.0)),
+        ("W", cT * 100.0, dict(), (0.0, 1.0)),
+        ("sumsq", 0.0, dict(field_sumsq=True, velocity_max=True), (1.0,)),
+    ]
+    for tag, c, kw, scales in cases:
+        C = ds.defect_scalars(c, h, dev)
+        c_zero = not isinstance(c, torch.Tensor)
+        for scale in scales:
+            args = (u, f, None if scale == 0.0 else e, scale, h, C, c_zero)
+            uk, rk, sk = ds._defect_cuda(*args, **kw)
+            up, rp, sp = ds.defect_pass_plain(*args, **kw)
+            kc.fields("defect", (uk, rk), (up, rp), f"{tag} scale={scale}")
+            kc.sums("defect", (sk[0], sk[3]), (sp[0], sp[3]), f"{tag} sums")
+            kc.sums("defect", sk[1:3], sp[1:3], f"{tag} maxima", exact=True)
+    n = 4097
+    f4 = rand(1, n, n)
+    u4 = torch.zeros((2, n, n), dtype=torch.float32, device=dev)
+    e4 = rand(n, n, scale=1e-3)
+    C0 = ds.defect_scalars(0.0, 1.0 / (n - 1), dev)
+    args4 = (u4, f4, e4, 1.0, 1.0 / (n - 1), C0, True)
+    kc.fields("defect", ds._defect_cuda(*args4)[:2], ds.defect_pass_plain(*args4)[:2],
+              "4097^2")
+    args = (u, f, e, 1.0, h, ds.defect_scalars(0.0, h, dev), True)
+    kc.rows["defect"]["ms"] = time_ms(lambda: ds._defect_cuda(*args, velocity_max=True))
+    kc.rows["defect"]["plain_ms"] = time_ms(
+        lambda: ds.defect_pass_plain(*args, velocity_max=True))
+    kc.rows["defect"]["shape"] = [ny, nx]
+    kc.rows["defect"]["device_us"] = device_us(
+        lambda: ds._defect_cuda(*args, velocity_max=True), ["defect_kernel"])
+
+    # K2 and K3, the legs: NS (ns=3, 513x2049, elim for the T solve) and the
+    # MG row (ns=5 on 4097^2, 2049^2, 1025^2)
+    leg_cases = [((513, 2049), 3, False, 0.0), ((513, 2049), 3, True, cT),
+                 ((513, 2049), 3, False, cT * 100.0), ((4097, 4097), 5, False, 0.0),
+                 ((2049, 2049), 5, False, 0.0), ((1025, 1025), 5, False, 0.0)]
+    for (ny, nx), ns, elim, c in leg_cases:
+        h = 1.0 / (min(ny, nx) - 1)
+        f2, u2 = rand(ny, nx), rand(ny, nx)
+        ct = stencil2d.as_scalar(c, f2)
+        tag = f"{ny}x{nx} ns={ns} elim={elim}"
+        for uu in (None, u2):
+            got = vcycle_legs._smooth_down_cuda(uu, f2, h, ct, 0.8, ns, elim)
+            want = vcycle_legs.smooth_down_plain(uu, f2, h, ct, 0.8, ns, elim)
+            kc.fields("smooth_down", got, want, f"{tag} zero_u={uu is None}")
+        coarse = rand((ny - 1) // 2 + 1, (nx - 1) // 2 + 1, scale=1e-2)
+        corrx = transfer.x_interleave_coarse(coarse, apply_bcs=elim)
+        got = vcycle_legs._corr_up_cuda(u2, f2, corrx, h, ct, 0.8, ns, elim, True)
+        want = vcycle_legs.corr_up_plain(u2, f2, corrx, h, ct, 0.8, ns, elim, True)
+        kc.fields("corr_up", got[:1], want[:1], tag)
+        kc.sums("corr_up", got[1:], want[1:], f"{tag} norm")
+        if (ny, nx) == (513, 2049) and not elim and c == 0.0:
+            for name, k_fn, p_fn, a in (
+                ("smooth_down", vcycle_legs._smooth_down_cuda,
+                 vcycle_legs.smooth_down_plain, (None, f2, h, ct, 0.8, ns, elim)),
+                ("corr_up", vcycle_legs._corr_up_cuda, vcycle_legs.corr_up_plain,
+                 (u2, f2, corrx, h, ct, 0.8, ns, elim, True)),
+            ):
+                kc.rows[name]["ms"] = time_ms(lambda: k_fn(*a))
+                kc.rows[name]["plain_ms"] = time_ms(lambda: p_fn(*a))
+                kc.rows[name]["shape"] = [ny, nx]
+                kc.rows[name]["device_us"] = device_us(
+                    lambda: k_fn(*a), ["sweep_kernel", "residual_kernel"])
+
+    # K4, the NS operator: explicit + defect, rhs at beta 0.5 and 1
+    ny, nx = 513, 2049
+    h = 1.0 / 512
+    TW = torch.stack([rand(ny, nx, scale=0.3) + 0.5, rand(ny, nx, scale=10.0)])
+    S = torch.stack([rand(ny, nx, scale=0.1), rand(ny, nx, scale=1e-9)])
+    dt = torch.tensor(1.9e-6, dtype=torch.float32, device=dev)
+    scal = torch.stack([dt, cT, cT * 100.0])
+    ns_cases = [("explicit", 0.0, True, S), ("rhs", 0.5, False, S[0]),
+                ("rhs", 1.0, False, S[0]), ("explicit", 0.0, False, S[0])]
+    for mode, beta, wd, SS in ns_cases:
+        a = (TW, SS, scal, h, 0.01, 1e6, 1.0, beta, mode, wd)
+        ok, rk, sk = ns_fused._ns_fused_cuda(*a)
+        op, rp, sp = ns_fused.ns_fused_plain(*a)
+        kc.fields("ns_fused", (ok, rk), (op, rp), f"{mode} beta={beta}")
+        kc.sums("ns_fused", sk[:3], sp[:3], f"{mode} beta={beta} sums")
+        kc.sums("ns_fused", sk[3:], sp[3:], f"{mode} beta={beta} maxima", exact=True)
+    a = (TW, S, scal, h, 0.01, 1e6, 1.0, 0.0, "explicit", True)
+    kc.rows["ns_fused"]["ms"] = time_ms(lambda: ns_fused._ns_fused_cuda(*a))
+    kc.rows["ns_fused"]["plain_ms"] = time_ms(lambda: ns_fused.ns_fused_plain(*a))
+    kc.rows["ns_fused"]["shape"] = [ny, nx]
+    kc.rows["ns_fused"]["device_us"] = device_us(
+        lambda: ns_fused._ns_fused_cuda(*a), ["ns_kernel"])
+    for name, row in kc.rows.items():
+        log(f"{name:12s} {row['shape']}: call {row['ms'] * 1e3:9.1f} us  "
+            f"plain {row['plain_ms'] * 1e3:9.1f} us  kernels on the device "
+            f"{row['device_us']} us  max abs err {row['max_abs_err']}")
+
+
+def phase_mg():
+    import numpy as np
+    import torch
+
+    from fpr_tpu_torch import kernels
+    from fpr_tpu_torch.core.config import CoarseSolver, MGConfig
+    from fpr_tpu_torch.ops import stencil2d
+    from fpr_tpu_torch.solvers.multigrid import mg_solve_ds
+
+    log("== phase 4: MG row, mg_solve_ds 4097^2, DST-513, V(5,5), tol 1e-6")
+    n, tol = 4097, 1e-6
+    h = 1.0 / (n - 1)
+    cfg = MGConfig(coarse_size=513, coarse_solver=CoarseSolver.DST,
+                   pre_smooth=5, post_smooth=5)
+    b = np.zeros((n, n), np.float32)
+    b[1:-1, 1:-1] = np.random.default_rng(0).random((n - 2, n - 2))
+    b = torch.tensor(b, device="cuda")
+    mg_solve_ds(None, b, h, 0.0, tol, 30, cfg=cfg, return_pair=True)  # warm-up
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    (uh, ul), r, it = mg_solve_ds(None, b, h, 0.0, tol, 30, cfg=cfg, return_pair=True)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = dict(kernels.launches)
+    b64 = b.double()
+    rel = float(stencil2d.rms(stencil2d.residual(uh.double() + ul.double(), b64, h, 0.0))
+                / stencil2d.rms(b64))
+    log(f"outers {it}  solve {secs:.4f} s  true f64 r_rms/f_rms {rel:.3e}  "
+        f"launches {counts}")
+    require(it <= 30, f"no convergence in 30 outers ({it})")
+    require(rel <= tol, f"true f64 relative residual {rel:.3e} > {tol}")
+    for k in ("defect", "smooth_down", "corr_up"):
+        require(counts[k] > 0, f"MG row never launched {k}")
+
+
+def ns_cfg(beta):
+    from fpr_tpu_torch.core.config import NSConfig
+
+    return NSConfig(nx=2049, ny=513, ttot=0.005, beta=beta, Pr=0.01, tol=1e-7,
+                    niters=50)
+
+
+def compare_runs(a, b, what, rel=1e-5):
+    """Kernel run a against plain run b: equal counts and time, near fields."""
+    import numpy as np
+
+    require(a.steps == b.steps, f"{what}: steps {a.steps} vs plain {b.steps}")
+    require(a.sim_time == b.sim_time, f"{what}: sim_time {a.sim_time!r} vs {b.sim_time!r}")
+    for name in ("T", "W", "S"):
+        x, y = getattr(a, name), getattr(b, name)
+        err = float(np.abs(x - y).max())
+        require(err <= rel * float(np.abs(y).max()),
+                f"{what}: {name} differs from plain by {err:.3e}")
+        log(f"  {what} {name}: max abs diff to plain {err:.3e}")
+
+
+def phase_ns_explicit():
+    import numpy as np
+    import torch
+
+    from fpr_tpu_torch import kernels
+    from fpr_tpu_torch.models.navier_stokes import simulate_fast
+
+    log("== phase 5: NS explicit 2049x513, Pr=0.01, tol 1e-7, ttot 0.005")
+    cfg = ns_cfg(0.0)
+    kernels.reset_launches()
+    out = simulate_fast(cfg, seed=0, device="cuda")
+    counts = dict(kernels.launches)
+    log(f"timed_iters {out.timed_iters}  steps {out.steps}  sim_time {out.sim_time!r}  "
+        f"timed {out.t_elapsed:.3f} s  launches {counts}")
+    require(out.timed_iters == 8736, f"timed_iters {out.timed_iters} != 8736")
+    for name in ("T", "W", "S"):
+        require(np.isfinite(getattr(out, name)).all(), f"non-finite {name}")
+    for k in kernels.KERNELS:
+        require(counts[k] > 0, f"the NS main path never launched {k}")
+    k20 = simulate_fast(cfg, seed=0, max_steps=20, device="cuda")
+    with plain_kernels():
+        p20 = simulate_fast(cfg, seed=0, max_steps=20, device="cuda")
+    compare_runs(k20, p20, "explicit 20 steps")
+    torch.cuda.synchronize()
+    return counts, out
+
+
+def phase_ns_semi():
+    import numpy as np
+
+    from fpr_tpu_torch.models.navier_stokes import simulate_fast
+
+    log("== phase 6: NS semi-implicit 2049x513, beta=0.5")
+    cfg = ns_cfg(0.5)
+    out = simulate_fast(cfg, seed=0, device="cuda")
+    log(f"timed_iters {out.timed_iters}  steps {out.steps}  timed {out.t_elapsed:.3f} s")
+    require(np.isfinite(out.T).all() and np.isfinite(out.W).all(), "non-finite fields")
+    require(-0.5 <= out.T.min() and out.T.max() <= 1.5,
+            f"T out of [-0.5, 1.5]: [{out.T.min()}, {out.T.max()}]")
+    with plain_kernels():
+        plain = simulate_fast(cfg, seed=0, device="cuda")
+    log(f"plain: steps {plain.steps}  timed {plain.t_elapsed:.3f} s")
+    compare_runs(out, plain, "semi", rel=1e-4)
+    return out
+
+
+SOURCES = {
+    "defect": ("fpr_tpu_torch/csrc/defect.cu", "fpr_tpu/ops/ds.py:149"),
+    "smooth_down": ("fpr_tpu_torch/csrc/vcycle_legs.cu", "fpr_tpu/ops/pallas2d.py:996"),
+    "corr_up": ("fpr_tpu_torch/csrc/vcycle_legs.cu", "fpr_tpu/ops/pallas2d.py:1223"),
+    "ns_fused": ("fpr_tpu_torch/csrc/ns_fused.cu", "fpr_tpu/ops/pallas_ns.py:58"),
+}
+
+
+def main() -> int:
+    # the run uses one card: make it the only one visible, so that the device
+    # count in the last line is the number of cards the run used
+    visible = os.environ.get("CUDA_VISIBLE_DEVICES")
+    os.environ["CUDA_VISIBLE_DEVICES"] = "0" if visible is None else visible.split(",")[0]
+    import torch
+
+    if not torch.cuda.is_available():
+        log("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
+        return 2
+    try:
+        import fpr_tpu_torch  # noqa: F401
+    except ImportError as exc:
+        log(f"chip_smoke: the fpr_tpu_torch package is missing ({exc})")
+        return 3
+    try:
+        phase_env()
+        phase_build()
+        kc = KernelCheck()
+        phase_kernels(kc)
+        phase_mg()
+        counts, _ = phase_ns_explicit()
+        phase_ns_semi()
+    except Failed as exc:
+        log(f"chip_smoke FAILED: {exc}")
+        return 1
+    table = [dict(name=k, route="cuda", source=SOURCES[k][0], replaces=SOURCES[k][1],
+                  launches=counts[k], max_abs_err=kc.rows[k]["max_abs_err"],
+                  ms=kc.rows[k]["ms"], plain_ms=kc.rows[k]["plain_ms"])
+             for k in SOURCES]
+    print(json.dumps({"kernels": table}))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

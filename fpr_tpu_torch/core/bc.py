@@ -1,0 +1,38 @@
+"""Boundary conditions on (ny, nx) tensors (fpr_tpu/core/bc.py).
+
+Out of place, as in the JAX package: each function returns a new tensor.
+Rows 0 / ny-1 are the bottom / top edges, columns 0 / nx-1 the sides.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def dirichlet_top_bottom(T: torch.Tensor, bottom: float = 1.0, top: float = 0.0):
+    """T = bottom on row 0, top on row ny-1 (bc.dirichlet_top_bottom)."""
+    T = T.clone()
+    T[0, :] = bottom
+    T[-1, :] = top
+    return T
+
+
+def neumann_left_right(T: torch.Tensor):
+    """Side columns copy their interior neighbours (bc.neumann_left_right)."""
+    T = T.clone()
+    T[:, 0] = T[:, 1]
+    T[:, -1] = T[:, -2]
+    return T
+
+
+def ns_temperature_bcs(T: torch.Tensor):
+    """Dirichlet bottom/top, then Neumann sides, which win at the corners
+    (bc.ns_temperature_bcs)."""
+    return neumann_left_right(dirichlet_top_bottom(T))
+
+
+def zero_boundary_2d(a: torch.Tensor):
+    """Zero the one-cell boundary ring (bc.zero_boundary_2d)."""
+    z = torch.zeros_like(a)
+    z[1:-1, 1:-1] = a[1:-1, 1:-1]
+    return z

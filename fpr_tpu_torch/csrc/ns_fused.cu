@@ -1,0 +1,162 @@
+// K4: the fused Navier-Stokes operator pass.
+//
+// Replaces fpr_tpu/ops/pallas_ns.py::_ns_kernel (built at pallas_ns.py:389,
+// wrapped by ns_fused_rp) in the two modes the fast loop runs:
+//
+//   T <- BCs(T)  (Dirichlet bottom/top, then Neumann sides: Neumann wins at
+//                 the corners)
+//   vx = dS/dy, vy = -dS/dx; B = Ra dT/dx; dT2 = k lap T, dW2 = Pr lap W
+//   (no diffusion when beta == 1); first-order upwind advection
+//   explicit: T' = T + dt (dT2 - dTx - dTy),  W' = W + dt (dW2 - dWx - dWy - Pr B)
+//   rhs:      T' = -cT (T + dt ((1-beta) dT2 - dTx - dTy)), W' likewise with cW
+//
+// On the boundary T' carries the BC'd T and W' the old W (explicit), or
+// -c times them (rhs).  Per-block partials of sum(T'^2) and sum(W'^2); with
+// the defect flag (explicit only) also the next stream-function solve's
+// initial ds defect r = A S - W' (S a hi/lo pair, c = 0; formula for
+// formula ds.py's defect with scale 0), sum(r^2), and max |dS/dy|,
+// max |dS/dx| of S over the interior.  dt, cT and cW are read from device
+// memory.  with_helm_defect (pallas_ns.py:455-459) is not ported.
+//
+// Bound on the H100: memory bandwidth.  A cell reads T, W, S (and S lo) and
+// writes T', W' (and r): 5-7 f32 words against about 80 flops.
+//
+// Design: one thread per cell.  Each thread applies the T BCs to the five
+// T values it reads, so the stencils see BC'd neighbours as on the TPU,
+// where the BCs cover the whole halo window.  Left for later: a
+// shared-memory tile so the 5-point reads of T, W and S are loaded once.
+#include "fpr_common.cuh"
+
+namespace {
+
+enum : int { MODE_RHS = 1, WITH_DEFECT = 2, USE_DIF = 4 };
+
+// BC'd temperature at (y, x): Dirichlet rows, then the Neumann copies of
+// the Dirichlet'd field.
+__device__ __forceinline__ float t_bc(const float* __restrict__ T, int ny, int nx,
+                                      int y, int x) {
+    if (y == 0) return 1.0f;
+    if (y == ny - 1) return 0.0f;
+    if (x == 0) x = 1;
+    else if (x == nx - 1) x = nx - 2;
+    return T[y * nx + x];
+}
+
+__global__ void __launch_bounds__(FPR_THREADS)
+ns_kernel(const float* __restrict__ T, const float* __restrict__ W,
+          const float* __restrict__ Sh, const float* __restrict__ Sl,
+          const float* __restrict__ scal, float inv2h, float inv_h, float inv_h2,
+          float Pr, float Ra, float k, float wdif, int ny, int nx, int flags,
+          float* __restrict__ T_out, float* __restrict__ W_out,
+          float* __restrict__ r_out, float* __restrict__ partials) {
+    __shared__ float sh[FPR_BY];
+    const int x = blockIdx.x * FPR_BX + threadIdx.x;
+    const int y = blockIdx.y * FPR_BY + threadIdx.y;
+    const bool rhs = flags & MODE_RHS;
+    const bool defect = flags & WITH_DEFECT;
+    float tsq = 0.0f, wsq = 0.0f, rsq = 0.0f, vxa = 0.0f, vya = 0.0f;
+
+    if (x < nx && y < ny) {
+        const int i = y * nx + x;
+        const float dt = scal[0];
+        const float Tc = t_bc(T, ny, nx, y, x);
+        const float Wc = W[i];
+        const bool interior = x > 0 && y > 0 && x < nx - 1 && y < ny - 1;
+        float to, wo;
+        float termT = 0.0f, termW = 0.0f;
+        float vx = 0.0f, vy = 0.0f;
+        if (interior) {
+            const float Tu = t_bc(T, ny, nx, y - 1, x), Td = t_bc(T, ny, nx, y + 1, x);
+            const float Tl = t_bc(T, ny, nx, y, x - 1), Tr = t_bc(T, ny, nx, y, x + 1);
+            const float Wu = W[i - nx], Wd = W[i + nx], Wl = W[i - 1], Wr = W[i + 1];
+            const float Su = Sh[i - nx], Sd = Sh[i + nx], Sl_ = Sh[i - 1], Sr = Sh[i + 1];
+            vx = (Sd - Su) * inv2h;
+            vy = -(Sr - Sl_) * inv2h;
+            const float B = Ra * (Tr - Tl) * inv2h;
+            float dT2 = 0.0f, dW2 = 0.0f;
+            if (flags & USE_DIF) {
+                dT2 = k * ((Tu + Td + Tl + Tr - 4.0f * Tc) * inv_h2);
+                dW2 = Pr * ((Wu + Wd + Wl + Wr - 4.0f * Wc) * inv_h2);
+            }
+            const float dTx = vx * (vx > 0.0f ? (Tc - Tl) * inv_h : (Tr - Tc) * inv_h);
+            const float dTy = vy * (vy > 0.0f ? (Tc - Tu) * inv_h : (Td - Tc) * inv_h);
+            const float dWx = vx * (vx > 0.0f ? (Wc - Wl) * inv_h : (Wr - Wc) * inv_h);
+            const float dWy = vy * (vy > 0.0f ? (Wc - Wu) * inv_h : (Wd - Wc) * inv_h);
+            const float PrB = Pr * B;
+            if (rhs) {
+                termT = wdif * dT2 - dTx - dTy;
+                termW = wdif * dW2 - dWx - dWy - PrB;
+            } else {
+                termT = dT2 - dTx - dTy;
+                termW = dW2 - dWx - dWy - PrB;
+            }
+        }
+        if (rhs) {
+            to = -scal[1] * (Tc + dt * termT);
+            wo = -scal[2] * (Wc + dt * termW);
+        } else {
+            to = interior ? Tc + dt * termT : Tc;
+            wo = interior ? Wc + dt * termW : Wc;
+        }
+        T_out[i] = to;
+        W_out[i] = wo;
+        tsq = to * to;
+        wsq = wo * wo;
+
+        if (defect) {
+            float r = 0.0f;
+            if (interior) {
+                float s1, e1, s2, e2, sh_, e3;
+                fpr::two_sum(Sh[i - nx], Sh[i + nx], s1, e1);
+                fpr::two_sum(Sh[i - 1], Sh[i + 1], s2, e2);
+                fpr::two_sum(s1, s2, sh_, e3);
+                const float sl_ = ((e1 + e2) + e3) +
+                                  ((Sl[i - nx] + Sl[i + nx]) + (Sl[i - 1] + Sl[i + 1]));
+                float th, tl;
+                fpr::ds_add(sh_, sl_, -(Sh[i] * 4.0f), -(Sl[i] * 4.0f), th, tl);
+                th = th * inv_h2;  // exact: a power of two
+                tl = tl * inv_h2;
+                float rs, re;
+                fpr::two_sum(th, -wo, rs, re);
+                r = rs + (re + tl);
+                rsq = r * r;
+                vxa = fabsf(vx);
+                vya = fabsf(vy);
+            }
+            r_out[i] = r;
+        }
+    }
+
+    const int nb = fpr::num_blocks(), b = fpr::block_id();
+    tsq = fpr::block_sum(tsq, sh);
+    if (fpr::block_leader()) partials[b] = tsq;
+    wsq = fpr::block_sum(wsq, sh);
+    if (fpr::block_leader()) partials[nb + b] = wsq;
+    if (defect) {
+        rsq = fpr::block_sum(rsq, sh);
+        if (fpr::block_leader()) partials[2 * nb + b] = rsq;
+        vxa = fpr::block_max(vxa, sh);
+        if (fpr::block_leader()) partials[3 * nb + b] = vxa;
+        vya = fpr::block_max(vya, sh);
+        if (fpr::block_leader()) partials[4 * nb + b] = vya;
+    }
+}
+
+}  // namespace
+
+extern "C" {
+
+// T, W: (ny, nx) planes of the stacked state; Sh (and Sl with the defect
+// flag) the stream function; scal: device f32 [dt, cT, cW].  partials:
+// (5, fpr_num_blocks) f32.  Returns the launch's cudaError_t.
+int fpr_ns_fused(const float* T, const float* W, const float* Sh, const float* Sl,
+                 const float* scal, float inv2h, float inv_h, float inv_h2, float Pr,
+                 float Ra, float k, float wdif, int ny, int nx, int flags, float* T_out,
+                 float* W_out, float* r_out, float* partials, cudaStream_t stream) {
+    ns_kernel<<<fpr::grid_of(ny, nx), dim3(FPR_BX, FPR_BY), 0, stream>>>(
+        T, W, Sh, Sl, scal, inv2h, inv_h, inv_h2, Pr, Ra, k, wdif, ny, nx, flags, T_out,
+        W_out, r_out, partials);
+    return static_cast<int>(cudaGetLastError());
+}
+
+}  // extern "C"

@@ -1,0 +1,167 @@
+"""Build, load and bind the CUDA kernels of ``fpr_tpu_torch/csrc``.
+
+The ``.cu`` sources have a plain C interface.  At the first call on a CUDA
+tensor they are compiled by ``nvcc`` into one shared library for
+``sm_90a`` and loaded with ``ctypes``; nothing is built on import, so the
+package imports on a CPU-only PyTorch.  The library is named by a hash
+of the sources and flags, written to a temporary name first and moved into
+place with ``os.replace`` so that concurrent processes never load a
+half-written file.  The library lands in ``build/fpr_tpu_torch/`` of
+the checkout when the package runs from one (a ``pyproject.toml`` beside
+it); an installed package builds under ``$XDG_CACHE_HOME/fpr_tpu_torch``
+(default ``~/.cache/fpr_tpu_torch``) instead, so that environments sharing
+an interpreter do not share a build directory.
+
+``-fmad=false`` keeps every multiply and add a separately rounded IEEE
+single operation: the double-single error-free transforms need it (see
+``csrc/fpr_common.cuh``), and it makes the f32 kernels bitwise equal to
+their plain PyTorch versions.
+
+``launches`` counts, per kernel, the wrapper calls that launched the CUDA
+kernel (never the plain-PyTorch calls), so a run can show which kernels
+its main path went through.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+import torch
+
+KERNELS = ("defect", "smooth_down", "corr_up", "ns_fused")
+launches = dict.fromkeys(KERNELS, 0)
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+
+
+def _build_dir() -> Path:
+    checkout = Path(__file__).resolve().parent.parent.parent
+    if (checkout / "pyproject.toml").is_file():
+        return checkout / "build" / "fpr_tpu_torch"
+    cache = os.environ.get("XDG_CACHE_HOME") or Path.home() / ".cache"
+    return Path(cache) / "fpr_tpu_torch"
+
+
+BUILD_DIR = _build_dir()
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-O3", "-std=c++17", "-fmad=false",
+    "-shared", "-Xcompiler", "-fPIC",
+)
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_SIGNATURES = {
+    "fpr_num_blocks": [_I, _I],
+    "fpr_defect": [_P, _P, _P, _P, _P, _P, _F, _F, _F, _I, _I, _I, _P, _P, _P, _P, _P],
+    "fpr_sweep": [_P, _P, _P, _P, _F, _F, _F, _I, _I, _I, _I, _P, _P, _P],
+    "fpr_residual": [_P, _P, _P, _F, _F, _I, _I, _P, _P],
+    "fpr_ns_fused": [_P, _P, _P, _P, _P, _F, _F, _F, _F, _F, _F, _F, _I, _I, _I,
+                     _P, _P, _P, _P, _P],
+}
+
+_lib = None
+_lock = threading.Lock()
+
+
+def reset_launches() -> None:
+    for name in KERNELS:
+        launches[name] = 0
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    cands = [shutil.which("nvcc")]
+    if CUDA_HOME:
+        cands.append(os.path.join(CUDA_HOME, "bin", "nvcc"))
+    for c in cands:
+        if c and os.path.exists(c):
+            return c
+    raise RuntimeError(
+        "nvcc not found (PATH, CUDA_HOME): the fpr_tpu_torch CUDA kernels "
+        "cannot be built, and CUDA tensors have no other path"
+    )
+
+
+def _sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+
+
+def library_path() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"libfpr_tpu_torch_{h.hexdigest()[:16]}.so"
+
+
+def build() -> Path:
+    """Compile the sources unless a library of the same hash exists."""
+    out = library_path()
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.name}.tmp{os.getpid()}")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+           *[str(s) for s in sorted(CSRC.glob("*.cu"))]]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}"
+        )
+    os.replace(tmp, out)
+    return out
+
+
+def lib() -> ctypes.CDLL:
+    """The loaded kernel library (built on first use)."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            handle = ctypes.CDLL(str(build()))
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(handle, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            _lib = handle
+    return _lib
+
+
+def check(err: int, name: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with cudaError_t {err}")
+
+
+def ptr(t) -> int | None:
+    return None if t is None else t.data_ptr()
+
+
+def stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def num_blocks(ny: int, nx: int) -> int:
+    return lib().fpr_num_blocks(ny, nx)
+
+
+def require_cuda_f32(name: str, *tensors) -> None:
+    """Device, dtype and layout checks before pointers go to a kernel."""
+    dev = None
+    for t in tensors:
+        if t is None:
+            continue
+        if t.device.type != "cuda":
+            raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
+        if dev is not None and t.device != dev:
+            raise ValueError(f"{name}: tensors on {dev} and {t.device}")
+        dev = t.device
+        if t.dtype != torch.float32:
+            raise ValueError(f"{name}: the CUDA kernel takes float32, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: expected contiguous tensors")

@@ -1,0 +1,231 @@
+"""Double-single (two-float32) arithmetic and the defect pass K1
+(fpr_tpu/ops/ds.py: the error-free transforms, _defect_scalars,
+defect_pass, defect_pass_stk).
+
+A double-single value is a pair hi + lo of float32 tensors with
+|lo| <= ulp(hi)/2, about 48 mantissa bits.  The transforms below are exact
+only if every float32 operation is rounded on its own, which eager
+PyTorch does (one kernel per operation, no contraction) and which the
+CUDA kernel gets from ``-fmad=false``.
+
+The defect pass: u' = u - scale e, optional NS temperature BCs on u', the
+residual r = A u' - f in ds arithmetic (its hi part is returned), and
+sum(r^2).  The port's arrays are physical (ny, nx) planes: u_ds is
+(2, ny, nx) hi/lo, f_ds (1, ny, nx) for an exactly-float32 rhs or
+(2, ny, nx), e and r (ny, nx).
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+from fpr_tpu_torch import kernels
+from fpr_tpu_torch.core import bc
+
+# ---------------------------------------------------------------------------
+# error-free transforms (tensors of any shape; scalars as 0-dim tensors)
+# ---------------------------------------------------------------------------
+
+
+def two_sum(a, b):
+    """s + err == a + b exactly."""
+    s = a + b
+    bb = s - a
+    err = (a - (s - bb)) + (b - bb)
+    return s, err
+
+
+def quick_two_sum(a, b):
+    """s + err == a + b exactly, requires |a| >= |b|."""
+    s = a + b
+    err = b - (s - a)
+    return s, err
+
+
+def ds_add(xh, xl, yh, yl):
+    """(xh, xl) + (yh, yl), renormalised."""
+    s, e = two_sum(xh, yh)
+    e = e + (xl + yl)
+    return quick_two_sum(s, e)
+
+
+def split(a):
+    """Veltkamp split a == hi + lo into 12-bit-mantissa halves."""
+    t = a * 4097.0
+    hi = t - (t - a)
+    return hi, a - hi
+
+
+def two_prod(a, b):
+    """p + err == a * b exactly (Dekker product, no FMA)."""
+    p = a * b
+    ah, al = split(a)
+    bh, bl = split(b)
+    err = ((ah * bh - p) + ah * bl + al * bh) + al * bl
+    return p, err
+
+
+def ds_mul_ds(xh, xl, yh, yl):
+    """(xh, xl) * (yh, yl), dropping xl*yl."""
+    p, e = two_prod(xh, yh)
+    e = e + (xh * yl + xl * yh)
+    return quick_two_sum(p, e)
+
+
+def f32_pair(x: float):
+    """A Python float as (hi, lo) float32 values, as Python floats."""
+    hi = float(np.float32(x))
+    return hi, float(np.float32(x - hi))
+
+
+def _is_pow2(x: float) -> bool:
+    m, _ = math.frexp(x)
+    return m == 0.5
+
+
+# ---------------------------------------------------------------------------
+# the defect pass
+# ---------------------------------------------------------------------------
+
+
+def defect_scalars(c, h: float, device) -> torch.Tensor:
+    """C = 4 + c h^2 as a ds pair: a (2,) float32 device tensor
+    (ds._defect_scalars).  A Python c is split in float64 on the host; a
+    float32 tensor c (a runtime Helmholtz shift) through error-free
+    transforms on the device, keeping all ~48 bits of C."""
+    if not isinstance(c, torch.Tensor):
+        C = torch.empty(2, dtype=torch.float32, device=device)
+        C[0], C[1] = f32_pair(4.0 + float(c) * float(h) * float(h))
+        return C
+    if c.dtype != torch.float32:
+        raise ValueError(f"a tensor c must be float32, got {c.dtype}")
+    h2 = c.new_full((), float(h) * float(h))
+    p, pe = two_prod(c, h2)
+    s, se = two_sum(c.new_full((), 4.0), p)
+    return torch.stack(quick_two_sum(s, se + pe))
+
+
+def defect_pass_plain(u_ds, f_ds, e, scale, h, C, c_zero, apply_bcs=False,
+                      velocity_max=False, field_sumsq=False, r_out=None):
+    """Plain PyTorch version of K1; see ``defect_pass``."""
+    uh, ul = u_ds[0], u_ds[1]
+    if e is None:
+        e = torch.zeros_like(uh)
+    ph, pe = two_prod(e, uh.new_full((), float(scale)))
+    uh, ul = ds_add(uh, ul, -ph, -pe)
+    if apply_bcs:
+        uh = bc.ns_temperature_bcs(uh)
+        ul = bc.neumann_left_right(bc.dirichlet_top_bottom(ul, 0.0, 0.0))
+    inv_h2 = 1.0 / (float(h) * float(h))
+    I = (slice(1, -1), slice(1, -1))
+    up, dn, lf, rt = (slice(None, -2), slice(1, -1)), (slice(2, None), slice(1, -1)), \
+        (slice(1, -1), slice(None, -2)), (slice(1, -1), slice(2, None))
+    s1, e1 = two_sum(uh[up], uh[dn])
+    s2, e2 = two_sum(uh[lf], uh[rt])
+    sh_, e3 = two_sum(s1, s2)
+    sl_ = ((e1 + e2) + e3) + ((ul[up] + ul[dn]) + (ul[lf] + ul[rt]))
+    if c_zero:
+        cuh, cul = uh[I] * 4.0, ul[I] * 4.0
+    else:
+        cuh, cul = ds_mul_ds(uh[I], ul[I], C[0], C[1])
+    th, tl = ds_add(sh_, sl_, -cuh, -cul)
+    th, tl = th * inv_h2, tl * inv_h2
+    rs, re = two_sum(th, -f_ds[0][I])
+    if f_ds.shape[0] == 1:
+        r_int = rs + (re + tl)
+    else:
+        r_int = rs + (re + (tl - f_ds[1][I]))
+    r = torch.zeros_like(uh) if r_out is None else r_out.zero_()
+    r[I] = r_int
+    sums = r.new_zeros(4)
+    sums[0] = torch.sum(r * r)
+    if velocity_max:
+        inv2h = 0.5 / float(h)
+        sums[1] = torch.amax(torch.abs((uh[dn] - uh[up]) * inv2h))
+        sums[2] = torch.amax(torch.abs((uh[rt] - uh[lf]) * inv2h))
+    if field_sumsq:
+        sums[3] = torch.sum(uh * uh)
+    return torch.stack([uh, ul]), r, sums
+
+
+def _defect_cuda(u_ds, f_ds, e, scale, h, C, c_zero, apply_bcs=False,
+                 velocity_max=False, field_sumsq=False, r_out=None):
+    """K1 on the card (csrc/defect.cu); see ``defect_pass``."""
+    kernels.require_cuda_f32("defect_pass", u_ds, f_ds, e, C, r_out)
+    _, ny, nx = u_ds.shape
+    lib = kernels.lib()
+    u_out = torch.empty_like(u_ds)
+    r = torch.empty_like(u_ds[0]) if r_out is None else r_out
+    partials = torch.zeros((4, kernels.num_blocks(ny, nx)), dtype=torch.float32,
+                           device=u_ds.device)
+    flags = ((1 if apply_bcs else 0) | (2 if c_zero else 0)
+             | (4 if f_ds.shape[0] == 1 else 0) | (8 if velocity_max else 0)
+             | (16 if field_sumsq else 0))
+    err = lib.fpr_defect(
+        u_ds[0].data_ptr(), u_ds[1].data_ptr(), f_ds[0].data_ptr(),
+        f_ds[1].data_ptr() if f_ds.shape[0] == 2 else None, kernels.ptr(e),
+        C.data_ptr(), float(scale), 1.0 / (float(h) * float(h)), 0.5 / float(h),
+        ny, nx, flags, u_out[0].data_ptr(), u_out[1].data_ptr(), r.data_ptr(),
+        partials.data_ptr(), kernels.stream(u_ds),
+    )
+    kernels.check(err, "fpr_defect")
+    kernels.launches["defect"] += 1
+    sums = torch.stack([partials[0].sum(), partials[1].amax(), partials[2].amax(),
+                        partials[3].sum()])
+    return u_out, r, sums
+
+
+def _pass(u_ds, f_ds, e, scale, h, c, C, r_out, apply_bcs, velocity_max, field_sumsq):
+    """The shared body of defect_pass and defect_pass_stk."""
+    inv_h2 = 1.0 / (float(h) * float(h))
+    if not _is_pow2(inv_h2):
+        raise ValueError(f"1/h^2 = {inv_h2} must be a power of two (h = 1/2^k)")
+    if f_ds.dim() != 3 or f_ds.shape[0] not in (1, 2):
+        raise ValueError(f"f_ds must be (1|2, ny, nx), got {tuple(f_ds.shape)}")
+    c_zero = not isinstance(c, torch.Tensor) and float(c) == 0.0
+    if C is None:
+        C = defect_scalars(c, h, u_ds.device)
+    fn = defect_pass_plain if u_ds.device.type == "cpu" else _defect_cuda
+    u_out, r, sums = fn(u_ds, f_ds, e, scale, h, C, c_zero, apply_bcs=apply_bcs,
+                        velocity_max=velocity_max, field_sumsq=field_sumsq, r_out=r_out)
+    _, ny, nx = u_ds.shape
+    r_rms = torch.sqrt(sums[0] / sums.new_full((), float(nx * ny)))
+    extras = (sums[1], sums[2], sums[3]) if velocity_max or field_sumsq else None
+    return u_out, r, r_rms, extras
+
+
+def defect_pass(u_ds, f_ds, e, scale, h, c, C=None, apply_bcs=False,
+                velocity_max=False, field_sumsq=False):
+    """K1: u' = u - scale*e (ds), [NS temperature BCs on u'], r = A u' - f
+    (ds), sum(r_hi^2)  (ds.defect_pass).
+
+    u_ds: (2, ny, nx) float32 hi/lo.  f_ds: (1, ny, nx) for an exactly
+    float32 rhs (f_single) or (2, ny, nx).  e: (ny, nx) float32, or None for
+    zero.  c: the Helmholtz shift, a Python number (0 takes the exact x4
+    path) or a float32 tensor; C: its ``defect_scalars`` pair, if the caller
+    has it already.  1/h^2 must be a power of two.
+
+    Returns (u_ds', r, r_rms) with r_rms = sqrt(sum(r^2)/(nx ny)), plus
+    (max|du'/dy|, max|du'/dx|, sum(u'_hi^2)) when velocity_max or
+    field_sumsq (zeros where not asked for).  A CPU tensor runs the plain
+    version, a CUDA tensor the kernel.
+    """
+    u_out, r, r_rms, extras = _pass(u_ds, f_ds, e, scale, h, c, C, None, apply_bcs,
+                                    velocity_max, field_sumsq)
+    return (u_out, r, r_rms) + (() if extras is None else (extras,))
+
+
+def defect_pass_stk(u_ds, f_ds, L, scale, h, c, C=None, apply_bcs=False,
+                    velocity_max=False, field_sumsq=False):
+    """defect_pass on the (2, ny, nx) level state L = [e | rhs] of the
+    stacked V-cycle (ds.defect_pass_stk): e = L[0], and the new defect is
+    written into L[1], which the kernel does not read.  L[0] keeps the old
+    correction and counts as unspecified: the next cycle starts from a
+    zero iterate and never reads it.  Returns (u_ds', L, r_rms[, extras]).
+    """
+    u_out, _, r_rms, extras = _pass(u_ds, f_ds, L[0], scale, h, c, C, L[1], apply_bcs,
+                                    velocity_max, field_sumsq)
+    return (u_out, L, r_rms) + (() if extras is None else (extras,))

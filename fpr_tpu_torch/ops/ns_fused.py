@@ -1,0 +1,156 @@
+"""The fused Navier-Stokes operator pass K4 (fpr_tpu/ops/pallas_ns.py::
+ns_fused_rp, modes ``explicit`` with ``with_defect`` and ``rhs`` with
+``with_sumsq``).
+
+One pass over the stacked (2, ny, nx) float32 state TW = [T | W] and the
+stream function S:
+
+    T <- BCs(T)  (Dirichlet bottom 1 / top 0, then Neumann sides)
+    vx = dS/dy, vy = -dS/dx, B = Ra dT/dx, dT2 = k lap T, dW2 = Pr lap W
+    (no diffusion when beta == 1), first-order upwind advection dTx ... dWy
+    explicit: T' = T + dt (dT2 - dTx - dTy), W' = W + dt (dW2 - dWx - dWy - Pr B)
+    rhs:      T' = -cT (T + dt ((1-beta) dT2 - dTx - dTy)), W' likewise with cW
+
+On the boundary T' is the BC'd T and W' the old W (explicit), or -c times
+them (rhs).  Also returned: sum(T'^2) and sum(W'^2); with ``with_defect``
+(explicit only, S the (2, ny, nx) ds pair) the next stream-function
+solve's initial defect r = A S - W' in ds arithmetic, its rms, and the
+curl maxima max|dS/dy|, max|dS/dx| of S.  dt, cT and cW are 0-dim device
+tensors.  The port's arrays are physical; ``with_helm_defect`` is not
+ported (the fast loop does not use it).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from fpr_tpu_torch import kernels
+from fpr_tpu_torch.core import bc
+from fpr_tpu_torch.ops.ds import ds_add, two_sum
+
+_MODE_RHS, _WITH_DEFECT, _USE_DIF = 1, 2, 4
+
+
+def _use_dif(beta: float) -> bool:
+    return abs(beta - 1.0) > 1e-8
+
+
+def ns_fused_plain(TW, S, scal, h, Pr, Ra, k, beta, mode, with_defect):
+    """Plain PyTorch version of K4; see ``ns_fused_rp``."""
+    dt = scal[0]
+    T = bc.ns_temperature_bcs(TW[0])
+    W = TW[1]
+    Sh = S[0] if with_defect else S
+    I = (slice(1, -1), slice(1, -1))
+    up, dn, lf, rt = (slice(None, -2), slice(1, -1)), (slice(2, None), slice(1, -1)), \
+        (slice(1, -1), slice(None, -2)), (slice(1, -1), slice(2, None))
+    _2h, _h, _h2 = 0.5 / h, 1.0 / h, 1.0 / (h * h)
+    vx = (Sh[dn] - Sh[up]) * _2h
+    vy = -(Sh[rt] - Sh[lf]) * _2h
+    B = Ra * (T[rt] - T[lf]) * _2h
+
+    def lap(F):
+        return (F[up] + F[dn] + F[lf] + F[rt] - 4.0 * F[I]) * _h2
+
+    zero = T.new_zeros(())
+    dT2 = k * lap(T) if _use_dif(beta) else zero
+    dW2 = Pr * lap(W) if _use_dif(beta) else zero
+
+    def upwind(F, v, back_sl, fwd_sl):
+        back = (F[I] - F[back_sl]) * _h
+        fwd = (F[fwd_sl] - F[I]) * _h
+        return v * torch.where(v > 0, back, fwd)
+
+    dTx, dTy = upwind(T, vx, lf, rt), upwind(T, vy, up, dn)
+    dWx, dWy = upwind(W, vx, lf, rt), upwind(W, vy, up, dn)
+    PrB = Pr * B
+    if mode == "explicit":
+        T_out, W_out = T.clone(), W.clone()
+        T_out[I] = T[I] + dt * (dT2 - dTx - dTy)
+        W_out[I] = W[I] + dt * (dW2 - dWx - dWy - PrB)
+    else:
+        wdif = 1.0 - beta
+        termT, termW = torch.zeros_like(T), torch.zeros_like(W)
+        termT[I] = wdif * dT2 - dTx - dTy
+        termW[I] = wdif * dW2 - dWx - dWy - PrB
+        T_out = -scal[1] * (T + dt * termT)
+        W_out = -scal[2] * (W + dt * termW)
+    out = torch.stack([T_out, W_out])
+    sums = torch.stack([torch.sum(T_out * T_out), torch.sum(W_out * W_out),
+                        zero, zero, zero])
+    r = None
+    if with_defect:
+        Sl = S[1]
+        s1, e1 = two_sum(Sh[up], Sh[dn])
+        s2, e2 = two_sum(Sh[lf], Sh[rt])
+        sh_, e3 = two_sum(s1, s2)
+        sl_ = ((e1 + e2) + e3) + ((Sl[up] + Sl[dn]) + (Sl[lf] + Sl[rt]))
+        th, tl = ds_add(sh_, sl_, -(Sh[I] * 4.0), -(Sl[I] * 4.0))
+        th, tl = th * _h2, tl * _h2
+        rs, re = two_sum(th, -W_out[I])
+        r = torch.zeros_like(W)
+        r[I] = rs + (re + tl)
+        sums[2] = torch.sum(r * r)
+        sums[3] = torch.amax(torch.abs(vx))
+        sums[4] = torch.amax(torch.abs(vy))
+    return out, r, sums
+
+
+def _ns_fused_cuda(TW, S, scal, h, Pr, Ra, k, beta, mode, with_defect):
+    """K4 on the card (csrc/ns_fused.cu); see ``ns_fused_rp``."""
+    kernels.require_cuda_f32("ns_fused_rp", TW, S, scal)
+    lib = kernels.lib()
+    _, ny, nx = TW.shape
+    out = torch.empty_like(TW)
+    r = torch.empty_like(TW[0]) if with_defect else None
+    partials = torch.zeros((5, kernels.num_blocks(ny, nx)), dtype=torch.float32,
+                           device=TW.device)
+    flags = ((_MODE_RHS if mode == "rhs" else 0) | (_WITH_DEFECT if with_defect else 0)
+             | (_USE_DIF if _use_dif(beta) else 0))
+    Sh = S[0] if with_defect else S
+    err = lib.fpr_ns_fused(
+        TW[0].data_ptr(), TW[1].data_ptr(), Sh.data_ptr(),
+        S[1].data_ptr() if with_defect else None, scal.data_ptr(),
+        0.5 / h, 1.0 / h, 1.0 / (h * h), Pr, Ra, k, 1.0 - beta, ny, nx, flags,
+        out[0].data_ptr(), out[1].data_ptr(), kernels.ptr(r), partials.data_ptr(),
+        kernels.stream(TW),
+    )
+    kernels.check(err, "fpr_ns_fused")
+    kernels.launches["ns_fused"] += 1
+    sums = torch.cat([partials[:3].sum(dim=1), partials[3:].amax(dim=1)])
+    return out, r, sums
+
+
+def ns_fused_rp(TW, S, dt, h, Pr, Ra, k=1.0, beta=0.0, mode="explicit", cT=None,
+                cW=None, with_sumsq=False, with_defect=False):
+    """K4: the fused NS operator pass (pallas_ns.ns_fused_rp).
+
+    TW: (2, ny, nx) float32 [T | W]; S: (ny, nx) stream function, or the
+    (2, ny, nx) ds pair with ``with_defect``.  dt (and cT, cW in rhs mode):
+    0-dim float32 tensors on TW's device.
+
+    Returns out; with ``with_sumsq`` (out, (sum T'^2, sum W'^2)); with
+    ``with_defect`` (out, (sum T'^2, sum W'^2), (r, r_rms),
+    (max|dS/dy|, max|dS/dx|, 0)).  A CPU tensor runs the plain version, a
+    CUDA tensor the kernel.
+    """
+    if mode not in ("explicit", "rhs"):
+        raise ValueError(f"mode must be 'explicit' or 'rhs', got {mode!r}")
+    if with_defect and (mode != "explicit" or S.dim() != 3):
+        raise ValueError("with_defect is explicit-only and needs the (2, ny, nx) ds S")
+    if mode == "rhs" and (cT is None or cW is None):
+        raise ValueError("rhs mode needs cT and cW")
+    zero = TW.new_zeros(())
+    scal = torch.stack([dt.reshape(()).to(TW.dtype),
+                        zero if cT is None else cT.reshape(()).to(TW.dtype),
+                        zero if cW is None else cW.reshape(()).to(TW.dtype)])
+    fn = ns_fused_plain if TW.device.type == "cpu" else _ns_fused_cuda
+    out, r, sums = fn(TW, S, scal, float(h), float(Pr), float(Ra), float(k),
+                      float(beta), mode, with_defect)
+    if with_defect:
+        _, ny, nx = TW.shape
+        r_rms = torch.sqrt(sums[2] / sums.new_full((), float(nx * ny)))
+        return out, (sums[0], sums[1]), (r, r_rms), (sums[3], sums[4], zero)
+    if with_sumsq:
+        return out, (sums[0], sums[1])
+    return out

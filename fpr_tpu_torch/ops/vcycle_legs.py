@@ -1,0 +1,212 @@
+"""The fine-level legs of the stacked V-cycle, K2 and K3
+(fpr_tpu/ops/pallas2d.py: smooth2r_stk, corr_smooth2_stk).
+
+- ``smooth_down`` (K2, pallas2d.smooth2r_stk): ``ns`` damped-Jacobi sweeps
+  u += alpha h^2/C res(u), then the residual res(u) to restrict.
+- ``corr_up`` (K3, pallas2d.corr_smooth2_stk): u -= P(coarse correction),
+  then ``ns`` sweeps, and the rms of the residual that fed the last sweep.
+
+res(u) = (u_N + u_S + u_W + u_E - C u)/h^2 - f on the interior and 0 on
+the boundary, with C = 4 + c h^2.  The constants C, 1/h^2 and
+w = alpha (h^2/C) go from Python floats to the working type at the same
+points as in the TPU kernels, with c a runtime scalar tensor.  ``elim``
+copies the side columns from their interior neighbours on every row after
+each sweep, and in ``corr_up`` once before the first.  P is the coarse
+correction interpolated in x first (``transfer.x_interleave_coarse``, done
+by the caller), then in y: even fine rows take a coarse row, odd rows the
+mean of two.
+
+The port's arrays are physical (ny, nx) tensors.  The residual of
+``smooth_down`` is plain, not parity-split; ``transfer.restrict`` of it
+gives the values ``transfer.restrict_ps`` gives on the TPU.  Every sweep
+writes a buffer other than the one it reads (the TPU legs alias their
+output onto the level state instead).
+
+The plain versions are dtype-generic (float32 and float64); the CUDA
+kernels (csrc/vcycle_legs.cu) take float32.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from fpr_tpu_torch import kernels
+from fpr_tpu_torch.ops.stencil2d import as_scalar
+
+_SRC_ARRAY, _SRC_ZERO, _SRC_CORR = 0, 1, 2
+
+
+def _consts(c, h, like):
+    """(C, 1/h^2, w) in like's dtype, in the order of pallas2d.py:1080-1082."""
+    c = as_scalar(c, like)
+    h2 = like.new_full((), float(h) * float(h))
+    C = 4.0 + c * h2
+    return C, 1.0 / (float(h) * float(h)), h2 / C
+
+
+def _residual(v, f, C, inv_h2):
+    # the legs' operation order (pallas2d.py:1088-1095), not stencil2d's:
+    # the kernels and the TPU legs round this way
+    res = torch.zeros_like(v)
+    res[1:-1, 1:-1] = (
+        v[:-2, 1:-1] + v[2:, 1:-1] + v[1:-1, :-2] + v[1:-1, 2:] - C * v[1:-1, 1:-1]
+    ) * inv_h2 - f[1:-1, 1:-1]
+    return res
+
+
+def _elim(v):
+    v = v.clone()
+    v[:, 0] = v[:, 1]
+    v[:, -1] = v[:, -2]
+    return v
+
+
+def prolong_y(corrx: torch.Tensor, ny: int) -> torch.Tensor:
+    """P: the x-interleaved coarse rows interpolated in y to ny rows."""
+    P = corrx.new_empty((ny, corrx.shape[1]))
+    P[0::2] = corrx
+    P[1::2] = (corrx[:-1] + corrx[1:]) * 0.5
+    return P
+
+
+def smooth_down_plain(u, f, h, c, alpha=0.8, ns=2, elim=False):
+    """Plain PyTorch version of K2; see ``smooth_down``."""
+    C, inv_h2, hc = _consts(c, h, f)
+    w = f.new_full((), float(alpha)) * hc
+    if u is None:
+        r1 = torch.zeros_like(f)
+        r1[1:-1, 1:-1] = -f[1:-1, 1:-1]
+        v = w * r1
+    else:
+        v = u + w * _residual(u, f, C, inv_h2)
+    if elim:
+        v = _elim(v)
+    for _ in range(ns - 1):
+        v = v + w * _residual(v, f, C, inv_h2)
+        if elim:
+            v = _elim(v)
+    return v, _residual(v, f, C, inv_h2)
+
+
+def corr_up_plain(u, f, corrx, h, c, alpha=0.8, ns=2, elim=False,
+                  with_norm=False, out=None):
+    """Plain PyTorch version of K3; see ``corr_up``."""
+    C, inv_h2, hc = _consts(c, h, f)
+    w = f.new_full((), float(alpha)) * hc
+    v = u - prolong_y(corrx, u.shape[0])
+    if elim:
+        v = _elim(v)
+    res = None
+    for _ in range(ns):
+        res = _residual(v, f, C, inv_h2)
+        v = v + w * res
+        if elim:
+            v = _elim(v)
+    if out is not None:
+        out.copy_(v)
+        v = out
+    if not with_norm:
+        return v, None
+    n = res.new_full((), float(res.numel()))
+    return v, torch.sqrt(torch.sum(res * res) / n)
+
+
+def _check(name, ns, f):
+    if not 1 <= ns <= 6:
+        raise ValueError(f"{name}: ns must be in [1, 6], got {ns}")
+    if f.dim() != 2 or min(f.shape) < 3:
+        raise ValueError(f"{name}: expected an (ny, nx) tensor, got {tuple(f.shape)}")
+
+
+def _smooth_down_cuda(u, f, h, c, alpha=0.8, ns=2, elim=False):
+    """K2 on the card (csrc/vcycle_legs.cu); see ``smooth_down``."""
+    c = as_scalar(c, f)
+    kernels.require_cuda_f32("smooth_down", u, f, c)
+    lib = kernels.lib()
+    ny, nx = f.shape
+    h2, inv_h2 = float(h) * float(h), 1.0 / (float(h) * float(h))
+    st = kernels.stream(f)
+    bufs = (torch.empty_like(f), torch.empty_like(f))
+    src = u
+    for s in range(ns):
+        mode = _SRC_ZERO if (s == 0 and u is None) else _SRC_ARRAY
+        dst = bufs[s % 2]
+        err = lib.fpr_sweep(kernels.ptr(src), f.data_ptr(), None, c.data_ptr(), h2,
+                            inv_h2, float(alpha), ny, nx, mode, int(elim),
+                            dst.data_ptr(), None, st)
+        kernels.check(err, "fpr_sweep")
+        src = dst
+    res = torch.empty_like(f)
+    err = lib.fpr_residual(src.data_ptr(), f.data_ptr(), c.data_ptr(), h2, inv_h2,
+                           ny, nx, res.data_ptr(), st)
+    kernels.check(err, "fpr_residual")
+    kernels.launches["smooth_down"] += 1
+    return src, res
+
+
+def _corr_up_cuda(u, f, corrx, h, c, alpha=0.8, ns=2, elim=False,
+                  with_norm=False, out=None):
+    """K3 on the card (csrc/vcycle_legs.cu); see ``corr_up``."""
+    c = as_scalar(c, f)
+    kernels.require_cuda_f32("corr_up", u, f, corrx, c, out)
+    lib = kernels.lib()
+    ny, nx = f.shape
+    h2, inv_h2 = float(h) * float(h), 1.0 / (float(h) * float(h))
+    st = kernels.stream(f)
+    if out is None:
+        out = torch.empty_like(f)
+    bufs = (torch.empty_like(f), torch.empty_like(f))
+    partials = None
+    src = u
+    for s in range(ns):
+        last = s == ns - 1
+        dst = out if last else bufs[s % 2]
+        if last and with_norm:
+            partials = torch.empty(kernels.num_blocks(ny, nx), dtype=torch.float32,
+                                   device=f.device)
+        err = lib.fpr_sweep(src.data_ptr(), f.data_ptr(), corrx.data_ptr(),
+                            c.data_ptr(), h2, inv_h2, float(alpha), ny, nx,
+                            _SRC_CORR if s == 0 else _SRC_ARRAY, int(elim),
+                            dst.data_ptr(), kernels.ptr(partials), st)
+        kernels.check(err, "fpr_sweep")
+        src = dst
+    kernels.launches["corr_up"] += 1
+    if not with_norm:
+        return out, None
+    n = partials.new_full((), float(nx * ny))
+    return out, torch.sqrt(partials.sum() / n)
+
+
+def smooth_down(u, f, h, c, alpha=0.8, ns=2, elim=False):
+    """K2, the down leg (pallas2d.smooth2r_stk).
+
+    u: the (ny, nx) iterate, or None for a zero iterate (zero_u: the first
+    sweep is the closed form w * (-f)).  f: the (ny, nx) rhs.  c: the
+    shift, a Python number or a 0-dim tensor.  Returns (u', res) with u'
+    after ``ns`` sweeps (1..6) and res its residual.  A CPU tensor runs the
+    plain version, a CUDA tensor the kernel.
+    """
+    _check("smooth_down", ns, f)
+    if f.device.type == "cpu":
+        return smooth_down_plain(u, f, h, c, alpha, ns, elim)
+    return _smooth_down_cuda(u, f, h, c, alpha, ns, elim)
+
+
+def corr_up(u, f, corrx, h, c, alpha=0.8, ns=2, elim=False, with_norm=False,
+            out=None):
+    """K3, the up leg (pallas2d.corr_smooth2_stk).
+
+    u: the (ny, nx) iterate after the down leg; corrx: the
+    (ny//2 + 1, nx) x-interleaved coarse correction.  Writes
+    u - P(corrx) after ``ns`` sweeps into ``out`` (a new tensor if None),
+    which must not be u.  Returns (out, r_rms or None), r_rms the rms over
+    all nx*ny cells of the residual that fed the last sweep.
+    """
+    _check("corr_up", ns, f)
+    if corrx.shape != ((f.shape[0] - 1) // 2 + 1, f.shape[1]):
+        raise ValueError(f"corrx {tuple(corrx.shape)} does not fit {tuple(f.shape)}")
+    if out is not None and out.data_ptr() == u.data_ptr():
+        raise ValueError("corr_up: out must not alias u")
+    if f.device.type == "cpu":
+        return corr_up_plain(u, f, corrx, h, c, alpha, ns, elim, with_norm, out)
+    return _corr_up_cuda(u, f, corrx, h, c, alpha, ns, elim, with_norm, out)

@@ -1,0 +1,67 @@
+"""Where the time goes in the PyTorch/CUDA port, on one NVIDIA GPU.
+
+Profiles (torch.profiler, CPU + CUDA) a window of NS explicit steps and of
+NS semi-implicit steps at 2049x513, and one MG solve at 4097^2 (DST-513,
+V(5,5)), each after a warm-up run, and prints per window the wall time,
+the summed device time (kernels and memory copies), the device busy
+share, the kernel launch counts of the port's CUDA wrappers, and the top
+device kernels and copies.
+
+Run from the repo root on a GPU machine:  python scripts/torch_profile.py
+"""
+
+import os
+import sys
+import time
+
+sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+from torch.profiler import ProfilerActivity, profile  # noqa: E402
+
+from fpr_tpu_torch import kernels  # noqa: E402
+from fpr_tpu_torch.core.config import CoarseSolver, MGConfig, NSConfig  # noqa: E402
+from fpr_tpu_torch.models.navier_stokes import simulate_fast  # noqa: E402
+from fpr_tpu_torch.solvers.multigrid import mg_solve_ds  # noqa: E402
+
+
+def window(label, fn, top=12):
+    fn()
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    evs = [e for e in prof.key_averages()
+           if e.device_type.name == "CUDA" and (e.device_time_total or 0) > 0]
+    busy = sum(e.device_time_total for e in evs) / 1e6
+    print(f"[{label}] wall {wall:.4f} s  device time (kernels + copies) {busy:.4f} s  "
+          f"busy {busy / wall:.3f}  launches {dict(kernels.launches)}")
+    for e in sorted(evs, key=lambda e: -e.device_time_total)[:top]:
+        print(f"   {e.device_time_total / 1e3:10.2f} ms  n={e.count:6d}  {e.key[:90]}")
+
+
+def main():
+    if not torch.cuda.is_available():
+        sys.exit("torch_profile: no CUDA device")
+    print(os.popen("nvidia-smi --query-gpu=name,power.limit --format=csv,noheader").read().strip())
+    ns_kw = dict(nx=2049, ny=513, ttot=0.005, Pr=0.01, tol=1e-7, niters=50)
+    exp, semi = NSConfig(beta=0.0, **ns_kw), NSConfig(beta=0.5, **ns_kw)
+    window("NS explicit 53 steps",
+           lambda: simulate_fast(exp, seed=0, max_steps=53, device="cuda"))
+    window("NS semi 8 steps", lambda: simulate_fast(semi, seed=0, max_steps=8, device="cuda"))
+    n = 4097
+    cfg = MGConfig(coarse_size=513, coarse_solver=CoarseSolver.DST, pre_smooth=5,
+                   post_smooth=5)
+    b = np.zeros((n, n), np.float32)
+    b[1:-1, 1:-1] = np.random.default_rng(0).random((n - 2, n - 2))
+    b = torch.tensor(b, device="cuda")
+    window("MG 4097^2", lambda: mg_solve_ds(None, b, 1.0 / (n - 1), 0.0, 1e-6, 30, cfg=cfg,
+                                            return_pair=True))
+
+
+if __name__ == "__main__":
+    main()
