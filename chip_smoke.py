@@ -7,20 +7,35 @@ Phases, in order; the first failure stops the run with a non-zero exit:
 
 1. environment: the card's name and power limit (nvidia-smi), torch, CUDA
    and nvcc versions; TF32 matmuls must be off.
-2. build: the four CUDA kernels from ``fpr_tpu_torch/csrc``.
+2. build: the CUDA kernels from ``fpr_tpu_torch/csrc``, one nvcc per source.
 3. each kernel against its plain PyTorch version on the card, at the main
-   path's shapes and flags: field outputs bitwise equal, sums within a
+   paths' shapes and flags: field outputs bitwise equal, sums within a
    relative 1e-5 (a different summation order), maxima equal; times of a
    wrapper call from CUDA events over 20 calls after a warm-up, and the
-   device time of its CUDA kernels from torch.profiler.
+   device time of its CUDA kernels from torch.profiler.  Part 1's kernels
+   (dual_time K=1 and K=3 at 512^3, ds3d at 128^3, all three at a ragged
+   67x45x130) run here too.
 4. the MG row: ``mg_solve_ds`` at 4097^2, DST coarse 513, V(5,5), tol 1e-6,
    with a true float64 residual checked on the card.
 5. NS explicit at 2049x513, Pr=0.01, tol 1e-7, ttot 0.005 (the main path):
    8736 timed steps, launch counts of all four kernels, and its first 20
    steps against the plain versions.
 6. NS semi-implicit (beta=0.5) at the same size, kernels against plain.
+7. the diffusion bench row: ``diffusion3d.solve`` at 512^3 float32, PALLAS
+   with check_every=3, ttot 0.8 (3 warm-up steps, 1 timed), each step
+   capped at 300 iterations; then 30 iterations per step through the
+   kernels and through the plain versions: equal counts, bitwise fields.
+8. diffusion 128^3 float32, ttot 2, tol 1e-6, converged with check_every
+   1 (the dual_time kernel) and 3: the probe within 1e-4 of the reference's
+   0.0799870; the check_every=1 solve again through the plain versions.
+9. the double-single tier at 128^3, ttot 2, tol 1e-10: converged, the probe
+   within 1e-6 of the reference's 0.0799604096; kernels against plain for
+   200 iterations per step.
 
-The second-to-last line is the kernel table as JSON; the last line is
+Each kernel's launches are counted over the one path run that uses it
+(phase 5 for the NS kernels, 7 for dual_timek, 8 for dual_time, 9 for
+ds3d), with the counts set to 0 just before it.  The second-to-last line
+is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -34,6 +49,9 @@ import sys
 import time
 
 REL_SUM = 1e-5  # sums in another order: a few float32 ulps of ~1e6 terms
+# NVIDIA's H100 SXM data sheet: HBM3 bandwidth, float32 outside the tensor cores
+PEAK_BYTES_S = 3.35e12
+PEAK_F32_FLOPS_S = 67e12
 
 
 def log(msg: str) -> None:
@@ -84,15 +102,42 @@ def device_us(fn, names, reps: int = 20):
     return total / reps if total > 0 else None
 
 
+def tensors(*xs):
+    """The tensors in xs, with tuples and lists flattened."""
+    import torch
+
+    out = []
+    for x in xs:
+        if isinstance(x, (tuple, list)):
+            out += tensors(*x)
+        elif isinstance(x, torch.Tensor):
+            out.append(x)
+    return out
+
+
+def io_bytes(inputs, outputs) -> int:
+    """Bytes a call must move: each input read once, each output written once."""
+    return sum(t.numel() * t.element_size() for t in tensors(inputs, outputs))
+
+
 @contextlib.contextmanager
 def plain_kernels():
     """Route the CUDA wrappers to their plain PyTorch versions."""
-    from fpr_tpu_torch.ops import ds, ns_fused, vcycle_legs
+    from fpr_tpu_torch.ops import ds, ds3d, dual_time, ns_fused, vcycle_legs
 
     swaps = [(ds, "_defect_cuda", ds.defect_pass_plain),
              (vcycle_legs, "_smooth_down_cuda", vcycle_legs.smooth_down_plain),
              (vcycle_legs, "_corr_up_cuda", vcycle_legs.corr_up_plain),
-             (ns_fused, "_ns_fused_cuda", ns_fused.ns_fused_plain)]
+             (ns_fused, "_ns_fused_cuda", ns_fused.ns_fused_plain),
+             (dual_time, "_dual_time_cuda",
+              lambda Ht, Htau, cf, out=None, partials=None:
+              dual_time.dual_time_step_plain(Ht, Htau, cf, out)),
+             (dual_time, "_dual_timek_cuda",
+              lambda Ht, Htau, K, cf, scratch=None, partials=None:
+              dual_time.dual_time_stepk_plain(Ht, Htau, K, cf, scratch)),
+             (ds3d, "_ds3d_cuda",
+              lambda Ht, Htau, cp, out=None, partials=None:
+              ds3d.ds3d_step_plain(Ht, Htau, cp, out))]
     saved = [getattr(m, n) for m, n, _ in swaps]
     try:
         for m, n, f in swaps:
@@ -129,6 +174,23 @@ class KernelCheck:
             else:
                 require(abs(g - w) <= REL_SUM * max(abs(w), 1e-30),
                         f"{name} {what}: sum {g!r} vs plain {w!r}")
+
+    def timed(self, name, k_fn, p_fn, inputs, shape, kernel_names, flops):
+        """Times of a kernel call and of its plain version at the path's
+        shape, and what its bound needs: the bytes of the inputs and of one
+        call's outputs, and the call's float32 operations."""
+        row = self.rows.setdefault(name, {"max_abs_err": 0.0})
+        row.update(io_bytes=io_bytes(inputs, k_fn()), flops=flops, shape=list(shape),
+                   ms=time_ms(k_fn), plain_ms=time_ms(p_fn),
+                   device_us=device_us(k_fn, kernel_names))
+
+    def bound(self, name):
+        """(ms, "bytes" | "operations"): the least time the card could take
+        for the timed call, at 3.35 TB/s and 67 TFLOP/s float32."""
+        row = self.rows[name]
+        t_bytes = row["io_bytes"] / PEAK_BYTES_S * 1e3
+        t_ops = row["flops"] / PEAK_F32_FLOPS_S * 1e3
+        return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def phase_env():
@@ -205,12 +267,9 @@ def phase_kernels(kc: KernelCheck):
     kc.fields("defect", ds._defect_cuda(*args4)[:2], ds.defect_pass_plain(*args4)[:2],
               "4097^2")
     args = (u, f, e, 1.0, h, ds.defect_scalars(0.0, h, dev), True)
-    kc.rows["defect"]["ms"] = time_ms(lambda: ds._defect_cuda(*args, velocity_max=True))
-    kc.rows["defect"]["plain_ms"] = time_ms(
-        lambda: ds.defect_pass_plain(*args, velocity_max=True))
-    kc.rows["defect"]["shape"] = [ny, nx]
-    kc.rows["defect"]["device_us"] = device_us(
-        lambda: ds._defect_cuda(*args, velocity_max=True), ["defect_kernel"])
+    kc.timed("defect", lambda: ds._defect_cuda(*args, velocity_max=True),
+             lambda: ds.defect_pass_plain(*args, velocity_max=True), args, (ny, nx),
+             ["defect_kernel"], flops=120 * ny * nx)
 
     # K2 and K3, the legs: NS (ns=3, 513x2049, elim for the T solve) and the
     # MG row (ns=5 on 4097^2, 2049^2, 1025^2)
@@ -233,17 +292,16 @@ def phase_kernels(kc: KernelCheck):
         kc.fields("corr_up", got[:1], want[:1], tag)
         kc.sums("corr_up", got[1:], want[1:], f"{tag} norm")
         if (ny, nx) == (513, 2049) and not elim and c == 0.0:
-            for name, k_fn, p_fn, a in (
+            # about 10 flops a cell per sweep and per residual pass, 2 for the norm
+            for name, k_fn, p_fn, a, flops in (
                 ("smooth_down", vcycle_legs._smooth_down_cuda,
-                 vcycle_legs.smooth_down_plain, (None, f2, h, ct, 0.8, ns, elim)),
+                 vcycle_legs.smooth_down_plain, (None, f2, h, ct, 0.8, ns, elim),
+                 (ns + 1) * 10 * ny * nx),
                 ("corr_up", vcycle_legs._corr_up_cuda, vcycle_legs.corr_up_plain,
-                 (u2, f2, corrx, h, ct, 0.8, ns, elim, True)),
+                 (u2, f2, corrx, h, ct, 0.8, ns, elim, True), (ns * 10 + 2) * ny * nx),
             ):
-                kc.rows[name]["ms"] = time_ms(lambda: k_fn(*a))
-                kc.rows[name]["plain_ms"] = time_ms(lambda: p_fn(*a))
-                kc.rows[name]["shape"] = [ny, nx]
-                kc.rows[name]["device_us"] = device_us(
-                    lambda: k_fn(*a), ["sweep_kernel", "residual_kernel"])
+                kc.timed(name, lambda: k_fn(*a), lambda: p_fn(*a), a, (ny, nx),
+                         ["sweep_kernel", "residual_kernel"], flops)
 
     # K4, the NS operator: explicit + defect, rhs at beta 0.5 and 1
     ny, nx = 513, 2049
@@ -262,15 +320,83 @@ def phase_kernels(kc: KernelCheck):
         kc.sums("ns_fused", sk[:3], sp[:3], f"{mode} beta={beta} sums")
         kc.sums("ns_fused", sk[3:], sp[3:], f"{mode} beta={beta} maxima", exact=True)
     a = (TW, S, scal, h, 0.01, 1e6, 1.0, 0.0, "explicit", True)
-    kc.rows["ns_fused"]["ms"] = time_ms(lambda: ns_fused._ns_fused_cuda(*a))
-    kc.rows["ns_fused"]["plain_ms"] = time_ms(lambda: ns_fused.ns_fused_plain(*a))
-    kc.rows["ns_fused"]["shape"] = [ny, nx]
-    kc.rows["ns_fused"]["device_us"] = device_us(
-        lambda: ns_fused._ns_fused_cuda(*a), ["ns_kernel"])
+    kc.timed("ns_fused", lambda: ns_fused._ns_fused_cuda(*a),
+             lambda: ns_fused.ns_fused_plain(*a), a, (ny, nx), ["ns_kernel"],
+             flops=80 * ny * nx)
+    phase_kernels_3d(kc)
     for name, row in kc.rows.items():
+        b_ms, b_by = kc.bound(name)
         log(f"{name:12s} {row['shape']}: call {row['ms'] * 1e3:9.1f} us  "
             f"plain {row['plain_ms'] * 1e3:9.1f} us  kernels on the device "
-            f"{row['device_us']} us  max abs err {row['max_abs_err']}")
+            f"{row['device_us']} us  bound {b_ms * 1e3:.1f} us ({b_by})  "
+            f"max abs err {row['max_abs_err']}")
+
+
+def diffusion_kw(shape):
+    """The step constants of part 1's grid of this shape, as the solve has them."""
+    from fpr_tpu_torch.core.grid import Grid3D, pseudo_timestep
+
+    nz, ny, nx = shape
+    g = Grid3D(nx, ny, nz)
+    return dict(dt=0.2, dtau=pseudo_timestep(g.dx, g.dy, g.dz, 1.0), dx=g.dx, dy=g.dy,
+                dz=g.dz, D=1.0)
+
+
+def phase_kernels_3d(kc: KernelCheck):
+    """Part 1's kernels against their plain versions (still phase 3)."""
+    import numpy as np
+    import torch
+
+    from fpr_tpu_torch import kernels
+    from fpr_tpu_torch.ops import ds3d, dual_time
+
+    log("== phase 3, part 1: dual_time (K=1, K=3) and ds3d against their plain versions")
+    dev = torch.device("cuda", 0)
+    rng = np.random.default_rng(1)
+    ragged = (67, 45, 130)
+    for shape in ((512, 512, 512), ragged):
+        cells = int(np.prod(shape))
+        cf = dual_time.coeffs(**diffusion_kw(shape))
+        Ht = torch.tensor(rng.random(shape, dtype=np.float32), device=dev)
+        Hs = torch.tensor(rng.random(shape, dtype=np.float32), device=dev)
+        got = dual_time._dual_time_cuda(Ht, Hs, cf)
+        want = dual_time.dual_time_step_plain(Ht, Hs, cf)
+        kc.fields("dual_time", got[:1], want[:1], f"{shape}")
+        kc.sums("dual_time", got[1:], want[1:], f"{shape} sumsq")
+        got = dual_time._dual_timek_cuda(Ht, Hs.clone(), 3, cf)
+        want = dual_time.dual_time_stepk_plain(Ht, Hs.clone(), 3, cf)
+        kc.fields("dual_timek", got[:1], want[:1], f"{shape} K=3")
+        kc.sums("dual_timek", got[1:], want[1:], f"{shape} K=3 last sumsq")
+        del got, want
+        if shape != ragged:
+            # the solve's steady state: ping-pong buffers and partials reused
+            out, part = torch.empty_like(Hs), kernels.partials_3d(shape, dev)
+            kc.timed("dual_time", lambda: dual_time._dual_time_cuda(Ht, Hs, cf, out, part),
+                     lambda: dual_time.dual_time_step_plain(Ht, Hs, cf, out),
+                     (Ht, Hs), shape, ["dual_time_kernel"], flops=27 * cells)
+            kc.timed("dual_timek",
+                     lambda: dual_time._dual_timek_cuda(Ht, Hs, 3, cf, out, part),
+                     lambda: dual_time.dual_time_stepk_plain(Ht, Hs, 3, cf, out),
+                     (Ht, Hs), shape, ["dual_time_kernel"], flops=3 * 27 * cells)
+            del out, part
+        del Ht, Hs
+        torch.cuda.empty_cache()
+    for shape in ((128, 128, 128), ragged):
+        cells = int(np.prod(shape))
+        cp = ds3d.ds_coeffs(**diffusion_kw(shape))
+        H = torch.tensor(rng.random(shape), device=dev)
+        Ht = ds3d.to_ds(H)
+        Hs = ds3d.to_ds(H + 1e-3 * torch.tensor(rng.standard_normal(shape), device=dev))
+        got = ds3d._ds3d_cuda(Ht, Hs, cp)
+        want = ds3d.ds3d_step_plain(Ht, Hs, cp)
+        kc.fields("ds3d", got[:1], want[:1], f"{shape} hi/lo")
+        kc.sums("ds3d", got[1:], want[1:], f"{shape} sumsq")
+        if shape != ragged:
+            out, part = torch.empty_like(Hs), kernels.partials_3d(shape, dev)
+            kc.timed("ds3d", lambda: ds3d._ds3d_cuda(Ht, Hs, cp, out, part),
+                     lambda: ds3d.ds3d_step_plain(Ht, Hs, cp, out), (Ht, Hs), shape,
+                     ["ds3d_kernel"], flops=190 * cells)
+    torch.cuda.synchronize()
 
 
 def phase_mg():
@@ -347,7 +473,7 @@ def phase_ns_explicit():
     require(out.timed_iters == 8736, f"timed_iters {out.timed_iters} != 8736")
     for name in ("T", "W", "S"):
         require(np.isfinite(getattr(out, name)).all(), f"non-finite {name}")
-    for k in kernels.KERNELS:
+    for k in NS_KERNELS:
         require(counts[k] > 0, f"the NS main path never launched {k}")
     k20 = simulate_fast(cfg, seed=0, max_steps=20, device="cuda")
     with plain_kernels():
@@ -376,11 +502,135 @@ def phase_ns_semi():
     return out
 
 
+def diffusion_run(cfg, what):
+    """One diffusion3d.solve on the card with the launch counts of that run."""
+    from fpr_tpu_torch import kernels
+    from fpr_tpu_torch.models import diffusion3d
+
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    out = diffusion3d.solve(cfg, device="cuda")
+    secs = time.perf_counter() - t0
+    counts = {k: v for k, v in kernels.launches.items() if v}
+    log(f"{what}: iters_total {out.iters_total}  timed_iters {out.timed_iters}  "
+        f"converged {out.converged}  solve {secs:.3f} s (timed window "
+        f"{out.bench.delta_t:.4f} s)  launches {counts}")
+    require(out.H.shape == (cfg.nz, cfg.ny, cfg.nx), f"{what}: H shape {out.H.shape}")
+    return out, dict(kernels.launches)
+
+
+def compare_diffusion(cfg, what, k=None):
+    """cfg through the kernels (k, if that run was made already) and through
+    their plain versions: equal iteration counts, bitwise-equal fields."""
+    import numpy as np
+
+    from fpr_tpu_torch.models import diffusion3d
+
+    if k is None:
+        k = diffusion3d.solve(cfg, device="cuda")
+    with plain_kernels():
+        p = diffusion3d.solve(cfg, device="cuda")
+    require((k.iters_total, k.timed_iters) == (p.iters_total, p.timed_iters),
+            f"{what}: iterations {k.iters_total}/{k.timed_iters} vs plain "
+            f"{p.iters_total}/{p.timed_iters}")
+    err = float(np.abs(k.H - p.H).max())
+    require(np.array_equal(k.H, p.H), f"{what}: fields differ from plain by {err:.3e}")
+    log(f"  {what}: {k.iters_total} iterations on both, fields bitwise equal")
+    return k
+
+
+def probe(out):
+    """H(4.5, 4.5, 4.5) of a solve on the default 10^3 domain."""
+    from fpr_tpu_torch.core.grid import Grid3D
+    from fpr_tpu_torch.models import diffusion3d
+
+    nz, ny, nx = out.H.shape
+    return diffusion3d.probe_nearest(out.H, Grid3D(nx, ny, nz))
+
+
+def phase_diffusion_bench():
+    import dataclasses
+
+    import numpy as np
+
+    from fpr_tpu_torch.core.config import DiffusionConfig, ExecutionPolicy
+
+    log("== phase 7: diffusion bench row, 512^3 float32, PALLAS check_every=3, "
+        "ttot 0.8 (3 warm-up steps, 1 timed)")
+    cap = 300
+    cfg = DiffusionConfig(nx=512, ny=512, nz=512, ttot=0.8, dt=0.2, tol=1e-6,
+                          iter_max=cap, policy=ExecutionPolicy.PALLAS, check_every=3)
+    out, counts = diffusion_run(cfg, "512^3 K=3")
+    log(f"capped: every physical step stops at iter_max={cap} iterations, as the bench "
+        f"row caps it; converged {out.converged}")
+    require(np.isfinite(out.H).all(), "non-finite H")
+    require(out.timed_iters == cap and out.iters_total == 4 * cap,
+            f"expected {cap} timed and {4 * cap} iterations in all, got "
+            f"{out.timed_iters}/{out.iters_total}")
+    require(counts["dual_timek"] > 0, "the 512^3 K=3 run never launched dual_timek")
+    log(f"timed_iters {out.timed_iters}  seconds {out.bench.delta_t:.4f}  "
+        f"ms per iteration {out.bench.delta_t / out.timed_iters * 1e3:.4f}  "
+        f"T_eff {out.bench.throughput / 1e9:.1f} GB/s (counted, fused model)  "
+        f"launches dual_timek {counts['dual_timek']}")
+    compare_diffusion(dataclasses.replace(cfg, iter_max=30), "512^3 K=3, 30 iterations a step")
+    return counts
+
+
+REF_PROBE_F32 = 0.0799870          # 128^3, ttot 2, tol 1e-6 (the reference's val column)
+REF_PROBE_DS = 0.07996040957329686  # 128^3, ttot 2, tol 1e-10 (error_vs_tolerance.csv)
+
+
+def phase_diffusion_f32():
+    import dataclasses
+
+    from fpr_tpu_torch.core.config import DiffusionConfig, ExecutionPolicy
+
+    log("== phase 8: diffusion 128^3 float32, ttot 2, tol 1e-6, converged")
+    cfg = DiffusionConfig(nx=128, ny=128, nz=128, ttot=2.0, tol=1e-6,
+                          policy=ExecutionPolicy.PALLAS, check_every=1)
+    out, counts = diffusion_run(cfg, "128^3 K=1")
+    v = probe(out)
+    log(f"probe H(4.5,4.5,4.5) {v:.7f} (reference {REF_PROBE_F32})")
+    require(out.converged, "128^3 K=1 did not converge")
+    require(abs(v - REF_PROBE_F32) <= 1e-4, f"probe {v} is not within 1e-4 of {REF_PROBE_F32}")
+    require(counts["dual_time"] > 0, "the 128^3 K=1 run never launched dual_time")
+    out3, _ = diffusion_run(dataclasses.replace(cfg, check_every=3), "128^3 K=3")
+    v3 = probe(out3)
+    log(f"probe H(4.5,4.5,4.5) {v3:.7f}")
+    require(out3.converged and abs(v3 - REF_PROBE_F32) <= 1e-4, "128^3 K=3 run failed")
+    compare_diffusion(cfg, "128^3 K=1 converged", k=out)
+    return counts
+
+
+def phase_diffusion_ds():
+    import dataclasses
+
+    from fpr_tpu_torch.core.config import DiffusionConfig, ExecutionPolicy
+
+    log("== phase 9: diffusion 128^3 double-single, ttot 2, tol 1e-10")
+    cfg = DiffusionConfig(nx=128, ny=128, nz=128, ttot=2.0, tol=1e-10,
+                          policy=ExecutionPolicy.PALLAS_DS)
+    out, counts = diffusion_run(cfg, "128^3 ds")
+    v = probe(out)
+    log(f"probe H(4.5,4.5,4.5) {v!r} (reference {REF_PROBE_DS!r}, diff {v - REF_PROBE_DS:.3e})")
+    require(out.converged, "128^3 ds did not converge")
+    require(abs(v - REF_PROBE_DS) <= 1e-6, f"probe {v} is not within 1e-6 of {REF_PROBE_DS}")
+    require(counts["ds3d"] > 0, "the ds run never launched ds3d")
+    # H = hi + lo is exact in float64, so equal H means equal hi/lo pairs
+    compare_diffusion(dataclasses.replace(cfg, iter_max=200), "128^3 ds, 200 iterations a step")
+    return counts
+
+
+NS_KERNELS = ("defect", "smooth_down", "corr_up", "ns_fused")
+# kernel: (source, the TPU kernel it replaces)
 SOURCES = {
     "defect": ("fpr_tpu_torch/csrc/defect.cu", "fpr_tpu/ops/ds.py:149"),
     "smooth_down": ("fpr_tpu_torch/csrc/vcycle_legs.cu", "fpr_tpu/ops/pallas2d.py:996"),
     "corr_up": ("fpr_tpu_torch/csrc/vcycle_legs.cu", "fpr_tpu/ops/pallas2d.py:1223"),
     "ns_fused": ("fpr_tpu_torch/csrc/ns_fused.cu", "fpr_tpu/ops/pallas_ns.py:58"),
+    "dual_time": ("fpr_tpu_torch/csrc/dual_time.cu", "fpr_tpu/ops/pallas3d.py:168"),
+    "dual_timek": ("fpr_tpu_torch/csrc/dual_time.cu", "fpr_tpu/ops/pallas3d.py:516"),
+    "ds3d": ("fpr_tpu_torch/csrc/ds3d.cu", "fpr_tpu/ops/ds3d.py:70"),
 }
 
 
@@ -405,15 +655,23 @@ def main() -> int:
         kc = KernelCheck()
         phase_kernels(kc)
         phase_mg()
-        counts, _ = phase_ns_explicit()
+        ns_counts, _ = phase_ns_explicit()
         phase_ns_semi()
+        launches = {k: ns_counts[k] for k in NS_KERNELS}
+        launches["dual_timek"] = phase_diffusion_bench()["dual_timek"]
+        launches["dual_time"] = phase_diffusion_f32()["dual_time"]
+        launches["ds3d"] = phase_diffusion_ds()["ds3d"]
     except Failed as exc:
         log(f"chip_smoke FAILED: {exc}")
         return 1
-    table = [dict(name=k, route="cuda", source=SOURCES[k][0], replaces=SOURCES[k][1],
-                  launches=counts[k], max_abs_err=kc.rows[k]["max_abs_err"],
-                  ms=kc.rows[k]["ms"], plain_ms=kc.rows[k]["plain_ms"])
-             for k in SOURCES]
+    table = []
+    for k, (source, replaces) in SOURCES.items():
+        row = kc.rows[k]
+        bound_ms, bound_by = kc.bound(k)
+        table.append(dict(name=k, route="cuda", source=source, replaces=replaces,
+                          launches=launches[k], max_abs_err=row["max_abs_err"],
+                          ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=bound_ms,
+                          bound_by=bound_by, library_ms=None))
     print(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

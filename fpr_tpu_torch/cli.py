@@ -1,6 +1,7 @@
-"""Command-line interface of the port (fpr_tpu/cli.py: the ``ns --fast`` and
-``mg --solver ds`` subcommands):
+"""Command-line interface of the port (fpr_tpu/cli.py: the single-device
+``diffusion3d``, ``ns --fast`` and ``mg --solver ds`` subcommands):
 
+    python -m fpr_tpu_torch diffusion3d --n 512 --policy pallas --check-every 3 --ttot 0.8 --bench
     python -m fpr_tpu_torch ns --nx 2049 --ny 513 --Pr 0.01 --tol 1e-7 --ttot 0.005 --fast
     python -m fpr_tpu_torch mg --k 12 --l 9 --coarse dst --smooths 5
 
@@ -11,10 +12,27 @@ versions of the kernels.
 from __future__ import annotations
 
 import argparse
+import json
 import time
 
 import numpy as np
 import torch
+
+
+def cmd_diffusion3d(args):
+    from fpr_tpu_torch.core.config import DiffusionConfig, ExecutionPolicy
+    from fpr_tpu_torch.core.grid import Grid3D
+    from fpr_tpu_torch.models import diffusion3d
+
+    cfg = DiffusionConfig(nx=args.n, ny=args.n, nz=args.n, ttot=args.ttot, tol=args.tol,
+                          policy=ExecutionPolicy(args.policy), check_every=args.check_every)
+    out = diffusion3d.solve(cfg, dtype=torch.float64 if args.f64 else torch.float32,
+                            verbose=args.verbose, device=args.device)
+    print(f"iterations: {out.iters_total} (converged: {out.converged})")
+    g = Grid3D(args.n, args.n, args.n)
+    print(f"probe H(4.5,4.5,4.5): {diffusion3d.probe_nearest(out.H, g):.7f}")
+    if args.bench:
+        print(json.dumps(out.bench.row()))
 
 
 def cmd_ns(args):
@@ -71,7 +89,23 @@ def main(argv=None):
     ap = argparse.ArgumentParser(prog="fpr_tpu_torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
 
-    p = sub.add_parser("ns", help="2D Navier-Stokes thermal convection, fast path")
+    p = sub.add_parser("diffusion3d", help="3D pseudo-transient diffusion (part 1)")
+    p.add_argument("--device", default="cuda")
+    p.add_argument("--n", type=int, default=128)
+    p.add_argument("--ttot", type=float, default=1.0)
+    p.add_argument("--tol", type=float, default=1e-8)
+    p.add_argument("--policy", choices=["jnp", "pallas", "pallas_ds"], default="pallas",
+                   help="jnp: plain PyTorch; pallas: the float32 kernel; pallas_ds: the "
+                        "double-single kernel, for tolerances below the float32 floor")
+    p.add_argument("--check-every", type=int, default=1,
+                   help="pallas only: K iterations per call between convergence checks")
+    p.add_argument("--f64", action="store_true", help="float64 (the jnp tier, or the CPU)")
+    p.add_argument("--bench", action="store_true",
+                   help="print the counted performance model as one JSON line")
+    p.add_argument("--verbose", action="store_true")
+    p.set_defaults(fn=cmd_diffusion3d)
+
+    p = sub.add_parser("ns",help="2D Navier-Stokes thermal convection, fast path")
     p.add_argument("--device", default="cuda")
     p.add_argument("--nx", type=int, default=257)
     p.add_argument("--ny", type=int, default=65)

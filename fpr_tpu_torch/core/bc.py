@@ -1,4 +1,4 @@
-"""Boundary conditions on (ny, nx) tensors (fpr_tpu/core/bc.py).
+"""Boundary conditions on (ny, nx) and (nz, ny, nx) tensors (fpr_tpu/core/bc.py).
 
 Out of place, as in the JAX package: each function returns a new tensor.
 Rows 0 / ny-1 are the bottom / top edges, columns 0 / nx-1 the sides.
@@ -29,6 +29,15 @@ def ns_temperature_bcs(T: torch.Tensor):
     """Dirichlet bottom/top, then Neumann sides, which win at the corners
     (bc.ns_temperature_bcs)."""
     return neumann_left_right(dirichlet_top_bottom(T))
+
+
+def dirichlet_faces_3d(H: torch.Tensor, value: float = 0.0):
+    """``value`` on all six faces of an (nz, ny, nx) field (bc.dirichlet_faces_3d)."""
+    H = H.clone()
+    for axis in range(3):
+        H.select(axis, 0).fill_(value)
+        H.select(axis, -1).fill_(value)
+    return H
 
 
 def zero_boundary_2d(a: torch.Tensor):

@@ -5,14 +5,36 @@ the same field names and defaults, kept in this package so that the port
 imports nothing of the JAX package: ``MGConfig`` (minus the execution
 policy, smoother and restriction choices, which are fixed here to damped
 Jacobi and injection), ``NSConfig`` (minus ``mg_solver``, which selects
-the unported host-loop tiers) and the ``InitScheme`` / ``CoarseSolver``
-enums.  The CG coarse solver is not ported yet.
+the unported host-loop tiers), ``DiffusionConfig`` (minus
+``scale_physical_size`` and ``overlap_comm``, which belong to the
+unported sharded tier) and the ``ExecutionPolicy`` / ``InitScheme`` /
+``CoarseSolver`` enums.  The CG coarse solver is not ported yet.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import enum
+
+
+class ExecutionPolicy(enum.Enum):
+    """Tier of the 3D dual-time step (fpr_tpu.core.config.ExecutionPolicy),
+    with the JAX names and values so that configs and ``--policy`` map one
+    to one.
+
+    - JNP: plain PyTorch ops (``ops/stencil3d.py``), on any device and dtype.
+    - PALLAS: the float32 CUDA kernel (``ops/dual_time.py``); with
+      ``check_every`` = K >= 2, K iterations per call between norm checks.
+    - PALLAS_DS: the double-single (two-float32) CUDA kernel
+      (``ops/ds3d.py``), for tolerances below the float32 floor.
+
+    On a CPU tensor the two kernel tiers run their kernels' plain PyTorch
+    versions.
+    """
+
+    JNP = "jnp"
+    PALLAS = "pallas"
+    PALLAS_DS = "pallas_ds"
 
 
 class CoarseSolver(enum.Enum):
@@ -80,4 +102,27 @@ class NSConfig:
     @property
     def dt_dif(self) -> float:
         return self.a_dif * self.h**2 / max(self.k, self.Pr)
+
+
+@dataclasses.dataclass(frozen=True)
+class DiffusionConfig:
+    """3D pseudo-transient diffusion input (fpr_tpu.core.config.DiffusionConfig).
+
+    check_every: pseudo-time iterations between convergence checks (PALLAS
+    only); 1 checks every iteration, as the reference does.
+    """
+
+    nx: int = 128
+    ny: int = 128
+    nz: int = 128
+    D: float = 1.0
+    lx: float = 10.0
+    ly: float = 10.0
+    lz: float = 10.0
+    ttot: float = 1.0
+    dt: float = 0.2
+    tol: float = 1.0e-8
+    iter_max: int = 100_000
+    policy: ExecutionPolicy = ExecutionPolicy.PALLAS
+    check_every: int = 1
 

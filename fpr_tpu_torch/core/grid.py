@@ -1,6 +1,12 @@
-"""Multigrid level ladder (fpr_tpu/core/grid.py::mg_levels)."""
+"""Multigrid level ladder and the 3D cell-centred grid
+(fpr_tpu/core/grid.py: mg_levels, Grid3D, pseudo_timestep, outer_steps)."""
 
 from __future__ import annotations
+
+import dataclasses
+import math
+
+import numpy as np
 
 
 def mg_levels(nx: int, ny: int, coarse_size: int) -> list[tuple[int, int]]:
@@ -15,3 +21,52 @@ def mg_levels(nx: int, ny: int, coarse_size: int) -> list[tuple[int, int]]:
         cx, cy = (cx - 1) // 2 + 1, (cy - 1) // 2 + 1
         levels.append((cx, cy))
     return levels
+
+
+@dataclasses.dataclass(frozen=True)
+class Grid3D:
+    """Uniform cell-centred 3D grid (fpr_tpu.core.grid.Grid3D): cell i sits
+    at (i + 1/2) d; fields are (nz, ny, nx), x last."""
+
+    nx: int
+    ny: int
+    nz: int
+    lx: float = 10.0
+    ly: float = 10.0
+    lz: float = 10.0
+
+    @property
+    def shape(self) -> tuple[int, int, int]:
+        return (self.nz, self.ny, self.nx)
+
+    @property
+    def dx(self) -> float:
+        return self.lx / self.nx
+
+    @property
+    def dy(self) -> float:
+        return self.ly / self.ny
+
+    @property
+    def dz(self) -> float:
+        return self.lz / self.nz
+
+    @property
+    def n(self) -> int:
+        return self.nx * self.ny * self.nz
+
+    def coords1d(self, axis: str) -> np.ndarray:
+        """Cell-centre coordinates along 'x', 'y' or 'z'."""
+        n = {"x": self.nx, "y": self.ny, "z": self.nz}[axis]
+        length = {"x": self.lx, "y": self.ly, "z": self.lz}[axis]
+        return (np.arange(n) + 0.5) * (length / n)
+
+
+def pseudo_timestep(dx: float, dy: float, dz: float, D: float) -> float:
+    """dtau = min(d)^2 / D / 8.1 (grid.pseudo_timestep)."""
+    return min(dx, dy, dz) ** 2 / D / 8.1
+
+
+def outer_steps(ttot: float, dt: float) -> int:
+    """Physical steps of t in 0:dt:ttot-dt (grid.outer_steps)."""
+    return max(0, math.floor((ttot - dt) / dt + 1e-12) + 1)

@@ -24,6 +24,11 @@ inline dim3 grid_of(int ny, int nx) {
     return dim3((nx + FPR_BX - 1) / FPR_BX, (ny + FPR_BY - 1) / FPR_BY);
 }
 
+// One block layer per z plane of an (nz, ny, nx) field.
+inline dim3 grid_of_3d(int nz, int ny, int nx) {
+    return dim3((nx + FPR_BX - 1) / FPR_BX, (ny + FPR_BY - 1) / FPR_BY, nz);
+}
+
 // s + e == a + b exactly (fpr_tpu/ops/ds.py::two_sum).
 __device__ __forceinline__ void two_sum(float a, float b, float& s, float& e) {
     s = a + b;
@@ -109,8 +114,11 @@ __device__ __forceinline__ float block_max(float v, float* sh) {
     return v;
 }
 
-__device__ __forceinline__ int block_id() { return blockIdx.y * gridDim.x + blockIdx.x; }
-__device__ __forceinline__ int num_blocks() { return gridDim.x * gridDim.y; }
+// Row-major block index over a 2D or 3D grid (blockIdx.z is 0 on a 2D one).
+__device__ __forceinline__ int block_id() {
+    return (blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x;
+}
+__device__ __forceinline__ int num_blocks() { return gridDim.x * gridDim.y * gridDim.z; }
 __device__ __forceinline__ bool block_leader() { return threadIdx.x == 0 && threadIdx.y == 0; }
 
 }  // namespace fpr

@@ -1,12 +1,13 @@
 """Build, load and bind the CUDA kernels of ``fpr_tpu_torch/csrc``.
 
 The ``.cu`` sources have a plain C interface.  At the first call on a CUDA
-tensor they are compiled by ``nvcc`` into one shared library for
-``sm_90a`` and loaded with ``ctypes``; nothing is built on import, so the
-package imports on a CPU-only PyTorch.  The library is named by a hash
-of the sources and flags, written to a temporary name first and moved into
-place with ``os.replace`` so that concurrent processes never load a
-half-written file.  The library lands in ``build/fpr_tpu_torch/`` of
+tensor each is compiled by its own ``nvcc`` process, all started together,
+and the objects are linked into one shared library for ``sm_90a``, loaded
+with ``ctypes``; nothing is built on import, so the package imports on a
+CPU-only PyTorch.  The library is named by a hash of the sources and
+flags, written to a temporary name first and moved into place with
+``os.replace`` so that concurrent processes never load a half-written
+file.  The library lands in ``build/fpr_tpu_torch/`` of
 the checkout when the package runs from one (a ``pyproject.toml`` beside
 it); an installed package builds under ``$XDG_CACHE_HOME/fpr_tpu_torch``
 (default ``~/.cache/fpr_tpu_torch``) instead, so that environments sharing
@@ -19,7 +20,8 @@ their plain PyTorch versions.
 
 ``launches`` counts, per kernel, the wrapper calls that launched the CUDA
 kernel (never the plain-PyTorch calls), so a run can show which kernels
-its main path went through.
+its main path went through.  ``dual_timek`` counts calls of the K-fused
+wrapper, each of which launches the dual-time kernel K times.
 """
 
 from __future__ import annotations
@@ -29,13 +31,18 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 import threading
 from pathlib import Path
 
 import torch
 
-KERNELS = ("defect", "smooth_down", "corr_up", "ns_fused")
+KERNELS = ("defect", "smooth_down", "corr_up", "ns_fused", "dual_time", "dual_timek", "ds3d")
 launches = dict.fromkeys(KERNELS, 0)
+
+# the block shape of csrc/fpr_common.cuh (FPR_BX, FPR_BY); the 3D entry
+# points check the partials length they are given against their grid
+BX, BY = 32, 8
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 
@@ -49,10 +56,9 @@ def _build_dir() -> Path:
 
 
 BUILD_DIR = _build_dir()
+GENCODE = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-O3", "-std=c++17", "-fmad=false",
-    "-shared", "-Xcompiler", "-fPIC",
+    *GENCODE, "-O3", "-std=c++17", "-fmad=false", "-Xcompiler", "-fPIC",
 )
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -63,6 +69,8 @@ _SIGNATURES = {
     "fpr_residual": [_P, _P, _P, _F, _F, _I, _I, _P, _P],
     "fpr_ns_fused": [_P, _P, _P, _P, _P, _F, _F, _F, _F, _F, _F, _F, _I, _I, _I,
                      _P, _P, _P, _P, _P],
+    "fpr_dual_time": [_P, _P, _P, _P, _I, *[_F] * 6, _I, _I, _I, _P],
+    "fpr_ds3d": [_P, _P, _P, _P, _I, *[_F] * 10, _I, _I, _I, _P],
 }
 
 _lib = None
@@ -102,20 +110,39 @@ def library_path() -> Path:
 
 
 def build() -> Path:
-    """Compile the sources unless a library of the same hash exists."""
+    """Compile the sources unless a library of the same hash exists: one
+    nvcc per ``.cu`` file, all running at once, then one link."""
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.tmp{os.getpid()}")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(s) for s in sorted(CSRC.glob("*.cu"))]]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}"
-        )
-    os.replace(tmp, out)
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        jobs, errors = [], []
+        try:
+            for src in sorted(CSRC.glob("*.cu")):
+                obj = Path(tmp) / f"{src.stem}.o"
+                cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+                jobs.append((cmd, obj, subprocess.Popen(
+                    cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+            for cmd, _, proc in jobs:
+                _, stderr = proc.communicate()
+                if proc.returncode != 0:
+                    errors.append(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{stderr}")
+        finally:
+            for _, _, proc in jobs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        if errors:
+            raise RuntimeError("\n".join(errors))
+        lib_tmp = out.with_name(f"{out.name}.tmp{os.getpid()}")
+        cmd = [nvcc, *GENCODE, "-shared", "-o", str(lib_tmp), *[str(o) for _, o, _ in jobs]]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}): {' '.join(cmd)}\n"
+                               f"{proc.stderr}")
+        os.replace(lib_tmp, out)
     return out
 
 
@@ -148,6 +175,21 @@ def stream(t: torch.Tensor) -> int:
 
 def num_blocks(ny: int, nx: int) -> int:
     return lib().fpr_num_blocks(ny, nx)
+
+
+def num_blocks_3d(nz: int, ny: int, nx: int) -> int:
+    """Blocks of the 3D kernels' launch grid over an (nz, ny, nx) field:
+    (nx/BX, ny/BY, nz), rounded up; the length of their partials buffer."""
+    return -(-nx // BX) * -(-ny // BY) * nz
+
+
+def partials_3d(shape, device) -> torch.Tensor | None:
+    """The float32 partials buffer of a 3D kernel over an (nz, ny, nx) field,
+    for a caller that reuses one across calls; None on the CPU, where the
+    plain versions take none.  Every block writes its entry: no zeroing."""
+    if torch.device(device).type == "cpu":
+        return None
+    return torch.empty(num_blocks_3d(*shape), dtype=torch.float32, device=device)
 
 
 def require_cuda_f32(name: str, *tensors) -> None:

@@ -1,8 +1,12 @@
 """Where the time goes in the PyTorch/CUDA port, on one NVIDIA GPU.
 
 Profiles (torch.profiler, CPU + CUDA) a window of NS explicit steps and of
-NS semi-implicit steps at 2049x513, and one MG solve at 4097^2 (DST-513,
-V(5,5)), each after a warm-up run, and prints per window the wall time,
+NS semi-implicit steps at 2049x513, one MG solve at 4097^2 (DST-513,
+V(5,5)), and the pseudo-time loop of part 1's diffusion solve in each
+kernel tier (step calls with one host read of the norm each: 100 calls of
+K=3 iterations at 512^3 float32, 2000 calls at 128^3 float32 and 2000 at
+128^3 double-single; the field's set-up is outside the window), each
+after a warm-up run, and prints per window the wall time,
 the summed device time (kernels and memory copies), the device busy
 share, the kernel launch counts of the port's CUDA wrappers, and the top
 device kernels and copies.
@@ -21,7 +25,12 @@ import torch  # noqa: E402
 from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
 from fpr_tpu_torch import kernels  # noqa: E402
-from fpr_tpu_torch.core.config import CoarseSolver, MGConfig, NSConfig  # noqa: E402
+from fpr_tpu_torch.core import bc  # noqa: E402
+from fpr_tpu_torch.core.config import (CoarseSolver, DiffusionConfig,  # noqa: E402
+                                       ExecutionPolicy, MGConfig, NSConfig)
+from fpr_tpu_torch.core.grid import Grid3D, pseudo_timestep  # noqa: E402
+from fpr_tpu_torch.models import diffusion3d  # noqa: E402
+from fpr_tpu_torch.ops import ds3d, stencil3d  # noqa: E402
 from fpr_tpu_torch.models.navier_stokes import simulate_fast  # noqa: E402
 from fpr_tpu_torch.solvers.multigrid import mg_solve_ds  # noqa: E402
 
@@ -44,6 +53,26 @@ def window(label, fn, top=12):
         print(f"   {e.device_time_total / 1e3:10.2f} ms  n={e.count:6d}  {e.key[:90]}")
 
 
+def diffusion_loop(cfg, calls):
+    """The inner loop of diffusion3d.solve on its initial field: ``calls``
+    step calls, each followed by the host read of its norm."""
+    g = Grid3D(cfg.nx, cfg.ny, cfg.nz)
+    kw = dict(dt=cfg.dt, dtau=pseudo_timestep(g.dx, g.dy, g.dz, cfg.D), dx=g.dx, dy=g.dy,
+              dz=g.dz, D=cfg.D)
+    ds_tier = cfg.policy is ExecutionPolicy.PALLAS_DS
+    H = bc.dirichlet_faces_3d(stencil3d.init_gaussian(
+        g, torch.float64 if ds_tier else torch.float32, device="cuda"))
+    Ht = ds3d.to_ds(H) if ds_tier else H
+    Htau, step, _ = diffusion3d._stepper(cfg, kw, Ht)
+    state = {"Htau": Htau}
+
+    def run():
+        for _ in range(calls):
+            state["Htau"], sumsq = step(Ht, state["Htau"])
+            float(sumsq)
+    return run
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("torch_profile: no CUDA device")
@@ -61,6 +90,14 @@ def main():
     b = torch.tensor(b, device="cuda")
     window("MG 4097^2", lambda: mg_solve_ds(None, b, 1.0 / (n - 1), 0.0, 1e-6, 30, cfg=cfg,
                                             return_pair=True))
+    pallas, ds = ExecutionPolicy.PALLAS, ExecutionPolicy.PALLAS_DS
+    for label, dcfg, calls in (
+        ("diffusion 512^3 K=3, 100 calls", DiffusionConfig(
+            nx=512, ny=512, nz=512, policy=pallas, check_every=3), 100),
+        ("diffusion 128^3 K=1, 2000 calls", DiffusionConfig(policy=pallas), 2000),
+        ("diffusion 128^3 ds, 2000 calls", DiffusionConfig(policy=ds), 2000),
+    ):
+        window(label, diffusion_loop(dcfg, calls))
 
 
 if __name__ == "__main__":

@@ -144,7 +144,7 @@ def test_port_imports_no_jax():
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 14
+    assert int(out.stdout.strip()) >= 24
 
 
 @pytest.mark.parametrize("argv", [
