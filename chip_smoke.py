@@ -31,10 +31,30 @@ Phases, in order; the first failure stops the run with a non-zero exit:
 9. the double-single tier at 128^3, ttot 2, tol 1e-10: converged, the probe
    within 1e-6 of the reference's 0.0799604096; kernels against plain for
    200 iterations per step.
+10. MG mixed (``mg_solve_mixed``) at 4097^2, default MGConfig (coarse 5,
+    Jacobi, V(2,2)), tol 1e-6: at most 30 outers, the same count through
+    the plain versions, a true float64 residual within tol.
+11. the PALLAS policy in float64 at 2049^2: ``mg_solve`` with the Jacobi
+    and the CG coarse solve against the JNP policy (equal cycle counts,
+    fields within 1e-10), ``krylov.cg`` (equal iterations to the plain
+    run) and ``mg_preconditioned_cg``.
+12. Krylov ds: ``mg_pcg_ds`` at 4097^2, DST-513, V(5,5), tol 1e-6, true
+    float64 residual within tol; ``dots="kernel"`` at 1025^2 with the same
+    iteration count as the plain run.
+13. the NS host loop (``simulate``) at 2049x513, Pr=0.01, tol 1e-7, ttot
+    0.005, ``mg_solver="mixed"``, float64: beta 0.5 and 1 to their end,
+    beta 0 for 50 steps, the first 10 beta=0.5 steps against the plain
+    versions, and 3 beta=0.5 steps with the direct solver and the PALLAS
+    policy.
 
-Each kernel's launches are counted over the one path run that uses it
-(phase 5 for the NS kernels, 7 for dual_timek, 8 for dual_time, 9 for
-ds3d), with the counts set to 0 just before it.  The second-to-last line
+Phase 3 also holds the host-loop tiers' kernels against their plain
+versions: the stencil pass (#5) in every mode in float32 at 2049x513 and
+4097^2 and in float64 at 2049^2 (fields bitwise, sums within REL_SUM or
+1e-12), and the legs #6/#7 at 2049x513 with ns 2 and 5, with and without
+elim.  Each kernel's launches are counted over the one path run that uses
+it (phase 5 for the NS kernels, 7 for dual_timek, 8 for dual_time, 9 for
+ds3d, 11's PALLAS ``mg_solve`` for the stencil pass, 13's beta=0.5 run for
+#6/#7), with the counts set to 0 just before it.  The second-to-last line
 is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -49,9 +69,14 @@ import sys
 import time
 
 REL_SUM = 1e-5  # sums in another order: a few float32 ulps of ~1e6 terms
-# NVIDIA's H100 SXM data sheet: HBM3 bandwidth, float32 outside the tensor cores
+REL_SUM_F64 = 1e-12  # the same in float64
+# NVIDIA's H100 SXM data sheet: HBM3 bandwidth, float32 and float64 outside
+# the tensor cores
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_FLOPS_S = 67e12
+PEAK_F64_FLOPS_S = 34e12
+# the device of phases 10-13 (a rehearsal on the CPU sets "cpu")
+DEVICE = "cuda"
 
 
 def log(msg: str) -> None:
@@ -123,11 +148,14 @@ def io_bytes(inputs, outputs) -> int:
 @contextlib.contextmanager
 def plain_kernels():
     """Route the CUDA wrappers to their plain PyTorch versions."""
-    from fpr_tpu_torch.ops import ds, ds3d, dual_time, ns_fused, vcycle_legs
+    from fpr_tpu_torch.ops import ds, ds3d, dual_time, ns_fused, stencil_pass, vcycle_legs
 
     swaps = [(ds, "_defect_cuda", ds.defect_pass_plain),
              (vcycle_legs, "_smooth_down_cuda", vcycle_legs.smooth_down_plain),
              (vcycle_legs, "_corr_up_cuda", vcycle_legs.corr_up_plain),
+             (vcycle_legs, "_smooth2r_split_cuda", vcycle_legs.smooth_down_plain),
+             (vcycle_legs, "_corr_smooth2_cuda", vcycle_legs.corr_up_plain),
+             (stencil_pass, "_stencil_cuda", stencil_pass.stencil_plain),
              (ns_fused, "_ns_fused_cuda", ns_fused.ns_fused_plain),
              (dual_time, "_dual_time_cuda",
               lambda Ht, Htau, cf, out=None, partials=None:
@@ -166,31 +194,39 @@ class KernelCheck:
             require(torch.equal(g, w), f"{name} {what}: field differs from plain "
                                        f"(max abs err {err:.3e})")
 
-    def sums(self, name, got, want, what, exact=False):
+    def sums(self, name, got, want, what, exact=False, rel=REL_SUM):
         for g, w in zip(got, want):
             g, w = float(g), float(w)
             if exact:
                 require(g == w, f"{name} {what}: maximum {g!r} != plain {w!r}")
             else:
-                require(abs(g - w) <= REL_SUM * max(abs(w), 1e-30),
+                require(abs(g - w) <= rel * max(abs(w), 1e-30),
                         f"{name} {what}: sum {g!r} vs plain {w!r}")
 
-    def timed(self, name, k_fn, p_fn, inputs, shape, kernel_names, flops):
+    def timed(self, name, k_fn, p_fn, inputs, shape, kernel_names, flops,
+              peak_flops=PEAK_F32_FLOPS_S, library=None):
         """Times of a kernel call and of its plain version at the path's
-        shape, and what its bound needs: the bytes of the inputs and of one
-        call's outputs, and the call's float32 operations."""
+        shape (and of one PyTorch call computing the same function, where
+        there is one), and what its bound needs: the bytes of the inputs and
+        of one call's outputs, and the call's operations with the card's
+        peak rate for their type."""
         row = self.rows.setdefault(name, {"max_abs_err": 0.0})
-        row.update(io_bytes=io_bytes(inputs, k_fn()), flops=flops, shape=list(shape),
-                   ms=time_ms(k_fn), plain_ms=time_ms(p_fn),
-                   device_us=device_us(k_fn, kernel_names))
+        row.update(io_bytes=io_bytes(inputs, k_fn()), flops=flops, peak_flops=peak_flops,
+                   shape=list(shape), ms=time_ms(k_fn), plain_ms=time_ms(p_fn),
+                   device_us=device_us(k_fn, kernel_names),
+                   library_ms=None if library is None else time_ms(library))
 
     def bound(self, name):
         """(ms, "bytes" | "operations"): the least time the card could take
-        for the timed call, at 3.35 TB/s and 67 TFLOP/s float32."""
+        for the timed call, at 3.35 TB/s and the peak rate of its type."""
         row = self.rows[name]
-        t_bytes = row["io_bytes"] / PEAK_BYTES_S * 1e3
-        t_ops = row["flops"] / PEAK_F32_FLOPS_S * 1e3
-        return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+        return bound_of(row["io_bytes"], row["flops"], row.get("peak_flops", PEAK_F32_FLOPS_S))
+
+
+def bound_of(nbytes, flops, peak_flops=PEAK_F32_FLOPS_S):
+    t_bytes = nbytes / PEAK_BYTES_S * 1e3
+    t_ops = flops / peak_flops * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def phase_env():
@@ -324,6 +360,7 @@ def phase_kernels(kc: KernelCheck):
              lambda: ns_fused.ns_fused_plain(*a), a, (ny, nx), ["ns_kernel"],
              flops=80 * ny * nx)
     phase_kernels_3d(kc)
+    phase_kernels_host(kc)
     for name, row in kc.rows.items():
         b_ms, b_by = kc.bound(name)
         log(f"{name:12s} {row['shape']}: call {row['ms'] * 1e3:9.1f} us  "
@@ -396,6 +433,115 @@ def phase_kernels_3d(kc: KernelCheck):
             kc.timed("ds3d", lambda: ds3d._ds3d_cuda(Ht, Hs, cp, out, part),
                      lambda: ds3d.ds3d_step_plain(Ht, Hs, cp, out), (Ht, Hs), shape,
                      ["ds3d_kernel"], flops=190 * cells)
+    torch.cuda.synchronize()
+
+
+def conv_matvec(u, h, c):
+    """(nabla^2 - c) u on the interior as one torch.nn.functional.conv2d
+    call: the library yardstick of the stencil pass's matvec mode."""
+    import torch
+
+    s = 1.0 / (h * h)
+    w = torch.tensor([[0.0, s, 0.0], [s, -4.0 * s - c, s], [0.0, s, 0.0]], dtype=u.dtype,
+                     device=u.device)
+    return torch.nn.functional.conv2d(u[None, None], w[None, None])
+
+
+def phase_kernels_host(kc: KernelCheck):
+    """The host-loop tiers' kernels against their plain versions (still
+    phase 3): the stencil pass #5 in every mode, the legs #6 and #7."""
+    import numpy as np
+    import torch
+
+    from fpr_tpu_torch.ops import stencil2d, transfer, vcycle_legs
+    from fpr_tpu_torch.ops import stencil_pass as sp
+
+    log("== phase 3, host-loop tiers: stencil (#5), smooth2r_split (#6), corr_smooth2 (#7)")
+    torch.backends.cudnn.allow_tf32 = False  # the conv2d yardstick in full float32
+    dev = torch.device("cuda", 0)
+    rng = np.random.default_rng(2)
+    for (ny, nx), dtype in (((513, 2049), torch.float32), ((4097, 4097), torch.float32),
+                            ((2049, 2049), torch.float64)):
+        h = 1.0 / (min(ny, nx) - 1)
+        u = torch.tensor(rng.standard_normal((ny, nx)), dtype=dtype, device=dev)
+        f = torch.tensor(rng.standard_normal((ny, nx)), dtype=dtype, device=dev)
+        f64 = dtype == torch.float64
+        rel = REL_SUM_F64 if f64 else REL_SUM
+        word = u.element_size()
+        tag = f"{ny}x{nx} {str(dtype).removeprefix('torch.')}"
+        for c in (0.0, 41.25):
+            ct = stencil2d.as_scalar(c, u)
+            for mode in sp.MODES:
+                ff = None if mode.startswith("matvec") else f
+                for with_acc in (True, False):
+                    got = sp._stencil_cuda(mode, u, ff, h, ct, 0.8, with_acc)
+                    want = sp.stencil_plain(mode, u, ff, h, ct, 0.8, with_acc)
+                    kc.fields("stencil", got[:1], want[:1], f"{mode} {tag} c={c}")
+                    if with_acc or mode == "matvec_dot":
+                        kc.sums("stencil", got[1:], want[1:], f"{mode} {tag} c={c}", rel=rel)
+            got = sp.smooth2_rp(u, f, h, ct)
+            with plain_kernels():
+                want = sp.smooth2_rp(u, f, h, ct)
+            kc.fields("stencil", got[:1], want[:1], f"smooth2 {tag} c={c}")
+            kc.sums("stencil", got[1:], want[1:], f"smooth2 {tag} norm c={c}", rel=rel)
+        # each mode's time at this shape; bytes: each input read once, each
+        # output written once
+        c0 = stencil2d.as_scalar(0.0, u)
+        for mode, ff, acc, words in (("smooth", f, True, 3), ("residual", f, False, 3),
+                                     ("matvec", None, False, 2), ("matvec_dot", None, True, 1)):
+            def k_fn(mode=mode, ff=ff, acc=acc):
+                return sp._stencil_cuda(mode, u, ff, h, c0, 0.8, acc)
+            b_ms, _ = bound_of(words * word * ny * nx, 10 * ny * nx,
+                               PEAK_F64_FLOPS_S if f64 else PEAK_F32_FLOPS_S)
+            log(f"  stencil {mode:10s} {tag}: call {time_ms(k_fn) * 1e3:8.1f} us  kernels on "
+                f"the device {device_us(k_fn, ['stencil_kernel'])} us  bound "
+                f"{b_ms * 1e3:.1f} us")
+        if not f64:
+            log(f"  conv2d matvec {tag}: {time_ms(lambda: conv_matvec(u, h, 0.0)) * 1e3:.1f} us")
+        else:
+            # the row: the matvec of krylov.cg with the PALLAS policy (phase 11)
+            kc.timed("stencil", lambda: sp._stencil_cuda("matvec", u, None, h, c0, 0.8, False),
+                     lambda: sp.stencil_plain("matvec", u, None, h, c0, 0.8, False), (u,),
+                     (ny, nx), ["stencil_kernel"], flops=10 * ny * nx,
+                     peak_flops=PEAK_F64_FLOPS_S, library=lambda: conv_matvec(u, h, 0.0))
+            ref = conv_matvec(u, h, 0.0)[0, 0]
+            mine = sp._stencil_cuda("matvec", u, None, h, c0, 0.8, False)[0][1:-1, 1:-1]
+            log(f"  conv2d matvec {tag}: max abs diff to the kernel "
+                f"{float((ref - mine).abs().max()):.3e} (another order of the sums)")
+        del u, f
+        torch.cuda.empty_cache()
+
+    # the legs of vcycle_rp at the NS host loop's fine level
+    ny, nx = 513, 2049
+    h = 1.0 / 512
+    f2 = torch.tensor(rng.standard_normal((ny, nx)), dtype=torch.float32, device=dev)
+    u2 = torch.tensor(rng.standard_normal((ny, nx)), dtype=torch.float32, device=dev)
+    coarse = torch.tensor(rng.standard_normal(((ny - 1) // 2 + 1, (nx - 1) // 2 + 1)) * 1e-2,
+                          dtype=torch.float32, device=dev)
+    cT = torch.tensor(41.25, dtype=torch.float32, device=dev)
+    for ns in (2, 5):
+        for elim, c in ((False, stencil2d.as_scalar(0.0, f2)), (True, cT)):
+            tag = f"{ny}x{nx} ns={ns} elim={elim}"
+            for uu in (None, u2):
+                got = vcycle_legs._smooth2r_split_cuda(uu, f2, h, c, 0.8, ns, elim)
+                want = vcycle_legs.smooth_down_plain(uu, f2, h, c, 0.8, ns, elim)
+                kc.fields("smooth2r_split", got, want, f"{tag} zero_u={uu is None}")
+            corrx = transfer.x_interleave_coarse(coarse, apply_bcs=elim)
+            got = vcycle_legs._corr_smooth2_cuda(u2, f2, corrx, h, c, 0.8, ns, elim, True)
+            want = vcycle_legs.corr_up_plain(u2, f2, corrx, h, c, 0.8, ns, elim, True)
+            kc.fields("corr_smooth2", got[:1], want[:1], tag)
+            kc.sums("corr_smooth2", got[1:], want[1:], f"{tag} norm")
+    # V(2,2): the default MGConfig of the mixed solves
+    ns, c = 2, stencil2d.as_scalar(0.0, f2)
+    corrx = transfer.x_interleave_coarse(coarse)
+    a_down = (u2, f2, h, c, 0.8, ns, False)
+    kc.timed("smooth2r_split", lambda: vcycle_legs._smooth2r_split_cuda(*a_down),
+             lambda: vcycle_legs.smooth_down_plain(*a_down), a_down, (ny, nx),
+             ["sweep_kernel", "residual_kernel"], flops=(ns + 1) * 10 * ny * nx)
+    a_up = (u2, f2, corrx, h, c, 0.8, ns, False, True)
+    kc.timed("corr_smooth2", lambda: vcycle_legs._corr_smooth2_cuda(*a_up),
+             lambda: vcycle_legs.corr_up_plain(*a_up), a_up, (ny, nx),
+             ["sweep_kernel"], flops=(ns * 10 + 2) * ny * nx)
     torch.cuda.synchronize()
 
 
@@ -621,6 +767,212 @@ def phase_diffusion_ds():
     return counts
 
 
+def sync():
+    import torch
+
+    if torch.device(DEVICE).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def poisson_rhs(n, dtype):
+    """The MG rows' right-hand side: uniform random interior, zero ring."""
+    import numpy as np
+    import torch
+
+    b = np.zeros((n, n), dtype)
+    b[1:-1, 1:-1] = np.random.default_rng(0).random((n - 2, n - 2))
+    return torch.tensor(b, device=DEVICE)
+
+
+def true_rel(u, b, h, c=0.0):
+    """rms of the float64 residual of u over rms(b)."""
+    from fpr_tpu_torch.ops import stencil2d
+
+    b64 = b.double()
+    return float(stencil2d.rms(stencil2d.residual(u.double(), b64, h, c)) / stencil2d.rms(b64))
+
+
+def counted(fn):
+    """fn() with the launch counts set to 0 just before it: (result,
+    seconds to the end of its device work, counts)."""
+    from fpr_tpu_torch import kernels
+
+    sync()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    out = fn()
+    sync()
+    return out, time.perf_counter() - t0, dict(kernels.launches)
+
+
+def phase_mg_mixed(n=4097):
+    from fpr_tpu_torch.core.config import MGConfig
+    from fpr_tpu_torch.solvers.multigrid import mg_solve_mixed
+
+    log(f"== phase 10: MG mixed {n}^2, default MGConfig (coarse 5, Jacobi, V(2,2)), tol 1e-6")
+    tol = 1e-6
+    h = 1.0 / (n - 1)
+    b = poisson_rhs(n, "float64")
+
+    def solve():
+        return mg_solve_mixed(b.new_zeros(b.shape), b, h, 0.0, tol, 30, cfg=MGConfig())
+
+    solve()  # warm-up
+    (u, r, it), secs, counts = counted(solve)
+    rel = true_rel(u, b, h)
+    log(f"outers {it}  solve {secs:.4f} s  r_rms/f_rms (estimate) "
+        f"{float(r) / float((b * b).mean().sqrt()):.3e}  true f64 r_rms/f_rms {rel:.3e}  "
+        f"launches { {k: v for k, v in counts.items() if v} }")
+    require(it <= 30, f"no convergence in 30 outers ({it})")
+    require(rel <= tol, f"true f64 relative residual {rel:.3e} > {tol}")
+    for k in ("smooth2r_split", "corr_smooth2"):
+        require(counts[k] > 0, f"MG mixed never launched {k}")
+    with plain_kernels():
+        (up, _, itp), psecs, _ = counted(solve)
+    err = float((u - up).abs().max() / up.abs().max())
+    log(f"plain: outers {itp}  solve {psecs:.4f} s  max rel diff to the kernels' run {err:.3e}")
+    require(it == itp, f"outers {it} vs plain {itp}")
+    return counts
+
+
+def phase_pallas_f64(n=2049):
+    import dataclasses
+
+    from fpr_tpu_torch.core.config import CoarseSolver, ExecutionPolicy, MGConfig
+    from fpr_tpu_torch.solvers import krylov
+    from fpr_tpu_torch.solvers.multigrid import mg_solve
+
+    log(f"== phase 11: PALLAS policy, float64, {n}^2, coarse 5, tol 1e-6")
+    tol = 1e-6
+    h = 1.0 / (n - 1)
+    b = poisson_rhs(n, "float64")
+    main_counts = None
+    for coarse in (CoarseSolver.JACOBI, CoarseSolver.CG):
+        cfg = MGConfig(coarse_solver=coarse, policy=ExecutionPolicy.PALLAS)
+        (u, r, it), secs, counts = counted(
+            lambda: mg_solve(b.new_zeros(b.shape), b, h, 0.0, tol, 20, cfg=cfg))
+        (uj, _, itj), jsecs, _ = counted(lambda: mg_solve(
+            b.new_zeros(b.shape), b, h, 0.0, tol, 20,
+            cfg=dataclasses.replace(cfg, policy=ExecutionPolicy.JNP)))
+        err = float((u - uj).abs().max() / uj.abs().max())
+        rel = true_rel(u, b, h)
+        log(f"mg_solve coarse={coarse.value}: cycles {it} (JNP policy {itj})  "
+            f"{secs:.4f} s (JNP {jsecs:.4f} s)  max rel diff to JNP {err:.3e}  "
+            f"true f64 r_rms/f_rms {rel:.3e}  stencil launches {counts['stencil']}")
+        require(it == itj < 20, f"mg_solve {coarse.value}: cycles {it} vs JNP {itj}")
+        require(err <= 1e-10, f"mg_solve {coarse.value}: fields differ from JNP by {err:.3e}")
+        require(rel <= tol, f"mg_solve {coarse.value}: true residual {rel:.3e} > {tol}")
+        require(counts["stencil"] > 0, "mg_solve with the PALLAS policy never launched stencil")
+        if main_counts is None:
+            main_counts = counts
+    pallas = ExecutionPolicy.PALLAS
+    (x, r, it), secs, counts = counted(lambda: krylov.cg(b, h, h, 0.0, tol, 20000, policy=pallas))
+    with plain_kernels():
+        (xp, _, itp), psecs, _ = counted(
+            lambda: krylov.cg(b, h, h, 0.0, tol, 20000, policy=pallas))
+    log(f"cg: iterations {it} (plain {itp})  {secs:.3f} s (plain {psecs:.3f} s)  "
+        f"stencil launches {counts['stencil']}  max rel diff to plain "
+        f"{float((x - xp).abs().max() / xp.abs().max()):.3e}")
+    require(it == itp < 20000, f"cg: iterations {it} vs plain {itp}")
+    (x, r, it), secs, counts = counted(lambda: krylov.mg_preconditioned_cg(
+        b, h, 0.0, tol, 30, mg_cfg=MGConfig(policy=pallas)))
+    rel = true_rel(x, b, h)
+    log(f"mg_preconditioned_cg: iterations {it}  {secs:.4f} s  true f64 r_rms/f_rms "
+        f"{rel:.3e}  stencil launches {counts['stencil']}")
+    require(it < 30 and rel <= tol, f"mg_preconditioned_cg: {it} iterations, residual {rel:.3e}")
+    return main_counts
+
+
+def phase_krylov_ds(n=4097, n_kernel=1025):
+    from fpr_tpu_torch.core.config import CoarseSolver, MGConfig
+    from fpr_tpu_torch.solvers.krylov import mg_pcg_ds
+
+    log(f"== phase 12: Krylov ds, mg_pcg_ds {n}^2, DST-513, V(5,5), tol 1e-6")
+    tol = 1e-6
+    cfg = MGConfig(coarse_size=min(513, (n_kernel - 1) // 2 + 1),
+                   coarse_solver=CoarseSolver.DST, pre_smooth=5, post_smooth=5)
+    h = 1.0 / (n - 1)
+    b = poisson_rhs(n, "float32")
+
+    def solve():
+        return mg_pcg_ds(b, h, 0.0, tol, 30, cfg=cfg, return_pair=True)
+
+    solve()  # warm-up
+    ((uh, ul), r, it), secs, counts = counted(solve)
+    rel = true_rel(uh.double() + ul.double(), b, h)
+    log(f"rowsum64: iterations {it}  solve {secs:.4f} s  true f64 r_rms/f_rms {rel:.3e}  "
+        f"launches { {k: v for k, v in counts.items() if v} }")
+    require(it < 30 and rel <= tol, f"mg_pcg_ds: {it} iterations, residual {rel:.3e}")
+    h = 1.0 / (n_kernel - 1)
+    b = poisson_rhs(n_kernel, "float32")
+
+    def solve_k():
+        return mg_pcg_ds(b, h, 0.0, tol, 30, cfg=cfg, return_pair=True, dots="kernel")
+
+    ((uh, ul), r, it), secs, counts = counted(solve_k)
+    with plain_kernels():
+        (_, _, itp), _, _ = counted(solve_k)
+    rel = true_rel(uh.double() + ul.double(), b, h)
+    log(f"dots=kernel {n_kernel}^2: iterations {it} (plain {itp})  solve {secs:.4f} s  true "
+        f"f64 r_rms/f_rms {rel:.3e}  stencil launches {counts['stencil']}")
+    require(it == itp < 30, f"mg_pcg_ds dots=kernel: iterations {it} vs plain {itp}")
+    require(counts["stencil"] > 0, "mg_pcg_ds dots=kernel never launched stencil")
+
+
+def host_cfg(beta, **kw):
+    from fpr_tpu_torch.core.config import NSConfig
+
+    kw = dict(dict(nx=2049, ny=513), **kw)
+    return NSConfig(ttot=0.005, beta=beta, Pr=0.01, tol=1e-7, niters=50, mg_solver="mixed",
+                    **kw)
+
+
+def phase_ns_host(**size):
+    import dataclasses
+
+    import numpy as np
+
+    from fpr_tpu_torch.core.config import ExecutionPolicy, MGConfig
+    from fpr_tpu_torch.models.navier_stokes import simulate
+
+    cfg5 = host_cfg(0.5, **size)
+    log(f"== phase 13: NS host loop {cfg5.nx}x{cfg5.ny}, Pr=0.01, tol 1e-7, ttot 0.005, "
+        f"mg_solver=mixed, float64")
+    main_counts, results = None, {}
+    for beta in (0.5, 1.0):
+        out, secs, counts = counted(lambda: simulate(host_cfg(beta, **size), seed=0,
+                                                     device=DEVICE))
+        log(f"beta={beta}: steps {out.steps}  timed_iters {out.timed_iters}  sim_time "
+            f"{out.sim_time!r}  timed {out.t_elapsed:.3f} s "
+            f"({out.t_elapsed / max(out.timed_iters, 1) * 1e3:.1f} ms a step)  run {secs:.3f} s  "
+            f"launches { {k: v for k, v in counts.items() if v} }")
+        for name in ("T", "W", "S"):
+            require(np.isfinite(getattr(out, name)).all(), f"beta={beta}: non-finite {name}")
+        require(-0.5 <= out.T.min() and out.T.max() <= 1.5,
+                f"beta={beta}: T out of [-0.5, 1.5]: [{out.T.min()}, {out.T.max()}]")
+        require(out.sim_time >= 0.005, f"beta={beta}: stopped at sim_time {out.sim_time}")
+        results[beta] = out
+        if main_counts is None:
+            main_counts = counts
+    out, secs, _ = counted(lambda: simulate(host_cfg(0.0, **size), seed=0, max_steps=50,
+                                            device=DEVICE))
+    log(f"beta=0: 50 steps  timed_iters {out.timed_iters}  timed {out.t_elapsed:.3f} s "
+        f"({out.t_elapsed / out.timed_iters * 1e3:.1f} ms a step)  sim_time {out.sim_time!r}")
+    require(out.steps == 50 and np.isfinite(out.W).all(), "beta=0: 50 steps failed")
+    k10 = simulate(cfg5, seed=0, max_steps=10, device=DEVICE)
+    with plain_kernels():
+        p10 = simulate(cfg5, seed=0, max_steps=10, device=DEVICE)
+    compare_runs(k10, p10, "host loop beta=0.5, 10 steps", rel=1e-10)
+    direct = dataclasses.replace(cfg5, mg_solver="direct",
+                                 mg=MGConfig(policy=ExecutionPolicy.PALLAS))
+    out, secs, counts = counted(lambda: simulate(direct, seed=0, max_steps=3, device=DEVICE))
+    log(f"direct, PALLAS policy: 3 steps  {secs:.3f} s  sim_time {out.sim_time!r}  "
+        f"stencil launches {counts['stencil']}")
+    require(out.steps == 3 and np.isfinite(out.S).all(), "direct PALLAS: 3 steps failed")
+    require(counts["stencil"] > 0, "the direct PALLAS host loop never launched stencil")
+    return main_counts, results
+
+
 NS_KERNELS = ("defect", "smooth_down", "corr_up", "ns_fused")
 # kernel: (source, the TPU kernel it replaces)
 SOURCES = {
@@ -631,6 +983,9 @@ SOURCES = {
     "dual_time": ("fpr_tpu_torch/csrc/dual_time.cu", "fpr_tpu/ops/pallas3d.py:168"),
     "dual_timek": ("fpr_tpu_torch/csrc/dual_time.cu", "fpr_tpu/ops/pallas3d.py:516"),
     "ds3d": ("fpr_tpu_torch/csrc/ds3d.cu", "fpr_tpu/ops/ds3d.py:70"),
+    "stencil": ("fpr_tpu_torch/csrc/stencil.cu", "fpr_tpu/ops/pallas2d.py:108"),
+    "smooth2r_split": ("fpr_tpu_torch/csrc/vcycle_legs.cu", "fpr_tpu/ops/pallas2d.py:333"),
+    "corr_smooth2": ("fpr_tpu_torch/csrc/vcycle_legs.cu", "fpr_tpu/ops/pallas2d.py:595"),
 }
 
 
@@ -661,6 +1016,12 @@ def main() -> int:
         launches["dual_timek"] = phase_diffusion_bench()["dual_timek"]
         launches["dual_time"] = phase_diffusion_f32()["dual_time"]
         launches["ds3d"] = phase_diffusion_ds()["ds3d"]
+        phase_mg_mixed()
+        launches["stencil"] = phase_pallas_f64()["stencil"]
+        phase_krylov_ds()
+        host_counts, _ = phase_ns_host()
+        for k in ("smooth2r_split", "corr_smooth2"):
+            launches[k] = host_counts[k]
     except Failed as exc:
         log(f"chip_smoke FAILED: {exc}")
         return 1
@@ -671,7 +1032,7 @@ def main() -> int:
         table.append(dict(name=k, route="cuda", source=source, replaces=replaces,
                           launches=launches[k], max_abs_err=row["max_abs_err"],
                           ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=bound_ms,
-                          bound_by=bound_by, library_ms=None))
+                          bound_by=bound_by, library_ms=row["library_ms"]))
     print(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -2,13 +2,20 @@
 
 The JAX package ``fpr_tpu`` beside it is the reference this port is tested
 against; the port imports neither it nor JAX.  Ported so far are the
-Navier-Stokes fast loop with the solver under it, and part 1's 3D
-dual-time diffusion:
+single-device Navier-Stokes loops with the solvers under them, and part
+1's 3D dual-time diffusion:
 
 - ``models.navier_stokes.simulate_fast``: the streamfunction-vorticity
-  thermal-convection time loop (explicit and semi-implicit);
-- ``solvers.multigrid.mg_solve_ds``: double-single defect-correction
-  multigrid around f32 V-cycles, with a DST or Jacobi coarse solve;
+  thermal-convection fast loop (explicit and semi-implicit, float32 state,
+  double-single solves);
+- ``models.navier_stokes.simulate`` / ``ns_step``: the host loop (float64
+  state by default; ``mg_solver`` "direct" or "mixed");
+- ``solvers.multigrid``: ``mg_solve`` (the reference-semantics V-cycle,
+  plain PyTorch or the stencil-pass kernel), ``mg_solve_rp`` and
+  ``mg_solve_mixed`` (the row-padded V-cycle's legs, float64 defect
+  correction around float32 cycles), ``mg_solve_ds`` (double-single
+  defect correction), with Jacobi, CG or DST coarse solves;
+- ``solvers.krylov``: ``cg``, ``mg_preconditioned_cg``, ``mg_pcg_ds``;
 - ``models.diffusion3d.solve``: pseudo-transient 3D diffusion to steady
   state per backward-Euler step, in three tiers (plain PyTorch, the f32
   kernel with a check every K iterations, the double-single kernel);

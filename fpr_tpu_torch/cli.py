@@ -1,9 +1,11 @@
 """Command-line interface of the port (fpr_tpu/cli.py: the single-device
-``diffusion3d``, ``ns --fast`` and ``mg --solver ds`` subcommands):
+``diffusion3d``, ``ns`` and ``mg`` subcommands):
 
     python -m fpr_tpu_torch diffusion3d --n 512 --policy pallas --check-every 3 --ttot 0.8 --bench
     python -m fpr_tpu_torch ns --nx 2049 --ny 513 --Pr 0.01 --tol 1e-7 --ttot 0.005 --fast
-    python -m fpr_tpu_torch mg --k 12 --l 9 --coarse dst --smooths 5
+    python -m fpr_tpu_torch ns --nx 1025 --ny 257 --beta 0.5 --Pr 0.1 --tol 1e-7 --f64
+    python -m fpr_tpu_torch mg --k 12 --l 9 --coarse dst --smooths 5 --solver ds
+    python -m fpr_tpu_torch mg --k 12 --l 2 --coarse jacobi --solver mixed
 
 ``--device`` defaults to ``cuda``; ``--device cpu`` runs the plain PyTorch
 versions of the kernels.
@@ -39,14 +41,25 @@ def cmd_ns(args):
     from fpr_tpu_torch.core.config import NSConfig
     from fpr_tpu_torch.models import navier_stokes as ns
 
-    if not args.fast:
-        raise SystemExit("only the fused fast path is ported: pass --fast")
+    from fpr_tpu_torch.core.config import ExecutionPolicy, MGConfig
+
+    # --fast ignores --policy and keeps the default MGConfig, which
+    # fast_mg_default may upgrade to the DST-257 V(3,3) ladder
+    mg = MGConfig() if args.fast else MGConfig(policy=ExecutionPolicy(args.policy))
     cfg = NSConfig(
         nx=args.nx, ny=args.ny, Ra=args.Ra, Pr=args.Pr, beta=args.beta,
-        ttot=args.ttot, tol=args.tol, niters=args.niters, mg_auto=not args.no_mg_auto,
+        ttot=args.ttot, tol=args.tol, niters=args.niters, mg=mg,
+        mg_auto=not args.no_mg_auto,
     )
-    out = ns.simulate_fast(cfg, verbose=args.verbose, max_steps=args.max_steps,
-                           device=args.device)
+    if args.fast:
+        if args.f64:
+            raise SystemExit("--fast is float32-only; drop --f64 or drop --fast")
+        out = ns.simulate_fast(cfg, verbose=args.verbose, max_steps=args.max_steps,
+                               device=args.device)
+    else:
+        out = ns.simulate(cfg, verbose=args.verbose, max_steps=args.max_steps,
+                          dtype=torch.float64 if args.f64 else torch.float32,
+                          device=args.device)
     print(
         f"steps: {out.steps}  sim_time: {out.sim_time:.6f}  "
         f"timed: {out.t_elapsed:.3f}s  T in [{out.T.min():.3f}, {out.T.max():.3f}]"
@@ -58,31 +71,43 @@ def cmd_mg(args):
     from fpr_tpu_torch.ops import stencil2d
     from fpr_tpu_torch.solvers import multigrid
 
-    if not 1 <= args.smooths <= 6:
-        raise SystemExit("--smooths must be in 1..6 (the fused legs)")
+    if args.smooths < 1:
+        raise SystemExit("--smooths must be >= 1 (the convergence check reads the "
+                         "final post-smooth's residual norm)")
+    if args.solver == "ds" and args.smooths > 6:
+        raise SystemExit("--solver ds takes --smooths 1..6 (the fused legs)")
     n = 2**args.k + 1
     h = 1.0 / (n - 1)
     cfg = MGConfig(coarse_size=2**args.l + 1, coarse_solver=CoarseSolver(args.coarse),
                    pre_smooth=args.smooths, post_smooth=args.smooths)
-    b = np.zeros((n, n), np.float32)
+    dtype = np.float64 if (args.f64 or args.solver == "mixed") else np.float32
+    b = np.zeros((n, n), dtype)
     b[1:-1, 1:-1] = np.random.default_rng(0).random((n - 2, n - 2))
     b = torch.as_tensor(b).to(args.device)
+    if args.solver == "ds":
+        b = b.to(torch.float32)
 
     def solve():
-        return multigrid.mg_solve_ds(None, b, h, 0.0, args.tol, 30, cfg=cfg,
-                                     return_pair=True)
+        """(the solution as a tuple of parts to add in float64, r_rms, count)"""
+        if args.solver == "ds":
+            return multigrid.mg_solve_ds(None, b, h, 0.0, args.tol, 30, cfg=cfg,
+                                         return_pair=True)
+        fn = multigrid.mg_solve_mixed if args.solver == "mixed" else multigrid.mg_solve
+        u, r, it = fn(torch.zeros_like(b), b, h, 0.0, args.tol, 30, cfg=cfg)
+        return (u,), r, it
 
     _, r, _ = solve()
     float(r)  # build the kernels, converge once
     t0 = time.perf_counter()
-    (uh, ul), r, it = solve()
+    parts, r, it = solve()
     float(r)
     dt = time.perf_counter() - t0
-    u64 = uh.double() + ul.double()
+    u64 = sum(p.double() for p in parts)
     b64 = b.double()
     rel = float(stencil2d.rms(stencil2d.residual(u64, b64, h, 0.0)) / stencil2d.rms(b64))
-    print(f"{n}^2 -> coarse {cfg.coarse_size}^2 [ds]: {dt * 1e3:.1f} ms, "
-          f"{it} iterations, true f64 r_rms/f_rms = {rel:.2e}")
+    print(f"{n}^2 -> coarse {cfg.coarse_size}^2 [{args.solver}]: {dt * 1e3:.1f} ms, "
+          f"{it} iterations, r_rms/f_rms = {float(r) / float(stencil2d.rms(b64)):.2e}, "
+          f"true f64 r_rms/f_rms = {rel:.2e}")
 
 
 def main(argv=None):
@@ -105,7 +130,7 @@ def main(argv=None):
     p.add_argument("--verbose", action="store_true")
     p.set_defaults(fn=cmd_diffusion3d)
 
-    p = sub.add_parser("ns",help="2D Navier-Stokes thermal convection, fast path")
+    p = sub.add_parser("ns", help="2D Navier-Stokes thermal convection")
     p.add_argument("--device", default="cuda")
     p.add_argument("--nx", type=int, default=257)
     p.add_argument("--ny", type=int, default=65)
@@ -115,21 +140,28 @@ def main(argv=None):
     p.add_argument("--ttot", type=float, default=0.1)
     p.add_argument("--tol", type=float, default=1e-3)
     p.add_argument("--niters", type=int, default=50)
+    p.add_argument("--policy", choices=["jnp", "pallas"], default="jnp",
+                   help="host loop: plain PyTorch or the stencil-pass kernel in mg_solve")
+    p.add_argument("--f64", action="store_true", help="host loop: float64 state")
     p.add_argument("--max-steps", type=int, default=None)
-    p.add_argument("--fast", action="store_true", help="the fused fast path (required)")
+    p.add_argument("--fast", action="store_true",
+                   help="the fused fast loop (float32 state, double-single multigrid)")
     p.add_argument("--no-mg-auto", action="store_true",
                    help="keep the default MG ladder instead of DST-257, V(3,3)")
     p.add_argument("--verbose", action="store_true")
     p.set_defaults(fn=cmd_ns)
 
-    p = sub.add_parser("mg", help="2D Poisson multigrid solve, double-single")
+    p = sub.add_parser("mg", help="2D Poisson multigrid solve")
     p.add_argument("--device", default="cuda")
     p.add_argument("--k", type=int, default=10, help="grid is (2^k+1)^2")
     p.add_argument("--l", type=int, default=2, help="coarse grid is (2^l+1)^2")
-    p.add_argument("--coarse", choices=["jacobi", "dst"], default="jacobi")
+    p.add_argument("--coarse", choices=["jacobi", "cg", "dst"], default="jacobi")
     p.add_argument("--tol", type=float, default=1e-6)
-    p.add_argument("--solver", choices=["ds"], default="ds")
+    p.add_argument("--solver", choices=["direct", "mixed", "ds"], default="direct",
+                   help="direct: mg_solve; mixed: float64 defect correction around "
+                        "float32 V-cycles; ds: double-single defect correction")
     p.add_argument("--smooths", type=int, default=2)
+    p.add_argument("--f64", action="store_true", help="direct: a float64 solve")
     p.set_defaults(fn=cmd_mg)
 
     args = ap.parse_args(argv)

@@ -1,14 +1,11 @@
 """Static configuration of the port's solvers and models.
 
-The subset of ``fpr_tpu/core/config.py`` that the ported path reads, with
-the same field names and defaults, kept in this package so that the port
-imports nothing of the JAX package: ``MGConfig`` (minus the execution
-policy, smoother and restriction choices, which are fixed here to damped
-Jacobi and injection), ``NSConfig`` (minus ``mg_solver``, which selects
-the unported host-loop tiers), ``DiffusionConfig`` (minus
+The single-device part of ``fpr_tpu/core/config.py``, with the same field
+names and defaults, kept in this package so that the port imports nothing
+of the JAX package: ``MGConfig``, ``NSConfig``, ``DiffusionConfig`` (minus
 ``scale_physical_size`` and ``overlap_comm``, which belong to the
-unported sharded tier) and the ``ExecutionPolicy`` / ``InitScheme`` /
-``CoarseSolver`` enums.  The CG coarse solver is not ported yet.
+unported sharded tier) and the ``ExecutionPolicy`` / ``CoarseSolver`` /
+``Smoother`` / ``Restriction`` / ``InitScheme`` enums.
 """
 
 from __future__ import annotations
@@ -18,17 +15,22 @@ import enum
 
 
 class ExecutionPolicy(enum.Enum):
-    """Tier of the 3D dual-time step (fpr_tpu.core.config.ExecutionPolicy),
+    """How the stencil operators execute (fpr_tpu.core.config.ExecutionPolicy),
     with the JAX names and values so that configs and ``--policy`` map one
     to one.
 
-    - JNP: plain PyTorch ops (``ops/stencil3d.py``), on any device and dtype.
-    - PALLAS: the float32 CUDA kernel (``ops/dual_time.py``); with
-      ``check_every`` = K >= 2, K iterations per call between norm checks.
+    - JNP: plain PyTorch ops (``ops/stencil2d.py``, ``ops/stencil3d.py``),
+      on any device and dtype.
+    - PALLAS: the CUDA kernels.  The 3D dual-time step runs
+      ``ops/dual_time.py`` (float32; with ``check_every`` = K >= 2, K
+      iterations per call between norm checks); ``MGConfig(policy=PALLAS)``
+      runs the smoother, residual and CG matvec of ``mg_solve``, ``cg`` and
+      ``mg_preconditioned_cg`` through ``ops/stencil_pass.py`` (float32 or
+      float64).
     - PALLAS_DS: the double-single (two-float32) CUDA kernel
       (``ops/ds3d.py``), for tolerances below the float32 floor.
 
-    On a CPU tensor the two kernel tiers run their kernels' plain PyTorch
+    On a CPU tensor the kernel tiers run their kernels' plain PyTorch
     versions.
     """
 
@@ -41,7 +43,26 @@ class CoarseSolver(enum.Enum):
     """Coarse-grid solver of the V-cycle (fpr_tpu.core.config.CoarseSolver)."""
 
     JACOBI = "jacobi"
+    CG = "cg"
     DST = "dst"
+
+
+class Smoother(enum.Enum):
+    """Multigrid smoother (fpr_tpu.core.config.Smoother): damped Jacobi, or
+    red-black Gauss-Seidel as two masked half-sweeps."""
+
+    JACOBI = "jacobi"
+    RED_BLACK_GS = "red_black_gs"
+
+
+class Restriction(enum.Enum):
+    """Multigrid restriction (fpr_tpu.core.config.Restriction).  AUTO is
+    injection for the Jacobi smoother and full weighting for red-black GS,
+    whose checkerboard residual injection would alias."""
+
+    AUTO = "auto"
+    INJECTION = "injection"
+    FULL_WEIGHTING = "full_weighting"
 
 
 class InitScheme(enum.Enum):
@@ -57,15 +78,25 @@ class MGConfig:
     """Multigrid options (fpr_tpu.core.config.MGConfig).
 
     coarse_size: solve directly once min(nx, ny) <= coarse_size (2^l + 1).
-    pre_smooth/post_smooth: damped-Jacobi sweeps per leg (1-6 on the fused
-    legs).
+    policy: JNP (plain PyTorch) or PALLAS (the ``stencil_pass`` kernel) for
+    the smoother and residual of ``vcycle``/``mg_solve``.
+    pre_smooth/post_smooth: sweeps per leg (1-6 on the fused legs).
     """
 
     coarse_size: int = 5
     coarse_solver: CoarseSolver = CoarseSolver.JACOBI
+    smoother: Smoother = Smoother.JACOBI
+    policy: ExecutionPolicy = ExecutionPolicy.JNP
     pre_smooth: int = 2
     post_smooth: int = 2
     jacobi_damping: float = 0.8
+    restriction: Restriction = Restriction.AUTO
+
+    def resolved_restriction(self) -> Restriction:
+        if self.restriction is Restriction.AUTO:
+            return (Restriction.FULL_WEIGHTING if self.smoother is Smoother.RED_BLACK_GS
+                    else Restriction.INJECTION)
+        return self.restriction
 
 
 @dataclasses.dataclass(frozen=True)
@@ -88,6 +119,9 @@ class NSConfig:
     mg: MGConfig = MGConfig()
     # let fast_mg_default upgrade a default ``mg`` to the DST ladder
     mg_auto: bool = True
+    # the host loop's solver: "direct" (mg_solve in the state's dtype) or
+    # "mixed" (mg_solve_mixed: defect correction around float32 V-cycles)
+    mg_solver: str = "direct"
     # the stream-function solve runs to s_tol_factor * tol * rms(W)
     s_tol_factor: float = 1.0
 

@@ -21,7 +21,11 @@ their plain PyTorch versions.
 ``launches`` counts, per kernel, the wrapper calls that launched the CUDA
 kernel (never the plain-PyTorch calls), so a run can show which kernels
 its main path went through.  ``dual_timek`` counts calls of the K-fused
-wrapper, each of which launches the dual-time kernel K times.
+wrapper, each of which launches the dual-time kernel K times, and
+``stencil`` calls of its wrappers (``smooth2`` launches the kernel twice).
+``smooth2r_split`` and ``corr_smooth2`` count the separate-buffer V-cycle
+legs of the row-padded V-cycle, which launch the CUDA code of
+``smooth_down`` and ``corr_up``.
 """
 
 from __future__ import annotations
@@ -37,7 +41,8 @@ from pathlib import Path
 
 import torch
 
-KERNELS = ("defect", "smooth_down", "corr_up", "ns_fused", "dual_time", "dual_timek", "ds3d")
+KERNELS = ("defect", "smooth_down", "corr_up", "ns_fused", "dual_time", "dual_timek", "ds3d",
+           "stencil", "smooth2r_split", "corr_smooth2")
 launches = dict.fromkeys(KERNELS, 0)
 
 # the block shape of csrc/fpr_common.cuh (FPR_BX, FPR_BY); the 3D entry
@@ -61,7 +66,7 @@ NVCC_FLAGS = (
     *GENCODE, "-O3", "-std=c++17", "-fmad=false", "-Xcompiler", "-fPIC",
 )
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _F, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_double
 _SIGNATURES = {
     "fpr_num_blocks": [_I, _I],
     "fpr_defect": [_P, _P, _P, _P, _P, _P, _F, _F, _F, _I, _I, _I, _P, _P, _P, _P, _P],
@@ -71,6 +76,8 @@ _SIGNATURES = {
                      _P, _P, _P, _P, _P],
     "fpr_dual_time": [_P, _P, _P, _P, _I, *[_F] * 6, _I, _I, _I, _P],
     "fpr_ds3d": [_P, _P, _P, _P, _I, *[_F] * 10, _I, _I, _I, _P],
+    "fpr_stencil_f32": [_P, _P, _P, _F, _F, _F, _I, _I, _I, _P, _P, _P],
+    "fpr_stencil_f64": [_P, _P, _P, _D, _D, _D, _I, _I, _I, _P, _P, _P],
 }
 
 _lib = None
@@ -194,7 +201,13 @@ def partials_3d(shape, device) -> torch.Tensor | None:
 
 def require_cuda_f32(name: str, *tensors) -> None:
     """Device, dtype and layout checks before pointers go to a kernel."""
-    dev = None
+    require_cuda(name, (torch.float32,), *tensors)
+
+
+def require_cuda(name: str, dtypes, *tensors) -> None:
+    """require_cuda_f32 for a kernel that takes the given dtypes; all the
+    tensors must share one of them."""
+    dev, dtype = None, None
     for t in tensors:
         if t is None:
             continue
@@ -203,7 +216,10 @@ def require_cuda_f32(name: str, *tensors) -> None:
         if dev is not None and t.device != dev:
             raise ValueError(f"{name}: tensors on {dev} and {t.device}")
         dev = t.device
-        if t.dtype != torch.float32:
-            raise ValueError(f"{name}: the CUDA kernel takes float32, got {t.dtype}")
+        if t.dtype not in dtypes or (dtype is not None and t.dtype != dtype):
+            takes = " or ".join(str(d).removeprefix("torch.") for d in dtypes)
+            raise ValueError(f"{name}: the CUDA kernel takes {takes} tensors of one dtype, "
+                             f"got {t.dtype}")
+        dtype = t.dtype
         if not t.is_contiguous():
             raise ValueError(f"{name}: expected contiguous tensors")

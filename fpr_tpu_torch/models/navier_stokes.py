@@ -1,12 +1,23 @@
-"""2D streamfunction-vorticity Navier-Stokes, the fused fast loop
-(fpr_tpu/models/navier_stokes.py: NSResult, init_field, fast_mg_default,
-_fast_step, _fast_loop, simulate_fast).
+"""2D streamfunction-vorticity Navier-Stokes: the host loop and the fused
+fast loop (fpr_tpu/models/navier_stokes.py: NSResult, init_field,
+compute_dt, ns_step, simulate, fast_mg_default, _fast_step, _fast_loop,
+simulate_fast).
 
     dT/dt = lap T - (v . grad) T
     dW/dt = Pr lap W - (v . grad) W + Pr Ra dT/dx
     lap S = W,   (vx, vy) = (dS/dy, -dS/dx)
 
-State: T and W as a stacked (2, ny, nx) float32 tensor, S as a
+The host loop (``ns_step``, ``simulate``) keeps T, W and S in the state's
+dtype (float64 by default) and runs the reference's operator chain in
+plain PyTorch; its three linear solves per step go through ``mg_solve``
+(``mg_solver="direct"``, in the state's dtype, with the ``MGConfig``
+policy) or ``mg_solve_mixed`` (``"mixed"``: the float64 defect around
+float32 V-cycles on the legs #6/#7).  Semi-implicit steps solve
+(nabla^2 - c) T' = -c (T + dt ((1 - beta) lap T - adv)) with
+c = 1/(beta dt), a device scalar, and the analogous W solve.  Each step
+reads dt on the host once, to advance the simulated time.
+
+The fast loop's state: T and W as a stacked (2, ny, nx) float32 tensor, S as a
 double-single hi/lo (2, ny, nx) pair; every linear solve is
 ``mg_solve_ds_rp`` warm-started from the previous field.  A step is one
 fused operator pass (K4) plus the multigrid solves (K1-K3 and the DST
@@ -31,10 +42,12 @@ from typing import Optional
 import numpy as np
 import torch
 
+from fpr_tpu_torch.core import bc
 from fpr_tpu_torch.core.config import CoarseSolver, InitScheme, MGConfig, NSConfig
 from fpr_tpu_torch.ops import ds as dsm
+from fpr_tpu_torch.ops import stencil2d as ops
 from fpr_tpu_torch.ops.ns_fused import ns_fused_rp
-from fpr_tpu_torch.solvers.multigrid import mg_solve_ds_rp
+from fpr_tpu_torch.solvers.multigrid import mg_solve, mg_solve_ds_rp, mg_solve_mixed
 
 F32 = torch.float32
 
@@ -56,9 +69,9 @@ class NSResult:
 
 
 def init_field(cfg: NSConfig, scheme: InitScheme, seed: int = 0, array=None, *,
-               device) -> torch.Tensor:
-    """Initial (ny, nx) float32 field (navier_stokes.init_field).  RANDOM
-    draws from numpy.random.default_rng(seed): it cannot reproduce
+               device, dtype=F32) -> torch.Tensor:
+    """Initial (ny, nx) field of the given dtype (navier_stokes.init_field).
+    RANDOM draws from numpy.random.default_rng(seed): it cannot reproduce
     jax.random, so cross-package runs pass the field as an array."""
     ny, nx = cfg.ny, cfg.nx
     if scheme is InitScheme.COSINE:
@@ -72,11 +85,113 @@ def init_field(cfg: NSConfig, scheme: InitScheme, seed: int = 0, array=None, *,
         a = array
     else:
         raise ValueError(scheme)
-    return torch.tensor(np.asarray(a, dtype=np.float32), device=device)
+    return torch.tensor(np.asarray(a, dtype=np.float64), device=device).to(dtype)
 
 
 def _semi_implicit(beta: float) -> bool:
+    # the reference tests beta != 1 with isapprox (part2.jl:205)
     return beta > 0.0
+
+
+def _needs_diffusion_term(beta: float) -> bool:
+    return abs(beta - 1.0) > 1e-8
+
+
+def compute_dt(vx, vy, cfg: NSConfig) -> torch.Tensor:
+    """The adaptive timestep on the device (navier_stokes.compute_dt,
+    part2.jl:76-87)."""
+    vmax2 = torch.amax(vx * vx + vy * vy)
+    ax, ay = torch.amax(torch.abs(vx)), torch.amax(torch.abs(vy))
+    h = _full(ax, cfg.h)
+    dt_adv = cfg.a_adv * torch.minimum(h / ax, h / ay)  # inf when v = 0
+    dt_dif = _full(ax, cfg.dt_dif)
+    dt = dt_adv if cfg.beta >= 0.5 else torch.minimum(dt_dif, dt_adv)
+    return torch.where(vmax2 == 0.0, dt_dif, dt)
+
+
+def ns_step(T, W, S, cfg: NSConfig):
+    """One step of the host loop (navier_stokes.ns_step); returns
+    (T, W, S, dt) with dt a 0-dim device tensor."""
+    if cfg.mg_solver == "mixed":
+        solve = mg_solve_mixed
+    elif cfg.mg_solver == "direct":
+        solve = mg_solve
+    else:
+        raise ValueError(f"unknown mg_solver {cfg.mg_solver!r} for ns_step (expected "
+                         "'direct' or 'mixed'; use simulate_fast for the fused "
+                         "double-single path)")
+    h = cfg.h
+    # 1. the streamfunction, nabla^2 S = W, Dirichlet 0 (part2.jl:187)
+    S, _, _ = solve(S, W, h, 0.0, cfg.tol, cfg.niters, apply_bcs=False, cfg=cfg.mg)
+    # 2-3. the velocity and the adaptive dt (part2.jl:190-196)
+    vx, vy = ops.velocity(S, h, h)
+    dt = compute_dt(vx, vy, cfg)
+    # 4-7. the T BCs, buoyancy, diffusion and upwind advection (part2.jl:199-214)
+    T = bc.ns_temperature_bcs(T)
+    Ra_dTdx = ops.buoyancy(T, cfg.Ra, h)
+    if _needs_diffusion_term(cfg.beta):
+        dT2 = ops.diffusion(T, cfg.k, h, h)
+        dW2 = ops.diffusion(W, cfg.Pr, h, h)
+    else:
+        dT2, dW2 = torch.zeros_like(T), torch.zeros_like(W)
+    dTx, dTy = ops.advection_x(T, vx, h), ops.advection_y(T, vy, h)
+    dWx, dWy = ops.advection_x(W, vx, h), ops.advection_y(W, vy, h)
+    # 8. the Euler or Helmholtz update (part2.jl:216-231)
+    if _semi_implicit(cfg.beta):
+        c = _full(dt, 1.0) / (cfg.beta * dt)
+        T_rhs = -c * (T + dt * ((1.0 - cfg.beta) * dT2 - dTx - dTy))
+        T, _, _ = solve(T, T_rhs, h, c, cfg.tol, cfg.niters, apply_bcs=True, cfg=cfg.mg)
+        cW = c / _full(c, cfg.Pr)
+        W_rhs = -cW * (W + dt * ((1.0 - cfg.beta) * dW2 - dWx - dWy - cfg.Pr * Ra_dTdx))
+        W, _, _ = solve(W, W_rhs, h, cW, cfg.tol, cfg.niters, apply_bcs=False, cfg=cfg.mg)
+    else:
+        T = T + dt * (dT2 - dTx - dTy)
+        W = W + dt * (dW2 - dWx - dWy - cfg.Pr * Ra_dTdx)
+    return T, W, S, dt
+
+
+def simulate(cfg: NSConfig = NSConfig(), W0=None, T0=None, max_steps: Optional[int] = None,
+             verbose: bool = False, snapshot_every: int = 0, dtype=torch.float64,
+             seed: int = 0, *, device="cuda") -> NSResult:
+    """Run the host loop until sim_time >= ttot (navier_stokes.simulate,
+    part2.jl:181-250).  Steps 1-3 are warm-up, excluded from t_elapsed and
+    timed_iters.  max_steps=1 is the reference's test mode;
+    snapshot_every > 0 keeps (T, W, S) every that many steps.  The sharded
+    variant (``mesh``) waits for the sharded tier."""
+    dev = torch.device(device)
+
+    def field(scheme, array):
+        if array is not None:
+            return init_field(cfg, InitScheme.FROM_ARRAY, array=array, device=dev, dtype=dtype)
+        return init_field(cfg, scheme, seed, device=dev, dtype=dtype)
+
+    T, W = field(cfg.T_init, T0), field(cfg.W_init, W0)
+    S = torch.zeros((cfg.ny, cfg.nx), dtype=dtype, device=dev)
+
+    def host(a):
+        return a.cpu().double().numpy()
+
+    snapshots = [] if snapshot_every else None
+    sim_time, step = 0.0, 0
+    tic = time.perf_counter()
+    while sim_time < cfg.ttot:
+        if step == 3:  # warm-up exclusion (part2.jl:182-184)
+            _sync(dev)
+            tic = time.perf_counter()
+        T, W, S, dt = ns_step(T, W, S, cfg)
+        sim_time += float(dt)  # the one host read per step
+        step += 1
+        if snapshot_every and (step - 1) % snapshot_every == 0:
+            snapshots.append((host(T), host(W), host(S)))
+        if verbose and (step - 1) % 20 == 0:
+            print(f"time, step: {sim_time} {step}")
+        if max_steps is not None and step >= max_steps:
+            break
+    _sync(dev)
+    t_elapsed = time.perf_counter() - tic
+    return NSResult(T=host(T), W=host(W), S=host(S), t_elapsed=t_elapsed,
+                    timed_iters=max(step - 3, 0), steps=step, sim_time=sim_time,
+                    snapshots=snapshots)
 
 
 def fast_mg_default(cfg: NSConfig) -> NSConfig:
@@ -208,13 +323,13 @@ def state_to_jax(state: dict) -> dict:
 def simulate_fast(cfg: NSConfig = NSConfig(), W0=None,
                   max_steps: Optional[int] = None, verbose: bool = False,
                   seed: int = 0, snapshot_steps: int = 0,
-                  state0: Optional[dict] = None, *, device) -> NSResult:
+                  state0: Optional[dict] = None, *, device="cuda") -> NSResult:
     """Run the fused fast loop until sim_time >= ttot
     (navier_stokes.simulate_fast).
 
-    device: where to run ("cuda", "cuda:0", "cpu", a torch.device); no
-    default.  Steps 1-3 are warm-up, excluded from t_elapsed and
-    timed_iters (part2.jl:182-184).  snapshot_steps > 0 stores
+    device: where to run ("cuda", "cuda:0", "cpu", a torch.device).
+    Steps 1-3 are warm-up, excluded from t_elapsed and timed_iters
+    (part2.jl:182-184).  snapshot_steps > 0 stores
     (T, W, S, sim_time, step) every that many steps and at the end.
     state0: a previous result.state (or state_from_jax of a JAX one); the
     run continues it exactly, with max_steps the total step budget.

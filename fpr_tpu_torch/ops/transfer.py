@@ -1,9 +1,12 @@
 """Multigrid transfers on physical (ny, nx) tensors (fpr_tpu/ops/transfer.py).
 
-``restrict`` is injection at the coincident (even-index) fine points.  The
-TPU down leg writes its residual parity-split so that restriction is a
-column pass (``transfer.restrict_ps``); the values are the same as
-``restrict`` of the plain residual, which is what the port uses.
+``restrict`` is injection at the coincident (even-index) fine points, and
+``restrict_full_weighting`` the 9-point average that red-black smoothing
+needs.  The JAX layout variants are the same functions on physical
+arrays: the TPU down leg writes its residual parity-split so that
+restriction is a column pass (``transfer.restrict_ps``), and
+``restrict_rp`` / ``prolongate_rp`` work on row-padded arrays; the values
+are those of ``restrict`` and ``prolongate`` here.
 ``prolongate`` is bilinear interpolation in gather form, y midpoints
 before x midpoints of the cell centres, as in the JAX function.
 """
@@ -19,6 +22,24 @@ def restrict(fine: torch.Tensor, apply_bcs: bool = False) -> torch.Tensor:
     """Injection (ny, nx) -> ((ny-1)//2+1, (nx-1)//2+1), zero boundary, then
     the Neumann side copies when apply_bcs (transfer.restrict)."""
     coarse = bc.zero_boundary_2d(fine[::2, ::2])
+    if apply_bcs:
+        coarse = bc.neumann_left_right(coarse)
+    return coarse
+
+
+def restrict_full_weighting(fine: torch.Tensor, apply_bcs: bool = False) -> torch.Tensor:
+    """Full weighting (transfer.restrict_full_weighting): the separable
+    (1/4, 1/2, 1/4) blur in x, then in y (edges replicated), sampled at the
+    even points, zero boundary, then the Neumann side copies when
+    apply_bcs."""
+
+    def blur(a, dim):
+        lo = torch.cat([a.narrow(dim, 0, 1), a.narrow(dim, 0, a.shape[dim] - 1)], dim)
+        hi = torch.cat([a.narrow(dim, 1, a.shape[dim] - 1), a.narrow(dim, a.shape[dim] - 1, 1)],
+                       dim)
+        return 0.25 * lo + 0.5 * a + 0.25 * hi
+
+    coarse = bc.zero_boundary_2d(blur(blur(fine, 1), 0)[::2, ::2])
     if apply_bcs:
         coarse = bc.neumann_left_right(coarse)
     return coarse

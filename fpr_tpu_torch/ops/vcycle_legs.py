@@ -1,10 +1,20 @@
-"""The fine-level legs of the stacked V-cycle, K2 and K3
-(fpr_tpu/ops/pallas2d.py: smooth2r_stk, corr_smooth2_stk).
+"""The fine-level legs of the V-cycle: K2 and K3 of the stacked V-cycle
+(fpr_tpu/ops/pallas2d.py: smooth2r_stk, corr_smooth2_stk) and #6 and #7 of
+the row-padded one (pallas2d.smooth2r_split_rp, corr_smooth2_rp).
 
 - ``smooth_down`` (K2, pallas2d.smooth2r_stk): ``ns`` damped-Jacobi sweeps
   u += alpha h^2/C res(u), then the residual res(u) to restrict.
 - ``corr_up`` (K3, pallas2d.corr_smooth2_stk): u -= P(coarse correction),
   then ``ns`` sweeps, and the rms of the residual that fed the last sweep.
+- ``smooth2r_split`` (#6) and ``corr_smooth2`` (#7): the same two legs for
+  ``vcycle_rp``, with their own launch counters.  On the TPU they differ
+  from K2/K3 only in buffer donation and DMA streams (separate u and f
+  buffers, no aliasing; pallas2d.py:950-980); the port's legs read u and f
+  from separate tensors anyway, so the four entry points launch the same
+  CUDA code.  ``corr_smooth2`` takes the coarse correction itself and
+  interpolates it in x here, as ``corr_smooth2_rp`` does.  The shard hooks
+  of the TPU kernels (row_off, ny_mask, col_off, nx_mask) and the halo rows
+  of ``corr_smooth2_raw`` wait for the sharded tier.
 
 res(u) = (u_N + u_S + u_W + u_E - C u)/h^2 - f on the interior and 0 on
 the boundary, with C = 4 + c h^2.  The constants C, 1/h^2 and
@@ -31,6 +41,7 @@ from __future__ import annotations
 import torch
 
 from fpr_tpu_torch import kernels
+from fpr_tpu_torch.ops import transfer
 from fpr_tpu_torch.ops.stencil2d import as_scalar
 
 _SRC_ARRAY, _SRC_ZERO, _SRC_CORR = 0, 1, 2
@@ -118,10 +129,10 @@ def _check(name, ns, f):
         raise ValueError(f"{name}: expected an (ny, nx) tensor, got {tuple(f.shape)}")
 
 
-def _smooth_down_cuda(u, f, h, c, alpha=0.8, ns=2, elim=False):
-    """K2 on the card (csrc/vcycle_legs.cu); see ``smooth_down``."""
+def _down_cuda(name, u, f, h, c, alpha, ns, elim):
+    """The down leg on the card (csrc/vcycle_legs.cu), counted as ``name``."""
     c = as_scalar(c, f)
-    kernels.require_cuda_f32("smooth_down", u, f, c)
+    kernels.require_cuda_f32(name, u, f, c)
     lib = kernels.lib()
     ny, nx = f.shape
     h2, inv_h2 = float(h) * float(h), 1.0 / (float(h) * float(h))
@@ -140,15 +151,24 @@ def _smooth_down_cuda(u, f, h, c, alpha=0.8, ns=2, elim=False):
     err = lib.fpr_residual(src.data_ptr(), f.data_ptr(), c.data_ptr(), h2, inv_h2,
                            ny, nx, res.data_ptr(), st)
     kernels.check(err, "fpr_residual")
-    kernels.launches["smooth_down"] += 1
+    kernels.launches[name] += 1
     return src, res
 
 
-def _corr_up_cuda(u, f, corrx, h, c, alpha=0.8, ns=2, elim=False,
-                  with_norm=False, out=None):
-    """K3 on the card (csrc/vcycle_legs.cu); see ``corr_up``."""
+def _smooth_down_cuda(u, f, h, c, alpha=0.8, ns=2, elim=False):
+    """K2 on the card; see ``smooth_down``."""
+    return _down_cuda("smooth_down", u, f, h, c, alpha, ns, elim)
+
+
+def _smooth2r_split_cuda(u, f, h, c, alpha=0.8, ns=2, elim=False):
+    """#6 on the card; see ``smooth2r_split``."""
+    return _down_cuda("smooth2r_split", u, f, h, c, alpha, ns, elim)
+
+
+def _up_cuda(name, u, f, corrx, h, c, alpha, ns, elim, with_norm, out):
+    """The up leg on the card (csrc/vcycle_legs.cu), counted as ``name``."""
     c = as_scalar(c, f)
-    kernels.require_cuda_f32("corr_up", u, f, corrx, c, out)
+    kernels.require_cuda_f32(name, u, f, corrx, c, out)
     lib = kernels.lib()
     ny, nx = f.shape
     h2, inv_h2 = float(h) * float(h), 1.0 / (float(h) * float(h))
@@ -170,11 +190,23 @@ def _corr_up_cuda(u, f, corrx, h, c, alpha=0.8, ns=2, elim=False,
                             dst.data_ptr(), kernels.ptr(partials), st)
         kernels.check(err, "fpr_sweep")
         src = dst
-    kernels.launches["corr_up"] += 1
+    kernels.launches[name] += 1
     if not with_norm:
         return out, None
     n = partials.new_full((), float(nx * ny))
     return out, torch.sqrt(partials.sum() / n)
+
+
+def _corr_up_cuda(u, f, corrx, h, c, alpha=0.8, ns=2, elim=False,
+                  with_norm=False, out=None):
+    """K3 on the card; see ``corr_up``."""
+    return _up_cuda("corr_up", u, f, corrx, h, c, alpha, ns, elim, with_norm, out)
+
+
+def _corr_smooth2_cuda(u, f, corrx, h, c, alpha=0.8, ns=2, elim=False,
+                       with_norm=False, out=None):
+    """#7 on the card; see ``corr_smooth2``."""
+    return _up_cuda("corr_smooth2", u, f, corrx, h, c, alpha, ns, elim, with_norm, out)
 
 
 def smooth_down(u, f, h, c, alpha=0.8, ns=2, elim=False):
@@ -210,3 +242,33 @@ def corr_up(u, f, corrx, h, c, alpha=0.8, ns=2, elim=False, with_norm=False,
     if f.device.type == "cpu":
         return corr_up_plain(u, f, corrx, h, c, alpha, ns, elim, with_norm, out)
     return _corr_up_cuda(u, f, corrx, h, c, alpha, ns, elim, with_norm, out)
+
+
+def smooth2r_split(u, f, h, c, alpha=0.8, zero_u=False, ns=2, elim=False):
+    """#6, the down leg of ``vcycle_rp`` (pallas2d.smooth2r_split_rp, one
+    device).  u: the (ny, nx) iterate, never read with zero_u (it may be
+    None).  Returns (u', res) as ``smooth_down`` does; ``transfer.restrict``
+    of res is the TPU's ``restrict_ps`` of its parity-split residual.
+    """
+    _check("smooth2r_split", ns, f)
+    u = None if zero_u else u
+    if f.device.type == "cpu":
+        return smooth_down_plain(u, f, h, c, alpha, ns, elim)
+    return _smooth2r_split_cuda(u, f, h, c, alpha, ns, elim)
+
+
+def corr_smooth2(u, f, corr, h, c, alpha=0.8, apply_bcs=False, with_norm=False, ns=2,
+                 elim=False):
+    """#7, the up leg of ``vcycle_rp`` (pallas2d.corr_smooth2_rp, one
+    device): u - P(corr), then ``ns`` sweeps.  corr: the coarse level's
+    ((ny-1)/2+1, (nx-1)/2+1) correction, interpolated in x here (with the
+    Neumann copies when apply_bcs) and in y by the kernel.  Returns
+    (u', r_rms or None) in a new tensor.
+    """
+    _check("corr_smooth2", ns, f)
+    corrx = transfer.x_interleave_coarse(corr, apply_bcs=apply_bcs)
+    if corrx.shape != ((f.shape[0] - 1) // 2 + 1, f.shape[1]):
+        raise ValueError(f"corr {tuple(corr.shape)} does not fit {tuple(f.shape)}")
+    if f.device.type == "cpu":
+        return corr_up_plain(u, f, corrx, h, c, alpha, ns, elim, with_norm)
+    return _corr_smooth2_cuda(u, f, corrx, h, c, alpha, ns, elim, with_norm)

@@ -1,16 +1,25 @@
 """Geometric multigrid for (nabla^2 - c) u = f on 2^k+1 grids, and the
-double-single defect-correction solver around it
-(fpr_tpu/solvers/multigrid.py: _smooth_fns, _coarse_solve, vcycle,
-PALLAS_MIN_AREA, _stk_eligible, vcycle_stk, _auto_inner_cycles,
-mg_solve_ds_rp, mg_solve_ds).
+defect-correction solvers around it (fpr_tpu/solvers/multigrid.py:
+_warn_unconverged, _smooth_fns, _coarse_solve, vcycle, mg_solve,
+PALLAS_MIN_AREA, vcycle_rp, _stk_eligible, vcycle_stk, mg_solve_rp,
+mg_solve_mixed, _auto_inner_cycles, mg_solve_ds_rp, mg_solve_ds).
 
-- ``vcycle``: the reference-semantics V-cycle in plain PyTorch (damped
-  Jacobi, injection, bilinear prolongation, Jacobi or DST coarse solve).
-  It runs every level below ``PALLAS_MIN_AREA`` cells.
-- ``vcycle_stk``: the V-cycle whose levels of at least ``PALLAS_MIN_AREA``
-  cells run the two fused legs (K2 ``smooth_down``, K3 ``corr_up``).
+- ``vcycle`` / ``mg_solve``: the reference-semantics V-cycle and its
+  iterate loop (damped Jacobi or red-black GS, injection or full
+  weighting, bilinear prolongation, Jacobi, CG or DST coarse solve), in
+  plain PyTorch (policy JNP) or with the smoother and residual of the
+  stencil-pass kernel #5 at every level (policy PALLAS, float32 or
+  float64).
+- ``vcycle_rp``: the V-cycle whose levels of at least ``PALLAS_MIN_AREA``
+  cells run the legs #6 ``smooth2r_split`` and #7 ``corr_smooth2`` (or,
+  outside their configuration, sweeps of #5), handing the smaller levels
+  to ``vcycle`` with policy JNP.  ``mg_solve_rp`` iterates it;
+  ``mg_solve_mixed`` runs it in float32 on the normalised float64 defect.
+- ``vcycle_stk``: the V-cycle on the stacked level state, with the fused
+  legs K2 ``smooth_down`` and K3 ``corr_up``.
 - ``mg_solve_ds_rp`` / ``mg_solve_ds``: u and f as hi/lo float32 pairs;
-  each outer iteration is V-cycles on the float32 defect, then one ds
+  each outer iteration is V-cycles on the float32 defect (``vcycle_stk``,
+  or ``vcycle_rp`` outside the fused legs' configuration), then one ds
   defect pass (K1), which also gives the true defect norm.
 
 The JAX solvers' ``lax.while_loop``s are host loops here: each test of a
@@ -18,19 +27,26 @@ loop condition reads one scalar from the device.  The level state of the
 stacked V-cycle is a (2, ny, nx) tensor L = [u | f]: the up leg writes the
 new iterate into L[0] and the defect pass writes the new rhs into L[1], in
 both cases from buffers the kernel does not write, so no kernel reads what
-it writes.  Arrays are physical (ny, nx).  FMG, the fused DST correction
-and the other JAX tiers are not ported.
+it writes.  Arrays are physical (ny, nx): the ``_rp`` solvers keep the
+JAX names but take no row-padded layout.  The correction cycles of the
+defect-correction solvers smooth with eliminated BCs exactly when
+apply_bcs is set (the JAX ``_ELIM_BC_SMOOTH`` default).  FMG and the fused
+DST correction are not ported.
 """
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
-from fpr_tpu_torch.core.config import CoarseSolver, MGConfig
+from fpr_tpu_torch.core import bc
+from fpr_tpu_torch.core.config import (CoarseSolver, ExecutionPolicy, MGConfig, Restriction,
+                                       Smoother)
 from fpr_tpu_torch.core.grid import mg_levels
 from fpr_tpu_torch.ops import ds as dsm
-from fpr_tpu_torch.ops import stencil2d, transfer
-from fpr_tpu_torch.ops.vcycle_legs import corr_up, smooth_down
+from fpr_tpu_torch.ops import stencil2d, stencil_pass, transfer
+from fpr_tpu_torch.ops.vcycle_legs import corr_smooth2, corr_up, smooth2r_split, smooth_down
 from fpr_tpu_torch.solvers.dst import dst_solve
 
 # levels with fewer cells run the plain-PyTorch V-cycle; the same cut as
@@ -38,30 +54,56 @@ from fpr_tpu_torch.solvers.dst import dst_solve
 # match it
 PALLAS_MIN_AREA = 1024 * 1024
 
-def _smooth_fns(cfg: MGConfig, elim: bool = False):
-    """The damped-Jacobi smoother (multigrid._smooth_fns, jnp tier), with the
-    side-column copy after each sweep when elim."""
 
-    def smooth(u, f, h, c, with_norm):
-        u, r = stencil2d.jacobi_step(u, f, h, c, alpha=cfg.jacobi_damping,
-                                     with_norm=with_norm)
-        if elim:
-            u = u.clone()
-            u[:, 0] = u[:, 1]
-            u[:, -1] = u[:, -2]
-        return u, r
+def _warn_unconverged(solver: str, r_rms, tolf, it: int, niters: int,
+                      apply_bcs: bool = False) -> None:
+    """Print a warning when an outer loop stopped at niters above tolerance
+    (multigrid._warn_unconverged; the reference's "Couldn't converge",
+    multigrid.jl:78-80).  The host holds r_rms already: it tested it."""
+    if it < niters or not bool(r_rms >= tolf):
+        return
+    hint = (" (known cold-BC stagnation: the iterate cycle smooths the Neumann "
+            "side columns as Dirichlet-0, as the reference does; the ds/mixed "
+            "correction cycles avoid it with eliminated-BC smoothing)" if apply_bcs else "")
+    print(f"WARNING: {solver} exited at niters={niters} with r_rms {float(r_rms):.3e} >= "
+          f"tol*rms(f) {float(tolf):.3e} — NOT converged{hint}")
 
-    return smooth
+
+def _smooth_fns(cfg: MGConfig):
+    """(smoother, residual) of the configured policy and smoother
+    (multigrid._smooth_fns): PALLAS takes the stencil-pass kernel, JNP plain
+    PyTorch; red-black GS is plain PyTorch under both."""
+    if cfg.policy is ExecutionPolicy.PALLAS:
+        residual, jacobi = stencil_pass.residual, stencil_pass.jacobi_step
+    else:
+        residual, jacobi = stencil2d.residual, stencil2d.jacobi_step
+
+    if cfg.smoother is Smoother.RED_BLACK_GS:
+        def smooth(u, f, h, c, with_norm):
+            return stencil2d.red_black_gs_step(u, f, h, c, with_norm=with_norm)
+    else:
+        def smooth(u, f, h, c, with_norm):
+            return jacobi(u, f, h, c, alpha=cfg.jacobi_damping, with_norm=with_norm)
+
+    return smooth, residual
 
 
 def _coarse_solve(u, f, h, c, tol, cfg: MGConfig, smooth):
-    """DST solve, or at most 20*coarse_size Jacobi sweeps until the residual
-    rms drops below tol*rms(f) (multigrid._coarse_solve)."""
+    """The coarse solve (multigrid._coarse_solve): DST; CG from zero (the
+    incoming iterate is discarded, as the reference's cg! overwrites it);
+    or at most 20*coarse_size smooths until the residual rms drops below
+    tol*rms(f)."""
+    max_iters = 20 * cfg.coarse_size
     if cfg.coarse_solver is CoarseSolver.DST:
         return dst_solve(u, f, h, c)
+    if cfg.coarse_solver is CoarseSolver.CG:
+        from fpr_tpu_torch.solvers.krylov import cg
+
+        x, r_rms, _ = cg(f, h, h, c, tol, max_iters, policy=cfg.policy)
+        return x, r_rms
     tol_rhs = tol * stencil2d.rms(f)
     r_rms = None
-    for _ in range(20 * cfg.coarse_size):
+    for _ in range(max_iters):
         if r_rms is not None and not bool(r_rms >= tol_rhs):
             break
         u, r_rms = smooth(u, f, h, c, True)
@@ -70,10 +112,24 @@ def _coarse_solve(u, f, h, c, tol, cfg: MGConfig, smooth):
 
 def vcycle(u, f, h, c, tol, cfg: MGConfig, apply_bcs=False, elim=False):
     """One V-cycle; returns (u, rms of the residual fed to the last fine
-    post-smooth) (multigrid.vcycle, Jacobi smoother, injection)."""
-    smooth = _smooth_fns(cfg, elim)
+    post-smooth) (multigrid.vcycle).  elim: the side columns become copies
+    of their interior neighbours after every sweep (set only by the
+    correction cycles' small-level subtree)."""
+    smooth0, residual = _smooth_fns(cfg)
+    if elim:
+        def smooth(u, f, h, c, with_norm):
+            u, r = smooth0(u, f, h, c, with_norm)
+            u = u.clone()
+            u[:, 0] = u[:, 1]
+            u[:, -1] = u[:, -2]
+            return u, r
+    else:
+        smooth = smooth0
     ny, nx = u.shape
     mg_levels(nx, ny, cfg.coarse_size)  # validates the 2^k+1 sides
+    restrict = (transfer.restrict_full_weighting
+                if cfg.resolved_restriction() is Restriction.FULL_WEIGHTING
+                else transfer.restrict)
 
     def descend(u, f, h, top):
         nyl, nxl = u.shape
@@ -81,7 +137,7 @@ def vcycle(u, f, h, c, tol, cfg: MGConfig, apply_bcs=False, elim=False):
             return _coarse_solve(u, f, h, c, tol, cfg, smooth)
         for _ in range(cfg.pre_smooth):
             u, _ = smooth(u, f, h, c, False)
-        res_c = transfer.restrict(stencil2d.residual(u, f, h, c), apply_bcs=apply_bcs)
+        res_c = restrict(residual(u, f, h, c), apply_bcs=apply_bcs)
         corr_c, _ = descend(torch.zeros_like(res_c), res_c, h * 2.0, False)
         u = u - transfer.prolongate(corr_c, u.shape, apply_bcs=apply_bcs)
         r_rms = None
@@ -95,9 +151,91 @@ def vcycle(u, f, h, c, tol, cfg: MGConfig, apply_bcs=False, elim=False):
     return descend(u, f, h, True)
 
 
+def _outer_loop(step, u, niters, tolf):
+    """The JAX solvers' while_loop over (u, r_rms, it): step(u) -> (u, r_rms)
+    while it < niters and r_rms >= tolf, r_rms starting at inf."""
+    r_rms = torch.full((), float("inf"), dtype=u.dtype, device=u.device)
+    it = 0
+    while it < niters and bool(r_rms >= tolf):
+        u, r_rms = step(u)
+        it += 1
+    return u, r_rms, it
+
+
+def mg_solve(u0, f, h: float, c, tol: float, niters: int, apply_bcs=False,
+             cfg: MGConfig = MGConfig()):
+    """V-cycles until r_rms < tol * rms(f) (multigrid.mg_solve); with
+    apply_bcs the NS temperature BCs are applied to u before every cycle.
+    Returns (u, r_rms, iterations)."""
+    tolf = tol * stencil2d.rms(f)
+
+    def step(u):
+        if apply_bcs:
+            u = bc.ns_temperature_bcs(u)
+        return vcycle(u, f, h, c, tol, cfg, apply_bcs=apply_bcs)
+
+    u, r_rms, it = _outer_loop(step, u0, niters, tolf)
+    _warn_unconverged("mg_solve", r_rms, tolf, it, niters, apply_bcs)
+    return u, r_rms, it
+
+
+def vcycle_rp(u, f, h, c, tol, cfg: MGConfig, apply_bcs=False, assume_zero_u=False,
+              elim=False):
+    """One V-cycle with the fused legs at large levels (multigrid.vcycle_rp).
+
+    Levels of at least PALLAS_MIN_AREA cells run #6 ``smooth2r_split`` and
+    #7 ``corr_smooth2`` (with injection and 1-6 smooths), or else sweeps of
+    #5 ``stencil_pass.smooth_rp`` around ``residual_rp``; smaller levels,
+    a level at the coarse size, and a smoother other than Jacobi go to
+    ``vcycle`` with policy JNP.  assume_zero_u: the iterate is zero and
+    u is never read (it may be None).  elim: eliminated-BC smoothing on the
+    fused legs and the subtree (correction cycles only).
+    Returns (u', r_rms of the final fine-level smooth).
+    """
+    ny, nx = f.shape
+    if (cfg.smoother is not Smoother.JACOBI or ny * nx < PALLAS_MIN_AREA
+            or min(ny, nx) <= cfg.coarse_size):
+        sub_cfg = dataclasses.replace(cfg, policy=ExecutionPolicy.JNP)
+        u0 = torch.zeros_like(f) if assume_zero_u else u
+        return vcycle(u0, f, h, c, tol, sub_cfg, apply_bcs=apply_bcs, elim=elim)
+
+    alpha = cfg.jacobi_damping
+    injection = cfg.resolved_restriction() is not Restriction.FULL_WEIGHTING
+    if injection and 1 <= cfg.pre_smooth <= 6:
+        u, res = smooth2r_split(u, f, h, c, alpha, zero_u=assume_zero_u, ns=cfg.pre_smooth,
+                                elim=elim)
+        res_c = transfer.restrict(res, apply_bcs=apply_bcs)
+    else:
+        if assume_zero_u:
+            u = torch.zeros_like(f)
+        for _ in range(cfg.pre_smooth):
+            u, _ = stencil_pass.smooth_rp(u, f, h, c, alpha, with_norm=False)
+        res = stencil_pass.residual_rp(u, f, h, c)
+        restrict = transfer.restrict if injection else transfer.restrict_full_weighting
+        res_c = restrict(res, apply_bcs=apply_bcs)
+
+    corr, _ = vcycle_rp(None, res_c, h * 2.0, c, tol, cfg, apply_bcs=apply_bcs,
+                        assume_zero_u=True, elim=elim)
+
+    if 1 <= cfg.post_smooth <= 6:
+        return corr_smooth2(u, f, corr, h, c, alpha, apply_bcs=apply_bcs, with_norm=True,
+                            ns=cfg.post_smooth, elim=elim)
+    u = u - transfer.prolongate(corr, (ny, nx), apply_bcs=apply_bcs)
+    r_rms = None
+    for s in range(cfg.post_smooth):
+        want = s == cfg.post_smooth - 1
+        u, r = stencil_pass.smooth_rp(u, f, h, c, alpha, with_norm=want)
+        if want:
+            r_rms = r
+    return u, r_rms
+
+
 def _stk_eligible(cfg: MGConfig) -> bool:
-    """The fused legs take 1-6 pre- and post-smooths."""
-    return 1 <= cfg.pre_smooth <= 6 and 1 <= cfg.post_smooth <= 6
+    """The fused legs of the stacked V-cycle take the Jacobi smoother, 1-6
+    pre- and post-smooths and injection (multigrid._stk_eligible)."""
+    return (cfg.smoother is Smoother.JACOBI and 1 <= cfg.pre_smooth <= 6
+            and 1 <= cfg.post_smooth <= 6
+            and cfg.resolved_restriction() is not Restriction.FULL_WEIGHTING)
 
 
 def vcycle_stk(L, h, c, tol, cfg: MGConfig, apply_bcs=False, assume_zero_u=False,
@@ -110,8 +248,9 @@ def vcycle_stk(L, h, c, tol, cfg: MGConfig, apply_bcs=False, assume_zero_u=False
     """
     _, ny, nx = L.shape
     if ny * nx < PALLAS_MIN_AREA or min(ny, nx) <= cfg.coarse_size:
+        sub_cfg = dataclasses.replace(cfg, policy=ExecutionPolicy.JNP)
         u = torch.zeros_like(L[1]) if assume_zero_u else L[0]
-        u, r_rms = vcycle(u, L[1], h, c, tol, cfg, apply_bcs=apply_bcs, elim=elim)
+        u, r_rms = vcycle(u, L[1], h, c, tol, sub_cfg, apply_bcs=apply_bcs, elim=elim)
         L[0] = u
         return L, r_rms
 
@@ -127,6 +266,54 @@ def vcycle_stk(L, h, c, tol, cfg: MGConfig, apply_bcs=False, assume_zero_u=False
     _, r_rms = corr_up(u, L[1], corrx, h, c, alpha, ns=cfg.post_smooth, elim=elim,
                        with_norm=True, out=L[0])
     return L, r_rms
+
+
+def mg_solve_rp(u0, f, h: float, c, tol: float, niters: int, apply_bcs=False,
+                cfg: MGConfig = MGConfig()):
+    """``mg_solve`` with ``vcycle_rp`` (multigrid.mg_solve_rp): the iterate
+    path, so its cycles smooth without eliminated BCs.  Returns
+    (u, r_rms, iterations)."""
+    tolf = tol * stencil2d.rms(f)
+
+    def step(u):
+        if apply_bcs:
+            u = bc.ns_temperature_bcs(u)
+        return vcycle_rp(u, f, h, c, tol, cfg, apply_bcs)
+
+    return _outer_loop(step, u0, niters, tolf)
+
+
+def mg_solve_mixed(u0, f, h: float, c, tol: float, niters: int, apply_bcs=False,
+                   cfg: MGConfig = MGConfig(), inner_cycles: int = 1):
+    """Mixed-precision defect correction (multigrid.mg_solve_mixed): u and
+    the defect in u0's dtype (float64), the V-cycles in float32 on the
+    normalised defect,
+
+        r = A u - f,  safe = max(rms(r), tiny),  e = MG_f32(r / safe),
+        u -= safe * e,
+
+    until the post-correction estimate safe * rms(A e - r/safe) (the last
+    fine-level residual of the inner cycles) is below tol * rms(f).
+    Returns (u, r_rms, outer_iterations)."""
+    tolf = tol * stencil2d.rms(f)
+    tiny = torch.finfo(u0.dtype).tiny
+
+    def step(u):
+        if apply_bcs:
+            u = bc.ns_temperature_bcs(u)
+        r = stencil2d.residual(u, f, h, c)
+        safe = torch.clamp_min(stencil2d.rms(r), tiny)
+        r32 = (r / safe).to(torch.float32)
+        e, e_rms = None, None
+        for cyc in range(inner_cycles):
+            e, e_rms = vcycle_rp(e, r32, h, c, tol, cfg, apply_bcs=apply_bcs,
+                                 assume_zero_u=(cyc == 0), elim=apply_bcs)
+        u = u - e.to(u.dtype) * safe
+        return u, e_rms.to(u.dtype) * safe
+
+    u, r_rms, it = _outer_loop(step, u0, niters, tolf)
+    _warn_unconverged("mg_solve_mixed", r_rms, tolf, it, niters, apply_bcs)
+    return u, r_rms, it
 
 
 def _auto_inner_cycles(ny: int, nx: int, cfg: MGConfig = MGConfig()) -> int:
@@ -150,13 +337,11 @@ def mg_solve_ds_rp(u_ds, f_ds, tolf, h: float, c, niters: int,
     max|du/dx|) that pass would have given.  velocity_max: also return
     those maxima of the returned iterate.  apply_bcs: the NS temperature
     BCs, with eliminated-BC smoothing in the correction cycles
-    (multigrid.py:300-315).
+    (multigrid.py:300-315).  The correction cycles are ``vcycle_stk`` when
+    ``_stk_eligible(cfg)``, else ``vcycle_rp``.
 
     Returns (u_ds', r_rms, outer_iterations[, (max|du/dy|, max|du/dx|)]).
     """
-    if not _stk_eligible(cfg):
-        raise NotImplementedError("the ported solver runs the fused legs only: "
-                                  "pre_smooth and post_smooth in [1, 6]")
     _, ny, nx = f_ds.shape
     if inner_cycles is None:
         inner_cycles = _auto_inner_cycles(ny, nx, cfg)
@@ -178,15 +363,25 @@ def mg_solve_ds_rp(u_ds, f_ds, tolf, h: float, c, niters: int,
         u_ds, r32, r_rms = out[:3]
         extras = out[3][:2] if velocity_max else ()
 
-    L = torch.empty((2, ny, nx), dtype=torch.float32, device=dev)
-    L[1] = r32
+    stk = _stk_eligible(cfg)
+    if stk:
+        L = torch.empty((2, ny, nx), dtype=torch.float32, device=dev)
+        L[1] = r32
     it = 0
     while it < niters and bool(r_rms >= tolf):
-        for cyc in range(inner_cycles):
-            L, _ = vcycle_stk(L, h, c_t, tol, cfg, apply_bcs=apply_bcs,
-                              assume_zero_u=(cyc == 0), elim=apply_bcs)
-        out = dsm.defect_pass_stk(u_ds, f_ds, L, 1.0, h, c, C=C, **kw)
-        u_ds, L, r_rms = out[:3]
+        if stk:
+            for cyc in range(inner_cycles):
+                L, _ = vcycle_stk(L, h, c_t, tol, cfg, apply_bcs=apply_bcs,
+                                  assume_zero_u=(cyc == 0), elim=apply_bcs)
+            out = dsm.defect_pass_stk(u_ds, f_ds, L, 1.0, h, c, C=C, **kw)
+            u_ds, L, r_rms = out[:3]
+        else:
+            e = None
+            for cyc in range(inner_cycles):
+                e, _ = vcycle_rp(e, r32, h, c_t, tol, cfg, apply_bcs=apply_bcs,
+                                 assume_zero_u=(cyc == 0), elim=apply_bcs)
+            out = dsm.defect_pass(u_ds, f_ds, e, 1.0, h, c, C=C, **kw)
+            u_ds, r32, r_rms = out[:3]
         if velocity_max:
             extras = out[3][:2]
         it += 1
@@ -213,25 +408,19 @@ def mg_solve_ds(u0, f, h: float, c, tol: float, niters: int,
         device = f.device
     f = torch.as_tensor(f).to(device)
 
-    def pack(a):
-        a = torch.as_tensor(a).to(device)
-        if a.dtype == torch.float64:
-            hi = a.to(torch.float32)
-            return torch.stack([hi, (a - hi.to(torch.float64)).to(torch.float32)])
-        return torch.stack([a.to(torch.float32), torch.zeros_like(a, dtype=torch.float32)])
-
-    f_ds = f.to(torch.float32)[None] if f.dtype != torch.float64 else pack(f)
+    f_ds = f.to(torch.float32)[None] if f.dtype != torch.float64 else dsm.to_ds(f)
     f_rms = stencil2d.rms(f)
     tolf = (tol * f_rms).to(torch.float32)
     if u0 is None and not apply_bcs:
         u_ds = None
         r0 = (-f_ds[0], f_rms.to(torch.float32))
     else:
-        u_ds = pack(u0) if u0 is not None else None
+        u_ds = dsm.to_ds(torch.as_tensor(u0).to(device)) if u0 is not None else None
         r0 = None
     u_ds, r_rms, it = mg_solve_ds_rp(u_ds, f_ds, tolf, h, c, niters, cfg=cfg,
                                      inner_cycles=inner_cycles, apply_bcs=apply_bcs,
                                      r0=r0, tol=tol)
+    _warn_unconverged("mg_solve_ds", r_rms, tolf, it, niters, apply_bcs)
     if return_pair:
         return (u_ds[0], u_ds[1]), r_rms, it
     u = u_ds[0].to(f.dtype) + u_ds[1].to(f.dtype)

@@ -2,7 +2,9 @@
 
 Profiles (torch.profiler, CPU + CUDA) a window of NS explicit steps and of
 NS semi-implicit steps at 2049x513, one MG solve at 4097^2 (DST-513,
-V(5,5)), and the pseudo-time loop of part 1's diffusion solve in each
+V(5,5)), 8 steps of the NS host loop (beta=0.5, mg_solver="mixed",
+float64) at 2049x513, one mixed-precision MG solve at 4097^2 (default
+MGConfig, float64), and the pseudo-time loop of part 1's diffusion solve in each
 kernel tier (step calls with one host read of the norm each: 100 calls of
 K=3 iterations at 512^3 float32, 2000 calls at 128^3 float32 and 2000 at
 128^3 double-single; the field's set-up is outside the window), each
@@ -31,8 +33,8 @@ from fpr_tpu_torch.core.config import (CoarseSolver, DiffusionConfig,  # noqa: E
 from fpr_tpu_torch.core.grid import Grid3D, pseudo_timestep  # noqa: E402
 from fpr_tpu_torch.models import diffusion3d  # noqa: E402
 from fpr_tpu_torch.ops import ds3d, stencil3d  # noqa: E402
-from fpr_tpu_torch.models.navier_stokes import simulate_fast  # noqa: E402
-from fpr_tpu_torch.solvers.multigrid import mg_solve_ds  # noqa: E402
+from fpr_tpu_torch.models.navier_stokes import simulate, simulate_fast  # noqa: E402
+from fpr_tpu_torch.solvers.multigrid import mg_solve_ds, mg_solve_mixed  # noqa: E402
 
 
 def window(label, fn, top=12):
@@ -90,6 +92,12 @@ def main():
     b = torch.tensor(b, device="cuda")
     window("MG 4097^2", lambda: mg_solve_ds(None, b, 1.0 / (n - 1), 0.0, 1e-6, 30, cfg=cfg,
                                             return_pair=True))
+    host = NSConfig(beta=0.5, mg_solver="mixed", **ns_kw)
+    window("NS host loop mixed beta=0.5, 8 steps",
+           lambda: simulate(host, seed=0, max_steps=8, device="cuda"))
+    b64 = b.double()
+    window("MG mixed 4097^2", lambda: mg_solve_mixed(torch.zeros_like(b64), b64, 1.0 / (n - 1),
+                                                     0.0, 1e-6, 30))
     pallas, ds = ExecutionPolicy.PALLAS, ExecutionPolicy.PALLAS_DS
     for label, dcfg, calls in (
         ("diffusion 512^3 K=3, 100 calls", DiffusionConfig(

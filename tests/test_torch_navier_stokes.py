@@ -144,13 +144,13 @@ def test_port_imports_no_jax():
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 24
+    assert int(out.stdout.strip()) >= 27
 
 
 @pytest.mark.parametrize("argv", [
     ["ns", "--fast", "--device", "cpu", "--nx", "65", "--ny", "17", "--Pr", "0.01",
      "--tol", "1e-6", "--ttot", "1e-2", "--max-steps", "4"],
-    ["mg", "--device", "cpu", "--k", "6", "--l", "2", "--smooths", "3"],
+    ["mg", "--device", "cpu", "--k", "6", "--l", "2", "--smooths", "3", "--solver", "ds"],
 ])
 def test_cli_smoke(argv):
     out = subprocess.run([sys.executable, "-m", "fpr_tpu_torch", *argv], cwd=REPO,
