@@ -46,17 +46,38 @@ Phases, in order; the first failure stops the run with a non-zero exit:
     beta 0 for 50 steps, the first 10 beta=0.5 steps against the plain
     versions, and 3 beta=0.5 steps with the direct solver and the PALLAS
     policy.
+14. the sharded diffusion tier on a virtual mesh (every shard on the one
+    card): 512^3 float32 on 4 z-shards, PALLAS check_every=3 (#9), capped
+    at 300 iterations a step as phase 7, H bitwise equal to phase 7's
+    single-device H; 128^3 float32 tol 1e-6 on 2x2x2 shards (#8 with update
+    boxes), converged, its count and probe beside phase 8's; overlap_comm
+    against plain on 4 z-shards at 128^3, bitwise.
+15. ``mg_solve_ds_sharded`` at 4097^2 on 4 row shards, DST-513, V(5,5), tol
+    1e-6, replicate_below=1025: the outer count of phase 4, a true float64
+    residual within tol, u within 1e-6 of phase 4's u; then apply_bcs at
+    2049^2, c 0 and 64, against the single-device solve.
+16. ``simulate_fast_sharded`` at 2049x513 on 4 row shards: explicit for 6
+    steps against the single-device loop (equal steps, sim_time within 1e-6,
+    W and T within 1e-4), 200 steps timed beside the single device with the
+    drift reported; beta=0.5 to the end, its step count beside phase 6's;
+    then ``dryrun_multichip(4)``.
 
 Phase 3 also holds the host-loop tiers' kernels against their plain
 versions: the stencil pass (#5) in every mode in float32 at 2049x513 and
 4097^2 and in float64 at 2049^2 (fields bitwise, sums within REL_SUM or
 1e-12), and the legs #6/#7 at 2049x513 with ns 2 and 5, with and without
-elim.  Each kernel's launches are counted over the one path run that uses
-it (phase 5 for the NS kernels, 7 for dual_timek, 8 for dual_time, 9 for
-ds3d, 11's PALLAS ``mg_solve`` for the stencil pass, 13's beta=0.5 run for
-#6/#7), with the counts set to 0 just before it.  The second-to-last line
-is the kernel table as JSON; the last line is
-``{"ok": true, "device": {...}}``.
+elim.  And the sharded tiers' shard windows: #9 against its plain version
+and, on the owned planes, against the global #10 (first, interior and last
+shard of 4, K 2 and 3, at phase 14's 512^3), #8 with the update boxes of
+phase 14's shards, and K1, #6, #7 and K4 with the row hooks against their
+plain versions and against the rows of their call on the whole 2049x513
+grid, all bitwise.  Each kernel's launches are counted over the one path
+run that uses it (phase 5 for the NS kernels, 7 for dual_timek, 8 for
+dual_time, 9 for ds3d, 11's PALLAS ``mg_solve`` for the stencil pass, 13's
+beta=0.5 run for #6/#7, 14's 512^3 run for dual_timek_padded), with the
+counts set to 0 just before it; phases 14-16 print and check their own
+counts as well.  The second-to-last line is the kernel table as JSON; the
+last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -163,6 +184,8 @@ def plain_kernels():
              (dual_time, "_dual_timek_cuda",
               lambda Ht, Htau, K, cf, scratch=None, partials=None:
               dual_time.dual_time_stepk_plain(Ht, Htau, K, cf, scratch)),
+             (dual_time, "_dual_time_box_cuda", dual_time.dual_time_box_plain),
+             (dual_time, "_dual_time_stepk_padded_cuda", dual_time.dual_time_stepk_padded_plain),
              (ds3d, "_ds3d_cuda",
               lambda Ht, Htau, cp, out=None, partials=None:
               ds3d.ds3d_step_plain(Ht, Htau, cp, out))]
@@ -204,14 +227,15 @@ class KernelCheck:
                         f"{name} {what}: sum {g!r} vs plain {w!r}")
 
     def timed(self, name, k_fn, p_fn, inputs, shape, kernel_names, flops,
-              peak_flops=PEAK_F32_FLOPS_S, library=None):
+              peak_flops=PEAK_F32_FLOPS_S, library=None, result=lambda out: out):
         """Times of a kernel call and of its plain version at the path's
         shape (and of one PyTorch call computing the same function, where
         there is one), and what its bound needs: the bytes of the inputs and
-        of one call's outputs, and the call's operations with the card's
-        peak rate for their type."""
+        of the function's result (``result`` of one call's outputs: the part
+        that is the function's, where a buffer holds more), and the call's
+        operations with the card's peak rate for their type."""
         row = self.rows.setdefault(name, {"max_abs_err": 0.0})
-        row.update(io_bytes=io_bytes(inputs, k_fn()), flops=flops, peak_flops=peak_flops,
+        row.update(io_bytes=io_bytes(inputs, result(k_fn())), flops=flops, peak_flops=peak_flops,
                    shape=list(shape), ms=time_ms(k_fn), plain_ms=time_ms(p_fn),
                    device_us=device_us(k_fn, kernel_names),
                    library_ms=None if library is None else time_ms(library))
@@ -361,12 +385,175 @@ def phase_kernels(kc: KernelCheck):
              flops=80 * ny * nx)
     phase_kernels_3d(kc)
     phase_kernels_host(kc)
+    phase_kernels_shards(kc)
     for name, row in kc.rows.items():
         b_ms, b_by = kc.bound(name)
         log(f"{name:12s} {row['shape']}: call {row['ms'] * 1e3:9.1f} us  "
             f"plain {row['plain_ms'] * 1e3:9.1f} us  kernels on the device "
             f"{row['device_us']} us  bound {b_ms * 1e3:.1f} us ({b_by})  "
             f"max abs err {row['max_abs_err']}")
+
+
+def phase_kernels_shards(kc: KernelCheck, dev=None, n=512):
+    """The sharded tiers' kernels on shard windows (still phase 3): #9 against
+    its plain version and against the global #10's planes, #8's update boxes,
+    and the row hooks of K1, #6, #7 and K4 against their plain versions and
+    against the rows of their call on the whole grid."""
+    import numpy as np
+    import torch
+
+    from fpr_tpu_torch.core.config import NSConfig
+    from fpr_tpu_torch.models.navier_stokes import fast_mg_default
+    from fpr_tpu_torch.ops import ds, dual_time, ns_fused, transfer, vcycle_legs
+    from fpr_tpu_torch.ops.rows import Rows
+    from fpr_tpu_torch.solvers import dist_mg_ds
+
+    log("== phase 3, sharded tiers: dual_timek_padded (#9), dual_time boxes (#8), row hooks "
+        "of defect (K1), smooth2r_split (#6), corr_smooth2 (#7), ns_fused (K4)")
+    dev = torch.device("cuda", 0) if dev is None else dev
+    rng = np.random.default_rng(3)
+    nsh = 4
+    nzl = n // nsh
+    cf = dual_time.coeffs(**diffusion_kw((n, n, n)))
+    Ht = torch.tensor(rng.random((n, n, n), dtype=np.float32), device=dev)
+    H = torch.tensor(rng.random((n, n, n), dtype=np.float32), device=dev)
+    for K in (2, 3):
+        glob, _ = dual_time._dual_timek_cuda(Ht, H.clone(), K, cf)
+        for d in (0, 1, nsh - 1):
+            z0 = d * nzl
+            Hp = torch.nn.functional.pad(H, (0, 0, 0, 0, K, K))[z0:z0 + nzl + 2 * K].clone()
+            Ht_k = torch.nn.functional.pad(Ht, (0, 0, 0, 0, K - 1, K - 1))[
+                z0:z0 + nzl + 2 * K - 2].clone()
+            zb = (1 if d == 0 else -K, nzl - 2 if d == nsh - 1 else nzl - 1 + K)
+            got = dual_time._dual_time_stepk_padded_cuda(Ht_k, Hp.clone(), K, cf, zb)
+            want = dual_time.dual_time_stepk_padded_plain(Ht_k, Hp.clone(), K, cf, zb)
+            tag = f"shard {d} of {nsh}, K={K}"
+            # the owned planes: the ghost planes of the result are stale
+            kc.fields("dual_timek_padded", (got[0][K:K + nzl],), (want[0][K:K + nzl],), tag)
+            kc.sums("dual_timek_padded", got[1:], want[1:], f"{tag} last sumsq")
+            kc.fields("dual_timek_padded", (got[0][K:K + nzl],), (glob[z0:z0 + nzl],),
+                      f"{tag} owned planes vs the global #10")
+            del got, want
+        del glob
+    # the timed call: an interior shard of phase 14, K=3, buffers reused
+    K = 3
+    Hp = torch.nn.functional.pad(H, (0, 0, 0, 0, K, K))[nzl:2 * nzl + 2 * K].clone()
+    Ht_k = torch.nn.functional.pad(Ht, (0, 0, 0, 0, K - 1, K - 1))[nzl:2 * nzl + 2 * K - 2]
+    Ht_k = Ht_k.clone()
+    scratch, part = torch.empty_like(Hp), dual_time.box_partials(Hp, nzl)
+    a = (Ht_k, Hp, K, cf, (-K, nzl - 1 + K))
+    sweep_cells = sum(nzl + 2 * (K - j) for j in range(1, K + 1)) * n * n
+    # the function's result is the owned planes and the norm: the ghost
+    # planes of the returned buffer are stale, and the last sweep writes nzl
+    kc.timed("dual_timek_padded",
+             lambda: dual_time._dual_time_stepk_padded_cuda(*a, scratch, part),
+             lambda: dual_time.dual_time_stepk_padded_plain(*a, scratch, part),
+             (Ht_k, Hp), tuple(Hp.shape), ["dual_time_kernel"], flops=27 * sweep_cells,
+             result=lambda out: (out[0][K:K + nzl], out[1]))
+    del Ht, H, Hp, Ht_k, scratch, part
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    # #8's boxes: a 2x2x2 block of phase 14 (64^3 local, fully ghost-padded)
+    # and the overlap's interior box with its one-plane edge launches
+    m = 66
+    cf = dual_time.coeffs(**diffusion_kw((128, 128, 128)))
+    Ht = torch.tensor(rng.random((m, m, m), dtype=np.float32), device=dev)
+    H = torch.tensor(rng.random((m, m, m), dtype=np.float32), device=dev)
+    for box in ((2, 64, 2, 64, 2, 64), (1, 63, 2, 64, 1, 63), (1, 64, 1, 64, 1, 64)):
+        for window in ((1, 64), (1, 1), (64, 64)):
+            part_k = dual_time.box_partials(H, window[1] - window[0] + 1)
+            part_p = H.new_zeros(window[1] - window[0] + 1)
+            out_k = torch.full_like(H, float("nan"))
+            out_p = torch.full_like(H, float("nan"))
+            dual_time._dual_time_box_cuda(Ht, H, cf, box, window, out_k, part_k)
+            dual_time.dual_time_box_plain(Ht, H, cf, box, window, out_p, part_p)
+            tag = f"box {box} window {window}"
+            sl = slice(window[0], window[1] + 1)
+            kc.fields("dual_time", (out_k[sl],), (out_p[sl],), tag)
+            kc.sums("dual_time", (part_k.sum(),), (part_p.sum(),), f"{tag} sumsq")
+    del Ht, H
+
+    # the row hooks at phase 16's plan: 2049x513 on 4 row shards
+    ny, nx, nd = 513, 2049, 4
+    G = dist_mg_ds.G
+    ny_l = dist_mg_ds.plan_shards(ny, nx, nd, fast_mg_default(NSConfig(nx=nx, ny=ny)).mg,
+                                  257).ny_l
+    h = 1.0 / 512
+
+    def rand(*shape, scale=1.0):
+        return torch.tensor(rng.standard_normal(shape) * scale, dtype=torch.float32, device=dev)
+
+    def window(a, d):
+        ap = torch.nn.functional.pad(a, (0, 0, G, nd * ny_l + G - ny))
+        return ap[..., d * ny_l:d * ny_l + ny_l + 2 * G, :].contiguous()
+
+    def rows(d):
+        return Rows(d * ny_l - G, ny, (G, G + ny_l))
+
+    def owned(name, local, glob, d, tag):
+        k = min(ny_l, ny - d * ny_l)
+        kc.fields(name, (local[..., G:G + k, :],), (glob[..., d * ny_l:d * ny_l + k, :],),
+                  f"{tag} shard {d}: owned rows vs the whole grid's")
+
+    u64 = torch.tensor(rng.standard_normal((ny, nx)), dtype=torch.float64, device=dev)
+    u = torch.stack([u64.float(), (u64 - u64.float().double()).float()])
+    f, e = rand(1, ny, nx), rand(ny, nx, scale=1e-3)
+    cT = torch.tensor(41.25, dtype=torch.float32, device=dev)
+    for tag, c, kw in (("S", 0.0, dict(velocity_max=True)), ("T", cT, dict(apply_bcs=True))):
+        C = ds.defect_scalars(c, h, dev)
+        c_zero = not isinstance(c, torch.Tensor)
+        whole = ds._defect_cuda(u, f, e, 1.0, h, C, c_zero, **kw)
+        for d in range(nd):
+            a = (window(u, d), window(f, d), window(e, d), 1.0, h, C, c_zero)
+            got = ds._defect_cuda(*a, rows=rows(d), **kw)
+            want = ds.defect_pass_plain(*a, rows=rows(d), **kw)
+            kc.fields("defect", got[:2], want[:2], f"{tag} rows shard {d}")
+            kc.sums("defect", got[2][:1], want[2][:1], f"{tag} rows shard {d} sumsq")
+            kc.sums("defect", got[2][1:3], want[2][1:3], f"{tag} rows shard {d} maxima",
+                    exact=True)
+            owned("defect", got[0], whole[0], d, f"K1 {tag}")
+            owned("defect", got[1], whole[1], d, f"K1 {tag} r")
+    f2, u2 = rand(ny, nx), rand(ny, nx)
+    coarse = rand((ny - 1) // 2 + 1, (nx - 1) // 2 + 1, scale=1e-2)
+    for ns, elim, c in ((3, False, torch.zeros((), device=dev)), (3, True, cT)):
+        whole_dn = vcycle_legs._smooth2r_split_cuda(u2, f2, h, c, 0.8, ns, elim)
+        whole_dn0 = vcycle_legs._smooth2r_split_cuda(None, f2, h, c, 0.8, ns, elim)
+        corrx = transfer.x_interleave_coarse(coarse, apply_bcs=elim)
+        whole_up, _ = vcycle_legs._corr_smooth2_cuda(u2, f2, corrx, h, c, 0.8, ns, elim)
+        padded = torch.nn.functional.pad(corrx, (0, 0, G // 2, nd * ny_l // 2 + G))
+        tag = f"ns={ns} elim={elim}"
+        for d in range(nd):
+            for uu, whole in ((window(u2, d), whole_dn), (None, whole_dn0)):
+                a = (uu, window(f2, d), h, c, 0.8, ns, elim, rows(d))
+                got = vcycle_legs._smooth2r_split_cuda(*a)
+                want = vcycle_legs.smooth_down_plain(*a)
+                kc.fields("smooth2r_split", got, want, f"{tag} rows shard {d}")
+                owned("smooth2r_split", got[0], whole[0], d, f"#6 {tag} u")
+                owned("smooth2r_split", got[1], whole[1], d, f"#6 {tag} res")
+            win = padded[d * ny_l // 2:d * ny_l // 2 + (ny_l + 2 * G) // 2 + 1]
+            a = (window(u2, d), window(f2, d), win, h, c, 0.8, ns, elim, False, None, rows(d))
+            got = vcycle_legs._corr_smooth2_cuda(*a)
+            want = vcycle_legs.corr_up_plain(*a)
+            kc.fields("corr_smooth2", got[:1], want[:1], f"{tag} rows shard {d}")
+            owned("corr_smooth2", got[0], whole_up, d, f"#7 {tag}")
+    TW = torch.stack([rand(ny, nx, scale=0.3) + 0.5, rand(ny, nx, scale=10.0)])
+    S = rand(ny, nx, scale=0.1)
+    dt = torch.tensor(1.9e-6, dtype=torch.float32, device=dev)
+    scal = torch.stack([dt, cT, cT * 100.0])
+    for mode, beta in (("explicit", 0.0), ("rhs", 0.5)):
+        whole, _, _ = ns_fused._ns_fused_cuda(TW, S, scal, h, 0.01, 1e6, 1.0, beta, mode, False)
+        for d in range(nd):
+            a = (window(TW, d), window(S, d), scal, h, 0.01, 1e6, 1.0, beta, mode, False,
+                 rows(d))
+            ok, _, sk = ns_fused._ns_fused_cuda(*a)
+            op, _, sp = ns_fused.ns_fused_plain(*a)
+            kc.fields("ns_fused", (ok,), (op,), f"{mode} rows shard {d}")
+            kc.sums("ns_fused", sk[:2], sp[:2], f"{mode} rows shard {d} sums")
+            owned("ns_fused", ok, whole, d, f"K4 {mode}")
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
 
 
 def diffusion_kw(shape):
@@ -579,6 +766,7 @@ def phase_mg():
     require(rel <= tol, f"true f64 relative residual {rel:.3e} > {tol}")
     for k in ("defect", "smooth_down", "corr_up"):
         require(counts[k] > 0, f"MG row never launched {k}")
+    return it, uh.double() + ul.double()
 
 
 def ns_cfg(beta):
@@ -719,7 +907,7 @@ def phase_diffusion_bench():
         f"T_eff {out.bench.throughput / 1e9:.1f} GB/s (counted, fused model)  "
         f"launches dual_timek {counts['dual_timek']}")
     compare_diffusion(dataclasses.replace(cfg, iter_max=30), "512^3 K=3, 30 iterations a step")
-    return counts
+    return counts, out
 
 
 REF_PROBE_F32 = 0.0799870          # 128^3, ttot 2, tol 1e-6 (the reference's val column)
@@ -745,7 +933,7 @@ def phase_diffusion_f32():
     log(f"probe H(4.5,4.5,4.5) {v3:.7f}")
     require(out3.converged and abs(v3 - REF_PROBE_F32) <= 1e-4, "128^3 K=3 run failed")
     compare_diffusion(cfg, "128^3 K=1 converged", k=out)
-    return counts
+    return counts, out
 
 
 def phase_diffusion_ds():
@@ -973,6 +1161,177 @@ def phase_ns_host(**size):
     return main_counts, results
 
 
+def mesh_of(shape, axes):
+    from fpr_tpu_torch.parallel.mesh import make_mesh
+
+    return make_mesh(shape, axes, device=DEVICE)
+
+
+def phase_dist_diffusion(single_512, single_128, n=512, n_small=128, cap=300):
+    """Phase 14: the sharded diffusion tier against phases 7 and 8."""
+    import dataclasses
+
+    import numpy as np
+
+    from fpr_tpu_torch.core.config import DiffusionConfig, ExecutionPolicy
+    from fpr_tpu_torch.parallel import dist_diffusion
+
+    log(f"== phase 14: sharded diffusion, {n}^3 float32 on 4 z-shards (K=3, #9), "
+        f"{n_small}^3 on 2x2x2 shards (#8 boxes), overlap_comm against plain")
+    cfg = DiffusionConfig(nx=n, ny=n, nz=n // 4, ttot=0.8, dt=0.2, tol=1e-6, iter_max=cap,
+                          policy=ExecutionPolicy.PALLAS, check_every=3)
+    out, secs, counts = counted(lambda: dist_diffusion.solve_distributed(
+        cfg, mesh_of((4,), ("z",))))
+    log(f"{n}^3 on 4 z-shards K=3: iters_total {out.iters_total}  timed_iters "
+        f"{out.timed_iters}  run {secs:.3f} s  ms per iteration "
+        f"{out.bench.delta_t / max(out.timed_iters, 1) * 1e3:.4f} (single device, phase 7: "
+        f"{single_512.bench.delta_t / single_512.timed_iters * 1e3:.4f})  launches "
+        f"{ {k: v for k, v in counts.items() if v} }")
+    require(out.iters_total == single_512.iters_total == 4 * cap,
+            f"iterations {out.iters_total} vs single device {single_512.iters_total}")
+    require(counts["dual_timek_padded"] > 0, "the sharded K=3 run never launched #9")
+    err = float(np.abs(out.H - single_512.H).max())
+    require(np.array_equal(out.H, single_512.H),
+            f"{n}^3 sharded H differs from the single device by {err:.3e}")
+    log("  H bitwise equal to the single-device run of the same steps")
+    main_counts = counts
+    del out
+
+    cfg = DiffusionConfig(nx=n_small // 2, ny=n_small // 2, nz=n_small // 2, ttot=2.0,
+                          tol=1e-6, policy=ExecutionPolicy.PALLAS, check_every=1)
+    out, secs, counts = counted(lambda: dist_diffusion.solve_distributed(
+        cfg, mesh_of((2, 2, 2), ("z", "y", "x"))))
+    v, v1 = probe(out), probe(single_128)
+    log(f"{n_small}^3 on 2x2x2 shards: converged {out.converged}  iterations "
+        f"{out.iters_total} (single device {single_128.iters_total})  probe {v:.7f} (single "
+        f"device {v1:.7f}, reference {REF_PROBE_F32})  timed {out.bench.delta_t:.3f} s "
+        f"(single device {single_128.bench.delta_t:.3f} s)  run {secs:.3f} s  launches "
+        f"{ {k: v for k, v in counts.items() if v} }")
+    require(out.converged, f"{n_small}^3 on 2x2x2 shards did not converge")
+    require(abs(v - REF_PROBE_F32) <= 1e-4, f"probe {v} is not within 1e-4 of {REF_PROBE_F32}")
+    require(counts["dual_time"] > 0, "the 2x2x2 run never launched dual_time")
+
+    base = DiffusionConfig(nx=n_small, ny=n_small, nz=n_small // 4, ttot=0.4, tol=1e-6,
+                           iter_max=600, policy=ExecutionPolicy.PALLAS)
+    runs = {}
+    for overlap in (False, True):
+        runs[overlap], secs, _ = counted(lambda: dist_diffusion.solve_distributed(
+            dataclasses.replace(base, overlap_comm=overlap), mesh_of((4,), ("z",))))
+        log(f"  overlap_comm={overlap}: {runs[overlap].iters_total} iterations, timed "
+            f"{runs[overlap].bench.delta_t:.4f} s, run {secs:.3f} s")
+    require(runs[True].iters_total == runs[False].iters_total,
+            f"overlap iterations {runs[True].iters_total} vs plain {runs[False].iters_total}")
+    require(np.array_equal(runs[True].H, runs[False].H), "overlap H differs from plain")
+    log("  overlap equals plain: same iterations, bitwise H")
+    return main_counts
+
+
+def phase_dist_mg(single_it, single_u, n=4097, n_bcs=2049, shards=4):
+    """Phase 15: the row-sharded ds MG against phase 4 and the single device."""
+    from fpr_tpu_torch.core.config import CoarseSolver, MGConfig
+    from fpr_tpu_torch.solvers.dist_mg_ds import mg_solve_ds_sharded
+    from fpr_tpu_torch.solvers.multigrid import mg_solve_ds
+
+    log(f"== phase 15: mg_solve_ds_sharded {n}^2 on {shards} row shards, DST-513, V(5,5), "
+        f"tol 1e-6, replicate_below=1025")
+    tol = 1e-6
+    mesh = mesh_of((shards,), ("y",))
+    cfg = MGConfig(coarse_size=513, coarse_solver=CoarseSolver.DST, pre_smooth=5,
+                   post_smooth=5)
+    h = 1.0 / (n - 1)
+    b = poisson_rhs(n, "float32")
+
+    def solve():
+        return mg_solve_ds_sharded(b, h, 0.0, tol, 30, mesh, cfg=cfg, replicate_below=1025)
+
+    solve()  # warm-up
+    ((uh, ul), r, it), secs, counts = counted(solve)
+    u = uh.double() + ul.double()
+    rel = true_rel(u, b, h)
+    diff = float((u - single_u).abs().max() / single_u.abs().max())
+    log(f"outers {it} (single device {single_it})  solve {secs:.4f} s  true f64 r_rms/f_rms "
+        f"{rel:.3e}  max rel diff to the single device {diff:.3e}  launches "
+        f"{ {k: v for k, v in counts.items() if v} }")
+    require(it == single_it, f"outers {it} vs single device {single_it}")
+    require(rel <= tol, f"true f64 relative residual {rel:.3e} > {tol}")
+    require(diff <= 1e-6, f"u differs from the single device by {diff:.3e}")
+    for k in ("defect", "smooth2r_split", "corr_smooth2"):
+        require(counts[k] > 0, f"the sharded MG never launched {k}")
+    main_counts = counts
+    del u, uh, ul, b
+
+    h = 1.0 / (n_bcs - 1)
+    b = poisson_rhs(n_bcs, "float32")
+    cfg = MGConfig(coarse_size=129, coarse_solver=CoarseSolver.DST)
+    for c in (0.0, 64.0):
+        (ud, _, itd), secs, _ = counted(lambda: mg_solve_ds_sharded(
+            b, h, c, tol, 20, mesh, cfg=cfg, replicate_below=513, apply_bcs=True))
+        (us, _, its), ssecs, _ = counted(lambda: mg_solve_ds(
+            None, b, h, c, tol, 20, cfg=cfg, return_pair=True, apply_bcs=True))
+        ud, us = ud[0].double() + ud[1].double(), us[0].double() + us[1].double()
+        diff = float((ud - us).abs().max() / us.abs().max())
+        log(f"apply_bcs {n_bcs}^2 c={c}: outers {itd} (single device {its})  {secs:.3f} s "
+            f"(single device {ssecs:.3f} s)  max rel diff {diff:.3e}  row 0 "
+            f"{float(ud[0].min())}..{float(ud[0].max())}")
+        require(itd == its, f"apply_bcs c={c}: outers {itd} vs single device {its}")
+        require(diff <= 1e-6, f"apply_bcs c={c}: u differs by {diff:.3e}")
+    return main_counts
+
+
+def phase_dist_ns(single_semi, nx=2049, ny=513, shards=4, timed_steps=200):
+    """Phase 16: the row-sharded NS fast loop against the single device."""
+    import dataclasses
+
+    import numpy as np
+
+    from fpr_tpu_torch.models.dist_ns import simulate_fast_sharded
+    from fpr_tpu_torch.models.navier_stokes import simulate_fast
+    from fpr_tpu_torch.parallel.dryrun import dryrun_multichip
+
+    log(f"== phase 16: simulate_fast_sharded {nx}x{ny} on {shards} row shards")
+    mesh = mesh_of((shards,), ("y",))
+    cfg = dataclasses.replace(ns_cfg(0.0), nx=nx, ny=ny)
+    got = simulate_fast_sharded(cfg, mesh, max_steps=6)
+    want = simulate_fast(cfg, max_steps=6, device=DEVICE)
+    w = float(np.abs(got.W - want.W).max() / np.abs(want.W).max())
+    t = float(np.abs(got.T - want.T).max())
+    log(f"explicit 6 steps: steps {got.steps}/{want.steps}  sim_time {got.sim_time!r} vs "
+        f"{want.sim_time!r}  W rel diff {w:.3e}  T diff {t:.3e}")
+    require(got.steps == want.steps == 6, "explicit 6 steps: step counts differ")
+    require(abs(got.sim_time - want.sim_time) < 1e-6, "explicit: sim_time differs")
+    require(w < 1e-4 and t < 1e-4, f"explicit: W {w:.3e} or T {t:.3e} beyond 1e-4")
+    out, secs, counts = counted(lambda: simulate_fast_sharded(cfg, mesh,
+                                                              max_steps=timed_steps))
+    ref, rsecs, _ = counted(lambda: simulate_fast(cfg, max_steps=timed_steps, device=DEVICE))
+    drift = float(np.abs(out.W - ref.W).max() / np.abs(ref.W).max())
+    log(f"explicit {timed_steps} steps: timed_iters {out.timed_iters}  timed "
+        f"{out.t_elapsed:.3f} s ({out.t_elapsed / out.timed_iters * 1e3:.2f} ms a step; single "
+        f"device {ref.t_elapsed:.3f} s, {ref.t_elapsed / ref.timed_iters * 1e3:.2f} ms)  W "
+        f"drift {drift:.3e}  sim_time {out.sim_time!r} vs {ref.sim_time!r}  launches "
+        f"{ {k: v for k, v in counts.items() if v} }")
+    require(np.isfinite(out.W).all() and out.steps == timed_steps, "explicit run failed")
+    for k in ("defect", "smooth2r_split", "corr_smooth2", "ns_fused"):
+        require(counts[k] > 0, f"the sharded NS loop never launched {k}")
+    semi = simulate_fast_sharded(dataclasses.replace(ns_cfg(0.5), nx=nx, ny=ny), mesh)
+    w = float(np.abs(semi.W - single_semi.W).max() / np.abs(single_semi.W).max())
+    t = float(np.abs(semi.T - single_semi.T).max())
+    log(f"beta=0.5 to the end: steps {semi.steps} (single device, phase 6: "
+        f"{single_semi.steps})  timed {semi.t_elapsed:.3f} s (single device "
+        f"{single_semi.t_elapsed:.3f} s)  sim_time {semi.sim_time!r} vs "
+        f"{single_semi.sim_time!r}  W rel diff {w:.3e}  T diff {t:.3e}")
+    # the bounds of the JAX package's sharded semi-implicit test against its
+    # single device (tests/test_dist_mg.py)
+    require(semi.steps == single_semi.steps,
+            f"beta=0.5: steps {semi.steps} vs single device {single_semi.steps}")
+    require(abs(semi.sim_time - single_semi.sim_time) < 1e-6, "beta=0.5: sim_time differs")
+    require(w < 1e-3 and t < 1e-3, f"beta=0.5: W {w:.3e} or T {t:.3e} beyond 1e-3")
+    require(np.allclose(semi.T[0], 1.0, atol=1e-6) and np.allclose(semi.T[-1], 0.0, atol=1e-6)
+            and np.allclose(semi.T[:, 0], semi.T[:, 1], atol=1e-6),
+            "beta=0.5: the temperature BCs do not hold")
+    dryrun_multichip(4, device=DEVICE)
+    return counts
+
+
 NS_KERNELS = ("defect", "smooth_down", "corr_up", "ns_fused")
 # kernel: (source, the TPU kernel it replaces)
 SOURCES = {
@@ -986,6 +1345,7 @@ SOURCES = {
     "stencil": ("fpr_tpu_torch/csrc/stencil.cu", "fpr_tpu/ops/pallas2d.py:108"),
     "smooth2r_split": ("fpr_tpu_torch/csrc/vcycle_legs.cu", "fpr_tpu/ops/pallas2d.py:333"),
     "corr_smooth2": ("fpr_tpu_torch/csrc/vcycle_legs.cu", "fpr_tpu/ops/pallas2d.py:595"),
+    "dual_timek_padded": ("fpr_tpu_torch/csrc/dual_time.cu", "fpr_tpu/ops/pallas3d.py:270"),
 }
 
 
@@ -1009,12 +1369,14 @@ def main() -> int:
         phase_build()
         kc = KernelCheck()
         phase_kernels(kc)
-        phase_mg()
+        mg_it, mg_u = phase_mg()
         ns_counts, _ = phase_ns_explicit()
-        phase_ns_semi()
+        semi = phase_ns_semi()
         launches = {k: ns_counts[k] for k in NS_KERNELS}
-        launches["dual_timek"] = phase_diffusion_bench()["dual_timek"]
-        launches["dual_time"] = phase_diffusion_f32()["dual_time"]
+        bench_counts, out_512 = phase_diffusion_bench()
+        launches["dual_timek"] = bench_counts["dual_timek"]
+        f32_counts, out_128 = phase_diffusion_f32()
+        launches["dual_time"] = f32_counts["dual_time"]
         launches["ds3d"] = phase_diffusion_ds()["ds3d"]
         phase_mg_mixed()
         launches["stencil"] = phase_pallas_f64()["stencil"]
@@ -1022,6 +1384,11 @@ def main() -> int:
         host_counts, _ = phase_ns_host()
         for k in ("smooth2r_split", "corr_smooth2"):
             launches[k] = host_counts[k]
+        launches["dual_timek_padded"] = phase_dist_diffusion(out_512, out_128)[
+            "dual_timek_padded"]
+        del out_512
+        phase_dist_mg(mg_it, mg_u)
+        phase_dist_ns(semi)
     except Failed as exc:
         log(f"chip_smoke FAILED: {exc}")
         return 1

@@ -2,8 +2,8 @@
 
 The JAX package ``fpr_tpu`` beside it is the reference this port is tested
 against; the port imports neither it nor JAX.  Ported so far are the
-single-device Navier-Stokes loops with the solvers under them, and part
-1's 3D dual-time diffusion:
+Navier-Stokes loops with the solvers under them, part 1's 3D dual-time
+diffusion, and their sharded tiers:
 
 - ``models.navier_stokes.simulate_fast``: the streamfunction-vorticity
   thermal-convection fast loop (explicit and semi-implicit, float32 state,
@@ -19,6 +19,11 @@ single-device Navier-Stokes loops with the solvers under them, and part
 - ``models.diffusion3d.solve``: pseudo-transient 3D diffusion to steady
   state per backward-Euler step, in three tiers (plain PyTorch, the f32
   kernel with a check every K iterations, the double-single kernel);
+- the sharded tiers on a single-controller mesh of shards
+  (``parallel.mesh``, ``parallel.halo``): ``parallel.dist_diffusion``
+  (part 1 over a 1D/2D/3D mesh), ``solvers.dist_mg_ds`` (the ds multigrid
+  over row shards) and ``models.dist_ns`` (the fast loop over row
+  shards), with ``parallel.dryrun``;
 - ``ops``: the plain PyTorch operators and the hand-written CUDA kernels
   of those paths (``csrc/``, built by ``kernels``).
 

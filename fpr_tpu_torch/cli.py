@@ -1,5 +1,5 @@
-"""Command-line interface of the port (fpr_tpu/cli.py: the single-device
-``diffusion3d``, ``ns`` and ``mg`` subcommands):
+"""Command-line interface of the port (fpr_tpu/cli.py: the ``diffusion3d``,
+``ns`` and ``mg`` subcommands):
 
     python -m fpr_tpu_torch diffusion3d --n 512 --policy pallas --check-every 3 --ttot 0.8 --bench
     python -m fpr_tpu_torch ns --nx 2049 --ny 513 --Pr 0.01 --tol 1e-7 --ttot 0.005 --fast
@@ -8,7 +8,9 @@
     python -m fpr_tpu_torch mg --k 12 --l 2 --coarse jacobi --solver mixed
 
 ``--device`` defaults to ``cuda``; ``--device cpu`` runs the plain PyTorch
-versions of the kernels.
+versions of the kernels.  ``--devices N`` runs the sharded tier over a
+virtual mesh of N shards, all on ``--device`` (``diffusion3d``: N z-shards
+of n^3 cells each; ``ns --fast`` and ``mg --solver ds``: N row shards).
 """
 
 from __future__ import annotations
@@ -26,13 +28,27 @@ def cmd_diffusion3d(args):
     from fpr_tpu_torch.core.grid import Grid3D
     from fpr_tpu_torch.models import diffusion3d
 
+    policy = ExecutionPolicy(args.policy)
     cfg = DiffusionConfig(nx=args.n, ny=args.n, nz=args.n, ttot=args.ttot, tol=args.tol,
-                          policy=ExecutionPolicy(args.policy), check_every=args.check_every)
-    out = diffusion3d.solve(cfg, dtype=torch.float64 if args.f64 else torch.float32,
-                            verbose=args.verbose, device=args.device)
+                          policy=policy, check_every=args.check_every)
+    dtype = torch.float64 if args.f64 else torch.float32
+    if args.devices > 1:
+        from fpr_tpu_torch.parallel import dist_diffusion
+        from fpr_tpu_torch.parallel.mesh import make_mesh
+
+        if policy is ExecutionPolicy.PALLAS_DS:
+            raise SystemExit("--devices > 1 supports --policy jnp/pallas (the ds tier is a "
+                             "single-device path)")
+        if args.check_every > 1 and policy is not ExecutionPolicy.PALLAS:
+            raise SystemExit("--check-every > 1 over a mesh needs --policy pallas")
+        mesh = make_mesh((args.devices,), ("z",), device=args.device)
+        out = dist_diffusion.solve_distributed(cfg, mesh, dtype=dtype, verbose=args.verbose)
+    else:
+        out = diffusion3d.solve(cfg, dtype=dtype, verbose=args.verbose, device=args.device)
     print(f"iterations: {out.iters_total} (converged: {out.converged})")
-    g = Grid3D(args.n, args.n, args.n)
-    print(f"probe H(4.5,4.5,4.5): {diffusion3d.probe_nearest(out.H, g):.7f}")
+    if out.H.shape[0] == args.n:
+        g = Grid3D(args.n, args.n, args.n)
+        print(f"probe H(4.5,4.5,4.5): {diffusion3d.probe_nearest(out.H, g):.7f}")
     if args.bench:
         print(json.dumps(out.bench.row()))
 
@@ -51,11 +67,21 @@ def cmd_ns(args):
         ttot=args.ttot, tol=args.tol, niters=args.niters, mg=mg,
         mg_auto=not args.no_mg_auto,
     )
+    if args.devices > 1 and not args.fast:
+        raise SystemExit("--devices > 1 runs the sharded fast loop: add --fast")
     if args.fast:
         if args.f64:
             raise SystemExit("--fast is float32-only; drop --f64 or drop --fast")
-        out = ns.simulate_fast(cfg, verbose=args.verbose, max_steps=args.max_steps,
-                               device=args.device)
+        if args.devices > 1:
+            from fpr_tpu_torch.models import dist_ns
+            from fpr_tpu_torch.parallel.mesh import make_mesh
+
+            mesh = make_mesh((args.devices,), ("y",), device=args.device)
+            out = dist_ns.simulate_fast_sharded(cfg, mesh, verbose=args.verbose,
+                                                max_steps=args.max_steps)
+        else:
+            out = ns.simulate_fast(cfg, verbose=args.verbose, max_steps=args.max_steps,
+                                   device=args.device)
     else:
         out = ns.simulate(cfg, verbose=args.verbose, max_steps=args.max_steps,
                           dtype=torch.float64 if args.f64 else torch.float32,
@@ -71,11 +97,15 @@ def cmd_mg(args):
     from fpr_tpu_torch.ops import stencil2d
     from fpr_tpu_torch.solvers import multigrid
 
+    if args.devices > 1 and args.solver != "ds":
+        raise SystemExit("--devices > 1 requires --solver ds (the sharded tier)")
     if args.smooths < 1:
         raise SystemExit("--smooths must be >= 1 (the convergence check reads the "
                          "final post-smooth's residual norm)")
     if args.solver == "ds" and args.smooths > 6:
-        raise SystemExit("--solver ds takes --smooths 1..6 (the fused legs)")
+        raise SystemExit("--solver ds takes --smooths 1..6 (the fused legs"
+                         + (", and the sharded tier's one halo exchange per leg)"
+                            if args.devices > 1 else ")"))
     n = 2**args.k + 1
     h = 1.0 / (n - 1)
     cfg = MGConfig(coarse_size=2**args.l + 1, coarse_solver=CoarseSolver(args.coarse),
@@ -89,6 +119,12 @@ def cmd_mg(args):
 
     def solve():
         """(the solution as a tuple of parts to add in float64, r_rms, count)"""
+        if args.devices > 1:
+            from fpr_tpu_torch.parallel.mesh import make_mesh
+            from fpr_tpu_torch.solvers.dist_mg_ds import mg_solve_ds_sharded
+
+            mesh = make_mesh((args.devices,), ("y",), device=args.device)
+            return mg_solve_ds_sharded(b, h, 0.0, args.tol, 30, mesh, cfg=cfg)
         if args.solver == "ds":
             return multigrid.mg_solve_ds(None, b, h, 0.0, args.tol, 30, cfg=cfg,
                                          return_pair=True)
@@ -125,6 +161,8 @@ def main(argv=None):
     p.add_argument("--check-every", type=int, default=1,
                    help="pallas only: K iterations per call between convergence checks")
     p.add_argument("--f64", action="store_true", help="float64 (the jnp tier, or the CPU)")
+    p.add_argument("--devices", type=int, default=1,
+                   help="shards of a virtual z mesh on --device, each n^3 cells")
     p.add_argument("--bench", action="store_true",
                    help="print the counted performance model as one JSON line")
     p.add_argument("--verbose", action="store_true")
@@ -148,6 +186,8 @@ def main(argv=None):
                    help="the fused fast loop (float32 state, double-single multigrid)")
     p.add_argument("--no-mg-auto", action="store_true",
                    help="keep the default MG ladder instead of DST-257, V(3,3)")
+    p.add_argument("--devices", type=int, default=1,
+                   help="--fast: row shards of a virtual mesh on --device")
     p.add_argument("--verbose", action="store_true")
     p.set_defaults(fn=cmd_ns)
 
@@ -162,6 +202,8 @@ def main(argv=None):
                         "float32 V-cycles; ds: double-single defect correction")
     p.add_argument("--smooths", type=int, default=2)
     p.add_argument("--f64", action="store_true", help="direct: a float64 solve")
+    p.add_argument("--devices", type=int, default=1,
+                   help="--solver ds: row shards of a virtual mesh on --device")
     p.set_defaults(fn=cmd_mg)
 
     args = ap.parse_args(argv)

@@ -1,11 +1,10 @@
 """Static configuration of the port's solvers and models.
 
-The single-device part of ``fpr_tpu/core/config.py``, with the same field
-names and defaults, kept in this package so that the port imports nothing
-of the JAX package: ``MGConfig``, ``NSConfig``, ``DiffusionConfig`` (minus
-``scale_physical_size`` and ``overlap_comm``, which belong to the
-unported sharded tier) and the ``ExecutionPolicy`` / ``CoarseSolver`` /
-``Smoother`` / ``Restriction`` / ``InitScheme`` enums.
+``fpr_tpu/core/config.py``, with the same field names and defaults, kept
+in this package so that the port imports nothing of the JAX package:
+``MGConfig``, ``NSConfig``, ``DiffusionConfig`` and the
+``ExecutionPolicy`` / ``CoarseSolver`` / ``Smoother`` / ``Restriction`` /
+``InitScheme`` enums.
 """
 
 from __future__ import annotations
@@ -144,6 +143,11 @@ class DiffusionConfig:
 
     check_every: pseudo-time iterations between convergence checks (PALLAS
     only); 1 checks every iteration, as the reference does.
+    The sharded tier (``parallel.dist_diffusion``) reads nx, ny, nz as
+    each shard's local size; scale_physical_size scales lx, ly, lz by the
+    shard grid as well (weak scaling, part1_kernel_programming.jl:106-114),
+    and overlap_comm runs the halo exchange beside the interior update on
+    a z-only mesh.
     """
 
     nx: int = 128
@@ -157,6 +161,8 @@ class DiffusionConfig:
     dt: float = 0.2
     tol: float = 1.0e-8
     iter_max: int = 100_000
+    scale_physical_size: bool = False
     policy: ExecutionPolicy = ExecutionPolicy.PALLAS
     check_every: int = 1
+    overlap_comm: bool = False
 

@@ -11,6 +11,13 @@
 // partials of sum(r_hi^2) over the interior, max |du'/dy| and max |du'/dx|
 // over the interior, and sum(u'_hi^2) over the domain.
 //
+// Row hooks (ds.py:575-641, row_off/ny_mask/raw_sumsq): local row y is
+// global row row_off + y of an ny_g-row grid.  The BCs' Dirichlet rows and
+// the interior follow the global row, and the local first and last rows,
+// which lack an outer neighbour, are never interior.  The sums and maxima
+// cover the owned local rows [own0, own1) only.  A single device passes
+// row_off 0, ny_g = ny and owns every row.
+//
 // Bound on the H100: memory bandwidth.  A cell reads u hi/lo, f (one or
 // two planes) and e, and writes u' hi/lo and r: 6-8 f32 words, against
 // about 120 flops of ds arithmetic.
@@ -22,7 +29,8 @@
 // which keeps it one launch with no intermediate plane.  Cross-block sums go
 // to a per-block partials buffer that the caller adds in a fixed order.
 // Left for later: shared-memory tiles so each value is loaded and updated
-// once per block, and the shard hooks (row/column offsets, owned lanes).
+// once per block, and the column hooks of a 2D mesh (col_off, nx_mask,
+// own_lanes).
 #include "fpr_common.cuh"
 
 namespace {
@@ -35,18 +43,18 @@ enum : int {
     FIELD_SUMSQ = 16,
 };
 
-// The updated (and, with bcs, BC'd) ds value at (y, x).  BCs: Dirichlet
-// rows first (1 at y = 0, 0 at y = ny-1, lo part 0), then the Neumann
-// column copies, which read the Dirichlet'd field, so they win at the
-// corners (fpr_tpu/core/bc.py::ns_temperature_bcs).
+// The updated (and, with bcs, BC'd) ds value at local (y, x), global row
+// gy.  BCs: Dirichlet rows first (1 at gy = 0, 0 at gy = ny_g-1, lo part
+// 0), then the Neumann column copies, which read the Dirichlet'd field, so
+// they win at the corners (fpr_tpu/core/bc.py::ns_temperature_bcs).
 __device__ __forceinline__ void updated(const float* __restrict__ uh,
                                         const float* __restrict__ ul,
                                         const float* __restrict__ e, float scale,
-                                        bool bcs, int ny, int nx, int y, int x,
+                                        bool bcs, int ny_g, int nx, int y, int gy, int x,
                                         float& h, float& l) {
     if (bcs) {
-        if (y == 0) { h = 1.0f; l = 0.0f; return; }
-        if (y == ny - 1) { h = 0.0f; l = 0.0f; return; }
+        if (gy == 0) { h = 1.0f; l = 0.0f; return; }
+        if (gy == ny_g - 1) { h = 0.0f; l = 0.0f; return; }
         if (x == 0) x = 1;
         else if (x == nx - 1) x = nx - 2;
     }
@@ -61,28 +69,31 @@ defect_kernel(const float* __restrict__ uh, const float* __restrict__ ul,
               const float* __restrict__ fh, const float* __restrict__ fl,
               const float* __restrict__ e, const float* __restrict__ cpair,
               float scale, float inv_h2, float inv2h, int ny, int nx, int flags,
-              float* __restrict__ uh_out, float* __restrict__ ul_out,
-              float* __restrict__ r_out, float* __restrict__ partials) {
+              int row_off, int ny_g, int own0, int own1, float* __restrict__ uh_out,
+              float* __restrict__ ul_out, float* __restrict__ r_out,
+              float* __restrict__ partials) {
     __shared__ float sh[FPR_BY];
     const int x = blockIdx.x * FPR_BX + threadIdx.x;
     const int y = blockIdx.y * FPR_BY + threadIdx.y;
+    const int gy = row_off + y;
     const bool bcs = flags & APPLY_BCS;
+    const bool own = y >= own0 && y < own1;
     float rsq = 0.0f, vx = 0.0f, vy = 0.0f, usq = 0.0f;
 
     if (x < nx && y < ny) {
         const int i = y * nx + x;
         float ch, cl;
-        updated(uh, ul, e, scale, bcs, ny, nx, y, x, ch, cl);
+        updated(uh, ul, e, scale, bcs, ny_g, nx, y, gy, x, ch, cl);
         uh_out[i] = ch;
         ul_out[i] = cl;
-        usq = ch * ch;
+        if (own && gy >= 0 && gy < ny_g) usq = ch * ch;
         float r = 0.0f;
-        if (x > 0 && y > 0 && x < nx - 1 && y < ny - 1) {
+        if (x > 0 && y > 0 && x < nx - 1 && y < ny - 1 && gy > 0 && gy < ny_g - 1) {
             float uph, upl, dnh, dnl, lfh, lfl, rth, rtl;
-            updated(uh, ul, e, scale, bcs, ny, nx, y - 1, x, uph, upl);
-            updated(uh, ul, e, scale, bcs, ny, nx, y + 1, x, dnh, dnl);
-            updated(uh, ul, e, scale, bcs, ny, nx, y, x - 1, lfh, lfl);
-            updated(uh, ul, e, scale, bcs, ny, nx, y, x + 1, rth, rtl);
+            updated(uh, ul, e, scale, bcs, ny_g, nx, y - 1, gy - 1, x, uph, upl);
+            updated(uh, ul, e, scale, bcs, ny_g, nx, y + 1, gy + 1, x, dnh, dnl);
+            updated(uh, ul, e, scale, bcs, ny_g, nx, y, gy, x - 1, lfh, lfl);
+            updated(uh, ul, e, scale, bcs, ny_g, nx, y, gy, x + 1, rth, rtl);
             // neighbour sum as a two_sum cascade (ds.py:325-333)
             float s1, e1, s2, e2, sh_, e3;
             fpr::two_sum(uph, dnh, s1, e1);
@@ -103,8 +114,8 @@ defect_kernel(const float* __restrict__ uh, const float* __restrict__ ul,
             float rs, re;
             fpr::two_sum(th, -fh[i], rs, re);
             r = (flags & F_SINGLE) ? rs + (re + tl) : rs + (re + (tl - fl[i]));
-            rsq = r * r;
-            if (flags & VELOCITY_MAX) {
+            if (own) rsq = r * r;
+            if (own && (flags & VELOCITY_MAX)) {
                 vx = fabsf((dnh - uph) * inv2h);
                 vy = fabsf((rth - lfh) * inv2h);
             }
@@ -139,14 +150,16 @@ int fpr_num_blocks(int ny, int nx) {
 }
 
 // partials: (4, fpr_num_blocks) f32.  fl may be null when F_SINGLE, e null
-// for a zero correction.  Returns the launch's cudaError_t.
+// for a zero correction.  row_off, ny_g, own0, own1: the row hooks.
+// Returns the launch's cudaError_t.
 int fpr_defect(const float* uh, const float* ul, const float* fh, const float* fl,
                const float* e, const float* cpair, float scale, float inv_h2,
-               float inv2h, int ny, int nx, int flags, float* uh_out,
-               float* ul_out, float* r_out, float* partials, cudaStream_t stream) {
+               float inv2h, int ny, int nx, int flags, int row_off, int ny_g, int own0,
+               int own1, float* uh_out, float* ul_out, float* r_out, float* partials,
+               cudaStream_t stream) {
     defect_kernel<<<fpr::grid_of(ny, nx), dim3(FPR_BX, FPR_BY), 0, stream>>>(
-        uh, ul, fh, fl, e, cpair, scale, inv_h2, inv2h, ny, nx, flags, uh_out,
-        ul_out, r_out, partials);
+        uh, ul, fh, fl, e, cpair, scale, inv_h2, inv2h, ny, nx, flags, row_off, ny_g, own0,
+        own1, uh_out, ul_out, r_out, partials);
     return static_cast<int>(cudaGetLastError());
 }
 

@@ -18,6 +18,12 @@
 // max |dS/dx| of S over the interior.  dt, cT and cW are read from device
 // memory.  with_helm_defect (pallas_ns.py:455-459) is not ported.
 //
+// Row hooks (pallas_ns.py:431-495, row_off/ny_mask): local row y is global
+// row row_off + y of an ny_g-row grid.  The T BCs' Dirichlet rows and the
+// interior follow the global row, and the local first and last rows, which
+// lack an outer neighbour, are never interior; outputs outside the global
+// grid are 0; the sums and maxima cover the owned rows [own0, own1).
+//
 // Bound on the H100: memory bandwidth.  A cell reads T, W, S (and S lo) and
 // writes T', W' (and r): 5-7 f32 words against about 80 flops.
 //
@@ -31,12 +37,12 @@ namespace {
 
 enum : int { MODE_RHS = 1, WITH_DEFECT = 2, USE_DIF = 4 };
 
-// BC'd temperature at (y, x): Dirichlet rows, then the Neumann copies of
-// the Dirichlet'd field.
-__device__ __forceinline__ float t_bc(const float* __restrict__ T, int ny, int nx,
-                                      int y, int x) {
-    if (y == 0) return 1.0f;
-    if (y == ny - 1) return 0.0f;
+// BC'd temperature at local (y, x), global row gy: Dirichlet rows, then the
+// Neumann copies of the Dirichlet'd field.
+__device__ __forceinline__ float t_bc(const float* __restrict__ T, int ny_g, int nx,
+                                      int y, int gy, int x) {
+    if (gy == 0) return 1.0f;
+    if (gy == ny_g - 1) return 0.0f;
     if (x == 0) x = 1;
     else if (x == nx - 1) x = nx - 2;
     return T[y * nx + x];
@@ -46,28 +52,34 @@ __global__ void __launch_bounds__(FPR_THREADS)
 ns_kernel(const float* __restrict__ T, const float* __restrict__ W,
           const float* __restrict__ Sh, const float* __restrict__ Sl,
           const float* __restrict__ scal, float inv2h, float inv_h, float inv_h2,
-          float Pr, float Ra, float k, float wdif, int ny, int nx, int flags,
-          float* __restrict__ T_out, float* __restrict__ W_out,
+          float Pr, float Ra, float k, float wdif, int ny, int nx, int flags, int row_off,
+          int ny_g, int own0, int own1, float* __restrict__ T_out, float* __restrict__ W_out,
           float* __restrict__ r_out, float* __restrict__ partials) {
     __shared__ float sh[FPR_BY];
     const int x = blockIdx.x * FPR_BX + threadIdx.x;
     const int y = blockIdx.y * FPR_BY + threadIdx.y;
+    const int gy = row_off + y;
     const bool rhs = flags & MODE_RHS;
     const bool defect = flags & WITH_DEFECT;
+    const bool own = y >= own0 && y < own1;
     float tsq = 0.0f, wsq = 0.0f, rsq = 0.0f, vxa = 0.0f, vya = 0.0f;
 
     if (x < nx && y < ny) {
         const int i = y * nx + x;
         const float dt = scal[0];
-        const float Tc = t_bc(T, ny, nx, y, x);
+        const float Tc = t_bc(T, ny_g, nx, y, gy, x);
         const float Wc = W[i];
-        const bool interior = x > 0 && y > 0 && x < nx - 1 && y < ny - 1;
+        const bool interior =
+            x > 0 && y > 0 && x < nx - 1 && y < ny - 1 && gy > 0 && gy < ny_g - 1;
+        const bool phys = gy >= 0 && gy < ny_g;
         float to, wo;
         float termT = 0.0f, termW = 0.0f;
         float vx = 0.0f, vy = 0.0f;
         if (interior) {
-            const float Tu = t_bc(T, ny, nx, y - 1, x), Td = t_bc(T, ny, nx, y + 1, x);
-            const float Tl = t_bc(T, ny, nx, y, x - 1), Tr = t_bc(T, ny, nx, y, x + 1);
+            const float Tu = t_bc(T, ny_g, nx, y - 1, gy - 1, x);
+            const float Td = t_bc(T, ny_g, nx, y + 1, gy + 1, x);
+            const float Tl = t_bc(T, ny_g, nx, y, gy, x - 1);
+            const float Tr = t_bc(T, ny_g, nx, y, gy, x + 1);
             const float Wu = W[i - nx], Wd = W[i + nx], Wl = W[i - 1], Wr = W[i + 1];
             const float Su = Sh[i - nx], Sd = Sh[i + nx], Sl_ = Sh[i - 1], Sr = Sh[i + 1];
             vx = (Sd - Su) * inv2h;
@@ -98,10 +110,13 @@ ns_kernel(const float* __restrict__ T, const float* __restrict__ W,
             to = interior ? Tc + dt * termT : Tc;
             wo = interior ? Wc + dt * termW : Wc;
         }
+        if (!phys) to = wo = 0.0f;
         T_out[i] = to;
         W_out[i] = wo;
-        tsq = to * to;
-        wsq = wo * wo;
+        if (own) {
+            tsq = to * to;
+            wsq = wo * wo;
+        }
 
         if (defect) {
             float r = 0.0f;
@@ -119,9 +134,11 @@ ns_kernel(const float* __restrict__ T, const float* __restrict__ W,
                 float rs, re;
                 fpr::two_sum(th, -wo, rs, re);
                 r = rs + (re + tl);
-                rsq = r * r;
-                vxa = fabsf(vx);
-                vya = fabsf(vy);
+                if (own) {
+                    rsq = r * r;
+                    vxa = fabsf(vx);
+                    vya = fabsf(vy);
+                }
             }
             r_out[i] = r;
         }
@@ -148,14 +165,16 @@ extern "C" {
 
 // T, W: (ny, nx) planes of the stacked state; Sh (and Sl with the defect
 // flag) the stream function; scal: device f32 [dt, cT, cW].  partials:
-// (5, fpr_num_blocks) f32.  Returns the launch's cudaError_t.
+// (5, fpr_num_blocks) f32.  row_off, ny_g, own0, own1: the row hooks.
+// Returns the launch's cudaError_t.
 int fpr_ns_fused(const float* T, const float* W, const float* Sh, const float* Sl,
                  const float* scal, float inv2h, float inv_h, float inv_h2, float Pr,
-                 float Ra, float k, float wdif, int ny, int nx, int flags, float* T_out,
-                 float* W_out, float* r_out, float* partials, cudaStream_t stream) {
+                 float Ra, float k, float wdif, int ny, int nx, int flags, int row_off,
+                 int ny_g, int own0, int own1, float* T_out, float* W_out, float* r_out,
+                 float* partials, cudaStream_t stream) {
     ns_kernel<<<fpr::grid_of(ny, nx), dim3(FPR_BX, FPR_BY), 0, stream>>>(
-        T, W, Sh, Sl, scal, inv2h, inv_h, inv_h2, Pr, Ra, k, wdif, ny, nx, flags, T_out,
-        W_out, r_out, partials);
+        T, W, Sh, Sl, scal, inv2h, inv_h, inv_h2, Pr, Ra, k, wdif, ny, nx, flags, row_off,
+        ny_g, own0, own1, T_out, W_out, r_out, partials);
     return static_cast<int>(cudaGetLastError());
 }
 

@@ -20,8 +20,9 @@ their plain PyTorch versions.
 
 ``launches`` counts, per kernel, the wrapper calls that launched the CUDA
 kernel (never the plain-PyTorch calls), so a run can show which kernels
-its main path went through.  ``dual_timek`` counts calls of the K-fused
-wrapper, each of which launches the dual-time kernel K times, and
+its main path went through.  ``dual_timek`` and ``dual_timek_padded``
+count calls of the K-fused wrappers (#10 and #9), each of which launches
+the dual-time kernel K times, and
 ``stencil`` calls of its wrappers (``smooth2`` launches the kernel twice).
 ``smooth2r_split`` and ``corr_smooth2`` count the separate-buffer V-cycle
 legs of the row-padded V-cycle, which launch the CUDA code of
@@ -42,7 +43,7 @@ from pathlib import Path
 import torch
 
 KERNELS = ("defect", "smooth_down", "corr_up", "ns_fused", "dual_time", "dual_timek", "ds3d",
-           "stencil", "smooth2r_split", "corr_smooth2")
+           "stencil", "smooth2r_split", "corr_smooth2", "dual_timek_padded")
 launches = dict.fromkeys(KERNELS, 0)
 
 # the block shape of csrc/fpr_common.cuh (FPR_BX, FPR_BY); the 3D entry
@@ -69,12 +70,13 @@ NVCC_FLAGS = (
 _P, _I, _F, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_double
 _SIGNATURES = {
     "fpr_num_blocks": [_I, _I],
-    "fpr_defect": [_P, _P, _P, _P, _P, _P, _F, _F, _F, _I, _I, _I, _P, _P, _P, _P, _P],
-    "fpr_sweep": [_P, _P, _P, _P, _F, _F, _F, _I, _I, _I, _I, _P, _P, _P],
-    "fpr_residual": [_P, _P, _P, _F, _F, _I, _I, _P, _P],
-    "fpr_ns_fused": [_P, _P, _P, _P, _P, _F, _F, _F, _F, _F, _F, _F, _I, _I, _I,
-                     _P, _P, _P, _P, _P],
-    "fpr_dual_time": [_P, _P, _P, _P, _I, *[_F] * 6, _I, _I, _I, _P],
+    "fpr_defect": [_P, _P, _P, _P, _P, _P, _F, _F, _F, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P,
+                   _P, _P],
+    "fpr_sweep": [_P, _P, _P, _P, _F, _F, _F, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P],
+    "fpr_residual": [_P, _P, _P, _F, _F, _I, _I, _I, _I, _P, _P],
+    "fpr_ns_fused": [_P, _P, _P, _P, _P, _F, _F, _F, _F, _F, _F, _F, _I, _I, _I, _I, _I,
+                     _I, _I, _P, _P, _P, _P, _P],
+    "fpr_dual_time": [_P, _P, _P, _P, _I, *[_F] * 6, *[_I] * 12, _P],
     "fpr_ds3d": [_P, _P, _P, _P, _I, *[_F] * 10, _I, _I, _I, _P],
     "fpr_stencil_f32": [_P, _P, _P, _F, _F, _F, _I, _I, _I, _P, _P, _P],
     "fpr_stencil_f64": [_P, _P, _P, _D, _D, _D, _I, _I, _I, _P, _P, _P],

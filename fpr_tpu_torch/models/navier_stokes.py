@@ -156,8 +156,9 @@ def simulate(cfg: NSConfig = NSConfig(), W0=None, T0=None, max_steps: Optional[i
     """Run the host loop until sim_time >= ttot (navier_stokes.simulate,
     part2.jl:181-250).  Steps 1-3 are warm-up, excluded from t_elapsed and
     timed_iters.  max_steps=1 is the reference's test mode;
-    snapshot_every > 0 keeps (T, W, S) every that many steps.  The sharded
-    variant (``mesh``) waits for the sharded tier."""
+    snapshot_every > 0 keeps (T, W, S) every that many steps.  The JAX
+    function's GSPMD-sharded variant (``mesh``) is not ported; the sharded
+    NS tier of the port is the fast loop's, ``models.dist_ns``."""
     dev = torch.device(device)
 
     def field(scheme, array):

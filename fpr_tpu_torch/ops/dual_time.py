@@ -1,6 +1,7 @@
-"""Part 1's float32 pseudo-time kernel, counterpart of TPU kernels #8 and #10
-(fpr_tpu/ops/pallas3d.py: _dual_time_kernel / dual_time_step_padded and
-_dual_timek_stacked_kernel / dual_time_stepk_stacked).
+"""Part 1's float32 pseudo-time kernel, counterpart of TPU kernels #8, #9 and
+#10 (fpr_tpu/ops/pallas3d.py: _dual_time_kernel / dual_time_step_padded,
+_dual_timek_kernel / dual_time_stepk_padded and _dual_timek_stacked_kernel /
+dual_time_stepk_stacked).
 
 One iteration on (nz, ny, nx) fields, x last:
 
@@ -17,6 +18,16 @@ divides by dt instead and rounds differently.
   (#10's function).  The kernel is launched K times over a ping-pong pair
   and forms the norm on the last launch only; the TPU kernel keeps the K
   sweeps on chip instead (see csrc/dual_time.cu).
+- ``dual_time_box``: one iteration over a window of planes with #8's
+  update box, for the sharded tier's ghost-padded blocks: the cells inside
+  the inclusive box are updated, the others copied, and the sums of
+  dHdtau^2 come back as per-window partials (per block on the card, per
+  plane on the CPU) that ``.sum()`` turns into the norm.  The
+  single-device calls above are the box (1, n-2) on every axis.
+- ``dual_time_stepk_padded``: K iterations on a K-deep z-ghost-padded
+  shard block (#9): sweep j updates the owned planes and K-j ghost planes
+  on each side inside the z-bounds, so one K-plane halo exchange feeds K
+  iterations; the norm is the last sweep's over the owned planes.
 
 A CPU tensor runs ``dual_time_step_plain``; a CUDA tensor the kernel
 (csrc/dual_time.cu, float32 only) or an error.  The output is a buffer
@@ -50,20 +61,15 @@ def coeffs(dt, dtau, dx, dy, dz, D) -> tuple:
 
 
 def dual_time_step_plain(Ht, Htau, cf, out=None):
-    """Plain PyTorch version of the kernel: one iteration in its operation
-    order.  cf: ``coeffs(...)``.  Writes ``out`` (a new tensor if None) and
-    returns (out, sum(dHdtau^2) over the interior)."""
-    inv_dx2, inv_dy2, inv_dz2, inv_dt, D, dtau = (Htau.new_full((), v) for v in cf)
-    I = (slice(1, -1),) * 3
-    c = Htau[I]
-    c2 = 2.0 * c
-    lap = (((Htau[1:-1, 1:-1, 2:] - c2) + Htau[1:-1, 1:-1, :-2]) * inv_dx2
-           + ((Htau[1:-1, 2:, 1:-1] - c2) + Htau[1:-1, :-2, 1:-1]) * inv_dy2
-           + ((Htau[2:, 1:-1, 1:-1] - c2) + Htau[:-2, 1:-1, 1:-1]) * inv_dz2)
-    dh = (c - Ht[I]) * inv_dt - D * lap
+    """Plain PyTorch version of the kernel: one iteration, the boxed launch
+    of ``dual_time_box_plain`` with the box (1, n-2) on every axis over
+    every plane.  cf: ``coeffs(...)``.  Writes ``out`` (a new tensor if
+    None) and returns (out, sum(dHdtau^2) over the interior) as one
+    torch.sum, not a sum of per-plane partials: the single-device tiers'
+    iteration counts on the CPU are held to the JAX package's with this
+    order."""
     out = torch.empty_like(Htau) if out is None else out
-    out.copy_(Htau)
-    out[I] = c - dtau * dh
+    dh = dual_time_box_plain(Ht, Htau, cf, interior_box(Htau.shape), (0, Htau.shape[0] - 1), out)
     return out, torch.sum(dh * dh)
 
 
@@ -77,21 +83,30 @@ def dual_time_stepk_plain(Ht, Htau, K, cf, scratch=None):
     return src, sumsq
 
 
-def _launch(Ht, Htau, cf, out, partials):
+def interior_box(shape) -> tuple:
+    """The update box of a single device: every interior cell."""
+    nz, ny, nx = shape
+    return (1, nz - 2, 1, ny - 2, 1, nx - 2)
+
+
+def _launch(Ht, Htau, cf, out, partials, box=None, window=None, ht_shift=0):
     nz, ny, nx = Htau.shape
+    w0, w1 = (0, nz - 1) if window is None else window
+    box = interior_box(Htau.shape) if box is None else box
     err = kernels.lib().fpr_dual_time(
         Ht.data_ptr(), Htau.data_ptr(), out.data_ptr(), kernels.ptr(partials),
-        0 if partials is None else partials.numel(), *cf, nz, ny, nx, kernels.stream(Htau))
+        0 if partials is None else partials.numel(), *cf, nz, ny, nx, w0, w1 - w0 + 1,
+        ht_shift, *box, kernels.stream(Htau))
     kernels.check(err, "fpr_dual_time")
 
 
 def _dual_time_cuda(Ht, Htau, cf, out=None, partials=None):
-    """One iteration on the card (csrc/dual_time.cu); see ``dual_time_step``."""
-    kernels.require_cuda_f32("dual_time_step", Ht, Htau, out, partials)
+    """One iteration on the card: the boxed launch with the interior box over
+    every plane; see ``dual_time_step``."""
     out = torch.empty_like(Htau) if out is None else out
     partials = kernels.partials_3d(Htau.shape, Htau.device) if partials is None else partials
-    _launch(Ht, Htau, cf, out, partials)
-    kernels.launches["dual_time"] += 1
+    _dual_time_box_cuda(Ht, Htau, cf, interior_box(Htau.shape), (0, Htau.shape[0] - 1), out,
+                        partials)
     return out, partials.sum()
 
 
@@ -153,6 +168,192 @@ def dual_time_stepk(Ht, Htau, K, dt, dtau, dx, dy, dz, D, *, scratch=None, parti
     if Htau.device.type == "cpu":
         return dual_time_stepk_plain(Ht, Htau, K, cf, scratch)
     return _dual_timek_cuda(Ht, Htau, K, cf, scratch, partials)
+
+
+# ---------------------------------------------------------------------------
+# the update box (#8 on a shard) and the K-deep ghost blocks (#9)
+# ---------------------------------------------------------------------------
+
+
+def box_partials(Htau, nw: int) -> torch.Tensor:
+    """The partials buffer of a boxed launch over nw planes of Htau's
+    (ny, nx): per block (float32) on the card, per plane (Htau's dtype) on
+    the CPU.  Every entry is written by the launch: no zeroing needed."""
+    _, ny, nx = Htau.shape
+    if Htau.device.type == "cpu":
+        return Htau.new_zeros(nw)
+    return torch.empty(kernels.num_blocks_3d(nw, ny, nx), dtype=torch.float32,
+                       device=Htau.device)
+
+
+def plane_partials(partials, k: int, Htau) -> torch.Tensor:
+    """The part of a window's partials that belongs to its k-th plane: the
+    buffer a one-plane launch over that plane writes, so that the window's
+    sum keeps the order of a single launch over it."""
+    _, ny, nx = Htau.shape
+    b = 1 if Htau.device.type == "cpu" else kernels.num_blocks_3d(1, ny, nx)
+    return partials[k * b:(k + 1) * b]
+
+
+def dual_time_box_plain(Ht, Htau, cf, box, window, out, partials=None, ht_shift=0):
+    """Plain PyTorch version of one boxed launch, in the kernel's operation
+    order; see ``dual_time_box``.  partials: None, or nw entries that get
+    the per-plane sums of dHdtau^2 over the box, each plane summed alone.
+    Returns dHdtau over the box (None when the box misses the window)."""
+    w0, w1 = window
+    z0, z1, y0, y1, x0, x1 = box
+    out[w0:w1 + 1] = Htau[w0:w1 + 1]
+    if partials is not None:
+        partials.zero_()
+    a, b = max(z0, w0), min(z1, w1)
+    if a > b or y0 > y1 or x0 > x1:
+        return None
+    inv_dx2, inv_dy2, inv_dz2, inv_dt, D, dtau = (Htau.new_full((), v) for v in cf)
+    Z, Y, X = slice(a, b + 1), slice(y0, y1 + 1), slice(x0, x1 + 1)
+    c = Htau[Z, Y, X]
+    c2 = 2.0 * c
+    lap = (((Htau[Z, Y, x0 + 1:x1 + 2] - c2) + Htau[Z, Y, x0 - 1:x1]) * inv_dx2
+           + ((Htau[Z, y0 + 1:y1 + 2, X] - c2) + Htau[Z, y0 - 1:y1, X]) * inv_dy2
+           + ((Htau[a + 1:b + 2, Y, X] - c2) + Htau[a - 1:b, Y, X]) * inv_dz2)
+    dh = (c - Ht[a - ht_shift:b + 1 - ht_shift, Y, X]) * inv_dt - D * lap
+    out[Z, Y, X] = c - dtau * dh
+    if partials is not None:
+        d2 = dh * dh
+        for k in range(b - a + 1):
+            partials[a - w0 + k] = torch.sum(d2[k])
+    return dh
+
+
+def _check_box(name, shape, box, window, ht_shift):
+    nz, ny, nx = shape
+    w0, w1 = window
+    if not 0 <= w0 <= w1 < nz:
+        raise ValueError(f"{name}: window {window} outside {nz} planes")
+    z0, z1, y0, y1, x0, x1 = box
+    if z0 > z1 or y0 > y1 or x0 > x1:
+        return
+    if not (1 <= z0 and z1 <= nz - 2 and 1 <= y0 and y1 <= ny - 2 and 1 <= x0
+            and x1 <= nx - 2 and z0 - ht_shift >= 0):
+        raise ValueError(f"{name}: box {box} outside the interior of {tuple(shape)}")
+
+
+def dual_time_box(Ht, Htau, box, dt, dtau, dx, dy, dz, D, *, window=None, out=None,
+                  partials=None, ht_shift=0):
+    """One iteration with #8's update box (pallas3d.dual_time_step_padded's
+    ``bounds``) over the planes window = (w0, w1) of Htau (default all).
+
+    box = (z0, z1, y0, y1, x0, x1): inclusive, in Htau's own coordinates,
+    inside [1, n-2] on each axis when not empty; cells of the window outside
+    it are copied, planes outside the window not written.  Ht is read
+    ht_shift planes below the cell (Ht may be ht_shift planes shorter at
+    each end).  out: a new tensor if None, never Htau.  partials:
+    ``box_partials(Htau, nw)`` or a slice of one (``plane_partials``);
+    None takes a new one.  Returns (out, partials); partials.sum() is
+    sum(dHdtau^2) over the box.
+    """
+    window = (0, Htau.shape[0] - 1) if window is None else tuple(window)
+    _check_box("dual_time_box", Htau.shape, box, window, ht_shift)
+    if out is None:
+        out = torch.empty_like(Htau)
+    elif out.data_ptr() == Htau.data_ptr():
+        raise ValueError("dual_time_box: the output buffer must not be Htau")
+    if partials is None:
+        partials = box_partials(Htau, window[1] - window[0] + 1)
+    cf = coeffs(dt, dtau, dx, dy, dz, D)
+    if Htau.device.type == "cpu":
+        dual_time_box_plain(Ht, Htau, cf, box, window, out, partials, ht_shift)
+    else:
+        _dual_time_box_cuda(Ht, Htau, cf, box, window, out, partials, ht_shift)
+    return out, partials
+
+
+def _dual_time_box_cuda(Ht, Htau, cf, box, window, out, partials, ht_shift=0):
+    """A boxed launch on the card, counted as ``dual_time``."""
+    kernels.require_cuda_f32("dual_time_box", Ht, Htau, out, partials)
+    _launch(Ht, Htau, cf, out, partials, box, window, ht_shift)
+    kernels.launches["dual_time"] += 1
+
+
+def _sweeps_k(Ht_k, Hp, K, cf, z_bounds, scratch, partials, launch):
+    """#9's K sweeps over the pair (Hp, scratch); launch(src, box, window,
+    dst, partials) makes one."""
+    nz, ny, nx = Hp.shape
+    nzl = nz - 2 * K
+    zb0, zb1 = z_bounds
+    src, dst = Hp, scratch
+    for j in range(1, K + 1):
+        w = (j, nz - 1 - j)
+        box = (max(zb0 + K, w[0]), min(zb1 + K, w[1]), 1, ny - 2, 1, nx - 2)
+        _check_box("dual_time_stepk_padded", Hp.shape, box, w, 1)
+        launch(src, box, w, dst, partials if j == K else None)
+        src, dst = dst, src
+    return src, nzl
+
+
+def dual_time_stepk_padded_plain(Ht_k, Hp, K, cf, z_bounds, scratch=None, partials=None):
+    """Plain PyTorch version of #9; see ``dual_time_stepk_padded``."""
+    scratch = torch.empty_like(Hp) if scratch is None else scratch
+    nzl = Hp.shape[0] - 2 * K
+    partials = Hp.new_zeros(nzl) if partials is None else partials
+    out, _ = _sweeps_k(Ht_k, Hp, K, cf, z_bounds, scratch, partials,
+                       lambda src, box, w, dst, part: dual_time_box_plain(
+                           Ht_k, src, cf, box, w, dst, part, 1))
+    return out, partials.sum()
+
+
+def _dual_time_stepk_padded_cuda(Ht_k, Hp, K, cf, z_bounds, scratch=None, partials=None):
+    """#9 on the card: K boxed launches over shrinking windows."""
+    kernels.require_cuda_f32("dual_time_stepk_padded", Ht_k, Hp, scratch, partials)
+    scratch = torch.empty_like(Hp) if scratch is None else scratch
+    nzl = Hp.shape[0] - 2 * K
+    partials = box_partials(Hp, nzl) if partials is None else partials
+    out, _ = _sweeps_k(Ht_k, Hp, K, cf, z_bounds, scratch, partials,
+                       lambda src, box, w, dst, part: _launch(Ht_k, src, cf, dst, part, box,
+                                                              w, 1))
+    kernels.launches["dual_timek_padded"] += 1
+    return out, partials.sum()
+
+
+def dual_time_stepk_padded(Ht_k, Hp, K, dt, dtau, dx, dy, dz, D, *, z_bounds=None,
+                           scratch=None, partials=None):
+    """K fused pseudo-time iterations on a K-deep z-ghost-padded shard block
+    (#9, pallas3d.dual_time_stepk_padded, physical y and x).
+
+    Hp: (nz_l + 2K, ny, nx), physical plane p at K + p, the K ghost planes
+    on each side refreshed (``halo.refresh_ghosts_zk``).  Ht_k: (nz_l + 2K -
+    2, ny, nx), plane p at K - 1 + p.  z_bounds: the inclusive local planes
+    that may be updated, reaching into the ghosts on an interior shard edge
+    (default (1, nz_l - 2), a whole domain).  Sweep j writes planes [j,
+    nz_l + 2K - 1 - j] of the pair (Hp, scratch), alternately, so for K >= 2
+    Hp is overwritten.  Returns (the buffer of the last sweep, sum(dHdtau^2)
+    of the last sweep over the owned planes); its ghost planes are stale.
+    """
+    nz = Hp.shape[0]
+    nzl = nz - 2 * K
+    if K < 1 or nzl < 1:
+        raise ValueError(f"dual_time_stepk_padded: K={K} does not fit {nz} planes")
+    if Hp.dim() != 3 or Ht_k.shape != (nz - 2, *Hp.shape[1:]) or Ht_k.dtype != Hp.dtype:
+        raise ValueError(f"dual_time_stepk_padded: Ht_k {tuple(Ht_k.shape)} does not fit Hp "
+                         f"{tuple(Hp.shape)} with K={K}")
+    if scratch is not None and (scratch.shape != Hp.shape or scratch.data_ptr() == Hp.data_ptr()):
+        raise ValueError("dual_time_stepk_padded: scratch must be a second buffer of Hp's shape")
+    z_bounds = (1, nzl - 2) if z_bounds is None else tuple(z_bounds)
+    cf = coeffs(dt, dtau, dx, dy, dz, D)
+    if Hp.device.type == "cpu":
+        return dual_time_stepk_padded_plain(Ht_k, Hp, K, cf, z_bounds, scratch, partials)
+    return _dual_time_stepk_padded_cuda(Ht_k, Hp, K, cf, z_bounds, scratch, partials)
+
+
+def pad3dk(H: torch.Tensor, K: int) -> torch.Tensor:
+    """Physical (nz, ny, nx) -> (nz + 2K, ny, nx) with K zero ghost planes on
+    each side (pallas3d.pad3dk without its tile padding)."""
+    return torch.nn.functional.pad(H, (0, 0, 0, 0, K, K))
+
+
+def pad_htk(H: torch.Tensor, K: int) -> torch.Tensor:
+    """Physical Ht -> (nz + 2K - 2, ny, nx) with K - 1 zero ghost planes on
+    each side (pallas3d.pad_htk without its tile padding)."""
+    return torch.nn.functional.pad(H, (0, 0, 0, 0, K - 1, K - 1))
 
 
 # ---------------------------------------------------------------------------

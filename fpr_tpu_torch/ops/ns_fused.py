@@ -17,7 +17,10 @@ them (rhs).  Also returned: sum(T'^2) and sum(W'^2); with ``with_defect``
 solve's initial defect r = A S - W' in ds arithmetic, its rms, and the
 curl maxima max|dS/dy|, max|dS/dx| of S.  dt, cT and cW are 0-dim device
 tensors.  The port's arrays are physical; ``with_helm_defect`` is not
-ported (the fast loop does not use it).
+ported (the fast loop does not use it).  On a row shard ``rows``
+(``ops.rows.Rows``) gives the row hooks: the T BCs' Dirichlet rows and the
+interior follow the global row, outputs outside the global grid are 0, and
+the sums and maxima cover the owned rows (pallas_ns.py:431-495).
 """
 
 from __future__ import annotations
@@ -26,7 +29,9 @@ import torch
 
 from fpr_tpu_torch import kernels
 from fpr_tpu_torch.core import bc
+from fpr_tpu_torch.ops import rows as rowhooks
 from fpr_tpu_torch.ops.ds import ds_add, two_sum
+from fpr_tpu_torch.ops.rows import Rows
 
 _MODE_RHS, _WITH_DEFECT, _USE_DIF = 1, 2, 4
 
@@ -35,11 +40,17 @@ def _use_dif(beta: float) -> bool:
     return abs(beta - 1.0) > 1e-8
 
 
-def ns_fused_plain(TW, S, scal, h, Pr, Ra, k, beta, mode, with_defect):
+def ns_fused_plain(TW, S, scal, h, Pr, Ra, k, beta, mode, with_defect, rows=None):
     """Plain PyTorch version of K4; see ``ns_fused_rp``."""
     dt = scal[0]
-    T = bc.ns_temperature_bcs(TW[0])
+    n_loc = TW.shape[1]
+    rows = Rows.whole(n_loc) if rows is None else rows
+    g = rows.global_rows(n_loc, TW.device)[:, None]
+    zero = TW.new_zeros(())
+    T = torch.where(g == 0, TW.new_ones(()), torch.where(g == rows.ny - 1, zero, TW[0]))
+    T = bc.neumann_left_right(T)
     W = TW[1]
+    m = rows.interior(n_loc, TW.device)[1:-1, None]
     Sh = S[0] if with_defect else S
     I = (slice(1, -1), slice(1, -1))
     up, dn, lf, rt = (slice(None, -2), slice(1, -1)), (slice(2, None), slice(1, -1)), \
@@ -52,7 +63,6 @@ def ns_fused_plain(TW, S, scal, h, Pr, Ra, k, beta, mode, with_defect):
     def lap(F):
         return (F[up] + F[dn] + F[lf] + F[rt] - 4.0 * F[I]) * _h2
 
-    zero = T.new_zeros(())
     dT2 = k * lap(T) if _use_dif(beta) else zero
     dW2 = Pr * lap(W) if _use_dif(beta) else zero
 
@@ -66,17 +76,19 @@ def ns_fused_plain(TW, S, scal, h, Pr, Ra, k, beta, mode, with_defect):
     PrB = Pr * B
     if mode == "explicit":
         T_out, W_out = T.clone(), W.clone()
-        T_out[I] = T[I] + dt * (dT2 - dTx - dTy)
-        W_out[I] = W[I] + dt * (dW2 - dWx - dWy - PrB)
+        T_out[I] = torch.where(m, T[I] + dt * (dT2 - dTx - dTy), T[I])
+        W_out[I] = torch.where(m, W[I] + dt * (dW2 - dWx - dWy - PrB), W[I])
     else:
         wdif = 1.0 - beta
         termT, termW = torch.zeros_like(T), torch.zeros_like(W)
-        termT[I] = wdif * dT2 - dTx - dTy
-        termW[I] = wdif * dW2 - dWx - dWy - PrB
+        termT[I] = torch.where(m, wdif * dT2 - dTx - dTy, zero)
+        termW[I] = torch.where(m, wdif * dW2 - dWx - dWy - PrB, zero)
         T_out = -scal[1] * (T + dt * termT)
         W_out = -scal[2] * (W + dt * termW)
-    out = torch.stack([T_out, W_out])
-    sums = torch.stack([torch.sum(T_out * T_out), torch.sum(W_out * W_out),
+    phys = rows.physical(n_loc, TW.device)[:, None]
+    out = torch.where(phys, torch.stack([T_out, W_out]), zero)
+    own = slice(*rows.own)
+    sums = torch.stack([torch.sum((out[0] * out[0])[own]), torch.sum((out[1] * out[1])[own]),
                         zero, zero, zero])
     r = None
     if with_defect:
@@ -87,20 +99,23 @@ def ns_fused_plain(TW, S, scal, h, Pr, Ra, k, beta, mode, with_defect):
         sl_ = ((e1 + e2) + e3) + ((Sl[up] + Sl[dn]) + (Sl[lf] + Sl[rt]))
         th, tl = ds_add(sh_, sl_, -(Sh[I] * 4.0), -(Sl[I] * 4.0))
         th, tl = th * _h2, tl * _h2
-        rs, re = two_sum(th, -W_out[I])
+        rs, re = two_sum(th, -out[1][I])
         r = torch.zeros_like(W)
-        r[I] = rs + (re + tl)
-        sums[2] = torch.sum(r * r)
-        sums[3] = torch.amax(torch.abs(vx))
-        sums[4] = torch.amax(torch.abs(vy))
+        r[I] = torch.where(m, rs + (re + tl), zero)
+        y = torch.arange(n_loc, device=TW.device)
+        mo = m & ((y >= rows.own[0]) & (y < rows.own[1]))[1:-1, None]
+        sums[2] = torch.sum((r * r)[own])
+        sums[3] = torch.amax(torch.where(mo, torch.abs(vx), zero))
+        sums[4] = torch.amax(torch.where(mo, torch.abs(vy), zero))
     return out, r, sums
 
 
-def _ns_fused_cuda(TW, S, scal, h, Pr, Ra, k, beta, mode, with_defect):
+def _ns_fused_cuda(TW, S, scal, h, Pr, Ra, k, beta, mode, with_defect, rows=None):
     """K4 on the card (csrc/ns_fused.cu); see ``ns_fused_rp``."""
     kernels.require_cuda_f32("ns_fused_rp", TW, S, scal)
     lib = kernels.lib()
     _, ny, nx = TW.shape
+    rows = Rows.whole(ny) if rows is None else rows
     out = torch.empty_like(TW)
     r = torch.empty_like(TW[0]) if with_defect else None
     partials = torch.zeros((5, kernels.num_blocks(ny, nx)), dtype=torch.float32,
@@ -111,7 +126,7 @@ def _ns_fused_cuda(TW, S, scal, h, Pr, Ra, k, beta, mode, with_defect):
     err = lib.fpr_ns_fused(
         TW[0].data_ptr(), TW[1].data_ptr(), Sh.data_ptr(),
         S[1].data_ptr() if with_defect else None, scal.data_ptr(),
-        0.5 / h, 1.0 / h, 1.0 / (h * h), Pr, Ra, k, 1.0 - beta, ny, nx, flags,
+        0.5 / h, 1.0 / h, 1.0 / (h * h), Pr, Ra, k, 1.0 - beta, ny, nx, flags, *rows.args(),
         out[0].data_ptr(), out[1].data_ptr(), kernels.ptr(r), partials.data_ptr(),
         kernels.stream(TW),
     )
@@ -122,7 +137,7 @@ def _ns_fused_cuda(TW, S, scal, h, Pr, Ra, k, beta, mode, with_defect):
 
 
 def ns_fused_rp(TW, S, dt, h, Pr, Ra, k=1.0, beta=0.0, mode="explicit", cT=None,
-                cW=None, with_sumsq=False, with_defect=False):
+                cW=None, with_sumsq=False, with_defect=False, rows=None):
     """K4: the fused NS operator pass (pallas_ns.ns_fused_rp).
 
     TW: (2, ny, nx) float32 [T | W]; S: (ny, nx) stream function, or the
@@ -131,8 +146,9 @@ def ns_fused_rp(TW, S, dt, h, Pr, Ra, k=1.0, beta=0.0, mode="explicit", cT=None,
 
     Returns out; with ``with_sumsq`` (out, (sum T'^2, sum W'^2)); with
     ``with_defect`` (out, (sum T'^2, sum W'^2), (r, r_rms),
-    (max|dS/dy|, max|dS/dx|, 0)).  A CPU tensor runs the plain version, a
-    CUDA tensor the kernel.
+    (max|dS/dy|, max|dS/dx|, 0)).  rows: the row hooks of a shard's local
+    rows (None: one device); the sums are then the owned rows'.  A CPU
+    tensor runs the plain version, a CUDA tensor the kernel.
     """
     if mode not in ("explicit", "rhs"):
         raise ValueError(f"mode must be 'explicit' or 'rhs', got {mode!r}")
@@ -144,9 +160,11 @@ def ns_fused_rp(TW, S, dt, h, Pr, Ra, k=1.0, beta=0.0, mode="explicit", cT=None,
     scal = torch.stack([dt.reshape(()).to(TW.dtype),
                         zero if cT is None else cT.reshape(()).to(TW.dtype),
                         zero if cW is None else cW.reshape(()).to(TW.dtype)])
+    if rows is not None:
+        rowhooks.check("ns_fused_rp", rows, TW.shape[1])
     fn = ns_fused_plain if TW.device.type == "cpu" else _ns_fused_cuda
     out, r, sums = fn(TW, S, scal, float(h), float(Pr), float(Ra), float(k),
-                      float(beta), mode, with_defect)
+                      float(beta), mode, with_defect, rows)
     if with_defect:
         _, ny, nx = TW.shape
         r_rms = torch.sqrt(sums[2] / sums.new_full((), float(nx * ny)))

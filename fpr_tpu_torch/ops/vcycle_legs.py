@@ -12,9 +12,15 @@ the row-padded one (pallas2d.smooth2r_split_rp, corr_smooth2_rp).
   buffers, no aliasing; pallas2d.py:950-980); the port's legs read u and f
   from separate tensors anyway, so the four entry points launch the same
   CUDA code.  ``corr_smooth2`` takes the coarse correction itself and
-  interpolates it in x here, as ``corr_smooth2_rp`` does.  The shard hooks
-  of the TPU kernels (row_off, ny_mask, col_off, nx_mask) and the halo rows
-  of ``corr_smooth2_raw`` wait for the sharded tier.
+  interpolates it in x here, as ``corr_smooth2_rp`` does.
+- ``corr_smooth2_raw`` (#7, pallas2d.corr_smooth2_raw): the up leg on a
+  prebuilt x-interleaved correction window, for the row-sharded V-cycle.
+
+#6 and #7 take the row hooks of the TPU kernels (row_off, ny_mask;
+``ops.rows.Rows``): on a row shard the interior follows the global row,
+the local first and last rows are never interior, and a norm covers the
+owned rows.  The column hooks (col_off, nx_mask) of a 2D mesh are not
+ported.
 
 res(u) = (u_N + u_S + u_W + u_E - C u)/h^2 - f on the interior and 0 on
 the boundary, with C = 4 + c h^2.  The constants C, 1/h^2 and
@@ -41,7 +47,9 @@ from __future__ import annotations
 import torch
 
 from fpr_tpu_torch import kernels
+from fpr_tpu_torch.ops import rows as rowhooks
 from fpr_tpu_torch.ops import transfer
+from fpr_tpu_torch.ops.rows import Rows
 from fpr_tpu_torch.ops.stencil2d import as_scalar
 
 _SRC_ARRAY, _SRC_ZERO, _SRC_CORR = 0, 1, 2
@@ -55,14 +63,23 @@ def _consts(c, h, like):
     return C, 1.0 / (float(h) * float(h)), h2 / C
 
 
-def _residual(v, f, C, inv_h2):
+def _row_mask(res, rows):
+    """res with the rows that are not interior under the row hooks zeroed
+    (nothing to do on one device)."""
+    if rows is None:
+        return res
+    m = rows.interior(res.shape[0], res.device)[:, None]
+    return torch.where(m, res, res.new_zeros(()))
+
+
+def _residual(v, f, C, inv_h2, rows=None):
     # the legs' operation order (pallas2d.py:1088-1095), not stencil2d's:
     # the kernels and the TPU legs round this way
     res = torch.zeros_like(v)
     res[1:-1, 1:-1] = (
         v[:-2, 1:-1] + v[2:, 1:-1] + v[1:-1, :-2] + v[1:-1, 2:] - C * v[1:-1, 1:-1]
     ) * inv_h2 - f[1:-1, 1:-1]
-    return res
+    return _row_mask(res, rows)
 
 
 def _elim(v):
@@ -73,35 +90,39 @@ def _elim(v):
 
 
 def prolong_y(corrx: torch.Tensor, ny: int) -> torch.Tensor:
-    """P: the x-interleaved coarse rows interpolated in y to ny rows."""
+    """P: the x-interleaved coarse rows interpolated in y to ny rows (corrx
+    has ny//2 + 1 rows)."""
     P = corrx.new_empty((ny, corrx.shape[1]))
-    P[0::2] = corrx
-    P[1::2] = (corrx[:-1] + corrx[1:]) * 0.5
+    n_even, n_odd = (ny + 1) // 2, ny // 2
+    P[0::2] = corrx[:n_even]
+    P[1::2] = (corrx[:n_odd] + corrx[1:n_odd + 1]) * 0.5
     return P
 
 
-def smooth_down_plain(u, f, h, c, alpha=0.8, ns=2, elim=False):
-    """Plain PyTorch version of K2; see ``smooth_down``."""
+def smooth_down_plain(u, f, h, c, alpha=0.8, ns=2, elim=False, rows=None):
+    """Plain PyTorch version of K2 and #6; see ``smooth_down`` and
+    ``smooth2r_split``."""
     C, inv_h2, hc = _consts(c, h, f)
     w = f.new_full((), float(alpha)) * hc
     if u is None:
         r1 = torch.zeros_like(f)
         r1[1:-1, 1:-1] = -f[1:-1, 1:-1]
-        v = w * r1
+        v = w * _row_mask(r1, rows)
     else:
-        v = u + w * _residual(u, f, C, inv_h2)
+        v = u + w * _residual(u, f, C, inv_h2, rows)
     if elim:
         v = _elim(v)
     for _ in range(ns - 1):
-        v = v + w * _residual(v, f, C, inv_h2)
+        v = v + w * _residual(v, f, C, inv_h2, rows)
         if elim:
             v = _elim(v)
-    return v, _residual(v, f, C, inv_h2)
+    return v, _residual(v, f, C, inv_h2, rows)
 
 
 def corr_up_plain(u, f, corrx, h, c, alpha=0.8, ns=2, elim=False,
-                  with_norm=False, out=None):
-    """Plain PyTorch version of K3; see ``corr_up``."""
+                  with_norm=False, out=None, rows=None):
+    """Plain PyTorch version of K3 and #7; see ``corr_up`` and
+    ``corr_smooth2_raw``."""
     C, inv_h2, hc = _consts(c, h, f)
     w = f.new_full((), float(alpha)) * hc
     v = u - prolong_y(corrx, u.shape[0])
@@ -109,7 +130,7 @@ def corr_up_plain(u, f, corrx, h, c, alpha=0.8, ns=2, elim=False,
         v = _elim(v)
     res = None
     for _ in range(ns):
-        res = _residual(v, f, C, inv_h2)
+        res = _residual(v, f, C, inv_h2, rows)
         v = v + w * res
         if elim:
             v = _elim(v)
@@ -118,23 +139,32 @@ def corr_up_plain(u, f, corrx, h, c, alpha=0.8, ns=2, elim=False,
         v = out
     if not with_norm:
         return v, None
-    n = res.new_full((), float(res.numel()))
-    return v, torch.sqrt(torch.sum(res * res) / n)
+    if rows is None:
+        n = res.new_full((), float(res.numel()))
+        return v, torch.sqrt(torch.sum(res * res) / n)
+    n = res.new_full((), float(rows.ny * res.shape[1]))
+    return v, torch.sqrt(torch.sum((res * res)[rows.own[0]:rows.own[1]]) / n)
 
 
-def _check(name, ns, f):
+def _check(name, ns, f, rows=None):
     if not 1 <= ns <= 6:
         raise ValueError(f"{name}: ns must be in [1, 6], got {ns}")
     if f.dim() != 2 or min(f.shape) < 3:
         raise ValueError(f"{name}: expected an (ny, nx) tensor, got {tuple(f.shape)}")
+    if rows is not None:
+        rowhooks.check(name, rows, f.shape[0])
+        if rows.off % 2:
+            raise ValueError(f"{name}: the row offset {rows.off} must be even (the y "
+                             "interpolation's row parity)")
 
 
-def _down_cuda(name, u, f, h, c, alpha, ns, elim):
+def _down_cuda(name, u, f, h, c, alpha, ns, elim, rows=None):
     """The down leg on the card (csrc/vcycle_legs.cu), counted as ``name``."""
     c = as_scalar(c, f)
     kernels.require_cuda_f32(name, u, f, c)
     lib = kernels.lib()
     ny, nx = f.shape
+    hooks = (Rows.whole(ny) if rows is None else rows).args()
     h2, inv_h2 = float(h) * float(h), 1.0 / (float(h) * float(h))
     st = kernels.stream(f)
     bufs = (torch.empty_like(f), torch.empty_like(f))
@@ -143,13 +173,13 @@ def _down_cuda(name, u, f, h, c, alpha, ns, elim):
         mode = _SRC_ZERO if (s == 0 and u is None) else _SRC_ARRAY
         dst = bufs[s % 2]
         err = lib.fpr_sweep(kernels.ptr(src), f.data_ptr(), None, c.data_ptr(), h2,
-                            inv_h2, float(alpha), ny, nx, mode, int(elim),
+                            inv_h2, float(alpha), ny, nx, mode, int(elim), *hooks,
                             dst.data_ptr(), None, st)
         kernels.check(err, "fpr_sweep")
         src = dst
     res = torch.empty_like(f)
     err = lib.fpr_residual(src.data_ptr(), f.data_ptr(), c.data_ptr(), h2, inv_h2,
-                           ny, nx, res.data_ptr(), st)
+                           ny, nx, *hooks[:2], res.data_ptr(), st)
     kernels.check(err, "fpr_residual")
     kernels.launches[name] += 1
     return src, res
@@ -160,17 +190,18 @@ def _smooth_down_cuda(u, f, h, c, alpha=0.8, ns=2, elim=False):
     return _down_cuda("smooth_down", u, f, h, c, alpha, ns, elim)
 
 
-def _smooth2r_split_cuda(u, f, h, c, alpha=0.8, ns=2, elim=False):
+def _smooth2r_split_cuda(u, f, h, c, alpha=0.8, ns=2, elim=False, rows=None):
     """#6 on the card; see ``smooth2r_split``."""
-    return _down_cuda("smooth2r_split", u, f, h, c, alpha, ns, elim)
+    return _down_cuda("smooth2r_split", u, f, h, c, alpha, ns, elim, rows)
 
 
-def _up_cuda(name, u, f, corrx, h, c, alpha, ns, elim, with_norm, out):
+def _up_cuda(name, u, f, corrx, h, c, alpha, ns, elim, with_norm, out, rows=None):
     """The up leg on the card (csrc/vcycle_legs.cu), counted as ``name``."""
     c = as_scalar(c, f)
     kernels.require_cuda_f32(name, u, f, corrx, c, out)
     lib = kernels.lib()
     ny, nx = f.shape
+    hooks = (Rows.whole(ny) if rows is None else rows).args()
     h2, inv_h2 = float(h) * float(h), 1.0 / (float(h) * float(h))
     st = kernels.stream(f)
     if out is None:
@@ -186,14 +217,14 @@ def _up_cuda(name, u, f, corrx, h, c, alpha, ns, elim, with_norm, out):
                                    device=f.device)
         err = lib.fpr_sweep(src.data_ptr(), f.data_ptr(), corrx.data_ptr(),
                             c.data_ptr(), h2, inv_h2, float(alpha), ny, nx,
-                            _SRC_CORR if s == 0 else _SRC_ARRAY, int(elim),
+                            _SRC_CORR if s == 0 else _SRC_ARRAY, int(elim), *hooks,
                             dst.data_ptr(), kernels.ptr(partials), st)
         kernels.check(err, "fpr_sweep")
         src = dst
     kernels.launches[name] += 1
     if not with_norm:
         return out, None
-    n = partials.new_full((), float(nx * ny))
+    n = partials.new_full((), float(nx * hooks[1]))
     return out, torch.sqrt(partials.sum() / n)
 
 
@@ -204,9 +235,9 @@ def _corr_up_cuda(u, f, corrx, h, c, alpha=0.8, ns=2, elim=False,
 
 
 def _corr_smooth2_cuda(u, f, corrx, h, c, alpha=0.8, ns=2, elim=False,
-                       with_norm=False, out=None):
-    """#7 on the card; see ``corr_smooth2``."""
-    return _up_cuda("corr_smooth2", u, f, corrx, h, c, alpha, ns, elim, with_norm, out)
+                       with_norm=False, out=None, rows=None):
+    """#7 on the card; see ``corr_smooth2`` and ``corr_smooth2_raw``."""
+    return _up_cuda("corr_smooth2", u, f, corrx, h, c, alpha, ns, elim, with_norm, out, rows)
 
 
 def smooth_down(u, f, h, c, alpha=0.8, ns=2, elim=False):
@@ -244,17 +275,19 @@ def corr_up(u, f, corrx, h, c, alpha=0.8, ns=2, elim=False, with_norm=False,
     return _corr_up_cuda(u, f, corrx, h, c, alpha, ns, elim, with_norm, out)
 
 
-def smooth2r_split(u, f, h, c, alpha=0.8, zero_u=False, ns=2, elim=False):
-    """#6, the down leg of ``vcycle_rp`` (pallas2d.smooth2r_split_rp, one
-    device).  u: the (ny, nx) iterate, never read with zero_u (it may be
-    None).  Returns (u', res) as ``smooth_down`` does; ``transfer.restrict``
-    of res is the TPU's ``restrict_ps`` of its parity-split residual.
+def smooth2r_split(u, f, h, c, alpha=0.8, zero_u=False, ns=2, elim=False, rows=None):
+    """#6, the down leg of ``vcycle_rp`` and of the row-sharded V-cycle
+    (pallas2d.smooth2r_split_rp).  u: the (ny, nx) iterate, never read with
+    zero_u (it may be None).  rows: the row hooks of a shard's local rows
+    (None: one device).  Returns (u', res) as ``smooth_down`` does;
+    ``transfer.restrict`` of res is the TPU's ``restrict_ps`` of its
+    parity-split residual.
     """
-    _check("smooth2r_split", ns, f)
+    _check("smooth2r_split", ns, f, rows)
     u = None if zero_u else u
     if f.device.type == "cpu":
-        return smooth_down_plain(u, f, h, c, alpha, ns, elim)
-    return _smooth2r_split_cuda(u, f, h, c, alpha, ns, elim)
+        return smooth_down_plain(u, f, h, c, alpha, ns, elim, rows)
+    return _smooth2r_split_cuda(u, f, h, c, alpha, ns, elim, rows)
 
 
 def corr_smooth2(u, f, corr, h, c, alpha=0.8, apply_bcs=False, with_norm=False, ns=2,
@@ -272,3 +305,22 @@ def corr_smooth2(u, f, corr, h, c, alpha=0.8, apply_bcs=False, with_norm=False, 
     if f.device.type == "cpu":
         return corr_up_plain(u, f, corrx, h, c, alpha, ns, elim, with_norm)
     return _corr_smooth2_cuda(u, f, corrx, h, c, alpha, ns, elim, with_norm)
+
+
+def corr_smooth2_raw(u, f, corrx, h, c, alpha=0.8, with_norm=False, ns=2, elim=False,
+                     rows=None):
+    """#7 on a prebuilt correction window (pallas2d.corr_smooth2_raw): u -
+    P(corrx), then ``ns`` sweeps, for the row-sharded V-cycle.
+
+    u, f: a shard's local (n, nx) rows; corrx: the (n//2 + 1, nx)
+    x-interleaved coarse correction whose row k is global coarse row
+    rows.off/2 + k (with the shard's coarse halo rows; zeros past the
+    global edge).  Returns (u', r_rms or None) in a new tensor, r_rms over
+    the owned rows' residual and the global ny*nx cells.
+    """
+    _check("corr_smooth2_raw", ns, f, rows)
+    if corrx.shape != (f.shape[0] // 2 + 1, f.shape[1]):
+        raise ValueError(f"corrx {tuple(corrx.shape)} does not fit {tuple(f.shape)}")
+    if f.device.type == "cpu":
+        return corr_up_plain(u, f, corrx, h, c, alpha, ns, elim, with_norm, rows=rows)
+    return _corr_smooth2_cuda(u, f, corrx, h, c, alpha, ns, elim, with_norm, rows=rows)

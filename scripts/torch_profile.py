@@ -7,11 +7,17 @@ float64) at 2049x513, one mixed-precision MG solve at 4097^2 (default
 MGConfig, float64), and the pseudo-time loop of part 1's diffusion solve in each
 kernel tier (step calls with one host read of the norm each: 100 calls of
 K=3 iterations at 512^3 float32, 2000 calls at 128^3 float32 and 2000 at
-128^3 double-single; the field's set-up is outside the window), each
-after a warm-up run, and prints per window the wall time,
-the summed device time (kernels and memory copies), the device busy
-share, the kernel launch counts of the port's CUDA wrappers, and the top
-device kernels and copies.
+128^3 double-single; the field's set-up is outside the window), and the
+sharded tiers on a virtual mesh of shards on the one card: one physical
+diffusion step at 512^3 on 4 z-shards (K=3, 300 iterations) and at 128^3
+on 2x2x2 shards (to convergence), one ``mg_solve_ds_sharded`` at 4097^2
+on 4 row shards, and 20 explicit and 8 semi-implicit steps of
+``simulate_fast_sharded`` at 2049x513 on 4 row shards; each window after a
+warm-up run.  It prints per window the wall time, the summed device time
+(kernels and memory copies), the device busy share, the device time of the
+copy kernels (the halo exchange's face copies, and casts), the kernel
+launch counts of the port's CUDA wrappers, and the top device kernels and
+copies.
 
 Run from the repo root on a GPU machine:  python scripts/torch_profile.py
 """
@@ -33,7 +39,11 @@ from fpr_tpu_torch.core.config import (CoarseSolver, DiffusionConfig,  # noqa: E
 from fpr_tpu_torch.core.grid import Grid3D, pseudo_timestep  # noqa: E402
 from fpr_tpu_torch.models import diffusion3d  # noqa: E402
 from fpr_tpu_torch.ops import ds3d, stencil3d  # noqa: E402
+from fpr_tpu_torch.models.dist_ns import simulate_fast_sharded  # noqa: E402
 from fpr_tpu_torch.models.navier_stokes import simulate, simulate_fast  # noqa: E402
+from fpr_tpu_torch.parallel import dist_diffusion  # noqa: E402
+from fpr_tpu_torch.parallel.mesh import make_mesh  # noqa: E402
+from fpr_tpu_torch.solvers.dist_mg_ds import mg_solve_ds_sharded  # noqa: E402
 from fpr_tpu_torch.solvers.multigrid import mg_solve_ds, mg_solve_mixed  # noqa: E402
 
 
@@ -49,8 +59,10 @@ def window(label, fn, top=12):
     evs = [e for e in prof.key_averages()
            if e.device_type.name == "CUDA" and (e.device_time_total or 0) > 0]
     busy = sum(e.device_time_total for e in evs) / 1e6
+    copies = sum(e.device_time_total for e in evs if "copy" in e.key.lower()) / 1e6
     print(f"[{label}] wall {wall:.4f} s  device time (kernels + copies) {busy:.4f} s  "
-          f"busy {busy / wall:.3f}  launches {dict(kernels.launches)}")
+          f"busy {busy / wall:.3f}  copy kernels {copies:.4f} s  launches "
+          f"{ {k: v for k, v in kernels.launches.items() if v} }")
     for e in sorted(evs, key=lambda e: -e.device_time_total)[:top]:
         print(f"   {e.device_time_total / 1e3:10.2f} ms  n={e.count:6d}  {e.key[:90]}")
 
@@ -106,6 +118,39 @@ def main():
         ("diffusion 128^3 ds, 2000 calls", DiffusionConfig(policy=ds), 2000),
     ):
         window(label, diffusion_loop(dcfg, calls))
+    sharded_windows(b)
+
+
+def dist_diffusion_step(cfg, mesh):
+    """One physical step of the sharded diffusion tier from its initial
+    field (the blocks are built outside the window)."""
+    step, grid = dist_diffusion.build_step(cfg, mesh)
+    H = bc.dirichlet_faces_3d(stencil3d.init_gaussian(grid, torch.float32, device="cpu"))
+    Ht = dist_diffusion.shard_field(H, mesh)
+    return lambda: step(Ht, Ht)
+
+
+def sharded_windows(b):
+    """The sharded tiers on a virtual mesh: every shard on the one card."""
+    pallas = ExecutionPolicy.PALLAS
+    z4 = make_mesh((4,), ("z",))
+    window("dist diffusion 512^3 on 4 z-shards K=3, one step of 300 iterations",
+           dist_diffusion_step(DiffusionConfig(nx=512, ny=512, nz=128, tol=1e-6, iter_max=300,
+                                               policy=pallas, check_every=3), z4))
+    window("dist diffusion 128^3 on 2x2x2 shards K=1, one step to tol 1e-6",
+           dist_diffusion_step(DiffusionConfig(nx=64, ny=64, nz=64, tol=1e-6, policy=pallas),
+                               make_mesh((2, 2, 2))))
+    y4 = make_mesh((4,), ("y",))
+    n = 4097
+    cfg = MGConfig(coarse_size=513, coarse_solver=CoarseSolver.DST, pre_smooth=5,
+                   post_smooth=5)
+    window("dist MG 4097^2 on 4 row shards",
+           lambda: mg_solve_ds_sharded(b, 1.0 / (n - 1), 0.0, 1e-6, 30, y4, cfg=cfg))
+    ns_kw = dict(nx=2049, ny=513, ttot=0.005, Pr=0.01, tol=1e-7, niters=50)
+    window("dist NS explicit on 4 row shards, 20 steps",
+           lambda: simulate_fast_sharded(NSConfig(beta=0.0, **ns_kw), y4, max_steps=20))
+    window("dist NS semi on 4 row shards, 8 steps",
+           lambda: simulate_fast_sharded(NSConfig(beta=0.5, **ns_kw), y4, max_steps=8))
 
 
 if __name__ == "__main__":
