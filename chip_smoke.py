@@ -60,7 +60,16 @@ Phases, in order; the first failure stops the run with a non-zero exit:
     steps against the single-device loop (equal steps, sim_time within 1e-6,
     W and T within 1e-4), 200 steps timed beside the single device with the
     drift reported; beta=0.5 to the end, its step count beside phase 6's;
-    then ``dryrun_multichip(4)``.
+    then ``dryrun_multichip(4)``, with its 2D-mesh part.
+17. ``mg_solve_ds_sharded_2d`` at 4097^2, DST-513, V(5,5), tol 1e-6,
+    replicate_below=1025, on a 2x2 and a 1x4 (y, x) mesh: phase 4's outer
+    count, a true float64 residual within tol, u within 1e-6 of phase 4's
+    (bitwise or not, logged), launches of K1, #6 and #7.
+18. the GSPMD tier in float64: ``mg_solve_sharded`` at 2049^2 on 4 row
+    shards against the single-device ``mg_solve`` (equal cycles, fields
+    within 1e-12), and 3 steps of ``simulate(mesh=)`` at 2049x513, direct,
+    beta=0.5, against the single device (tests/test_distributed.py's
+    bounds).
 
 Phase 3 also holds the host-loop tiers' kernels against their plain
 versions: the stencil pass (#5) in every mode in float32 at 2049x513 and
@@ -71,12 +80,18 @@ and, on the owned planes, against the global #10 (first, interior and last
 shard of 4, K 2 and 3, at phase 14's 512^3), #8 with the update boxes of
 phase 14's shards, and K1, #6, #7 and K4 with the row hooks against their
 plain versions and against the rows of their call on the whole 2049x513
-grid, all bitwise.  Each kernel's launches are counted over the one path
-run that uses it (phase 5 for the NS kernels, 7 for dual_timek, 8 for
-dual_time, 9 for ds3d, 11's PALLAS ``mg_solve`` for the stencil pass, 13's
-beta=0.5 run for #6/#7, 14's 512^3 run for dual_timek_padded), with the
-counts set to 0 just before it; phases 14-16 print and check their own
-counts as well.  The second-to-last line is the kernel table as JSON; the
+grid, K1, #6 and #7 with the row and column hooks on the four windows of a
+2x2 split of 2049^2 against their plain versions and the whole grid's
+cells, and K4's with_helm_defect mode (the ``ns_fused_helm`` row) against
+its plain version and against the rhs pass and two K1 passes, all bitwise.
+Each kernel's launches are counted over the one path run that uses it
+(phase 5 for the NS kernels, 7 for dual_timek, 8 for dual_time, 9 for
+ds3d, 11's PALLAS ``mg_solve`` for the stencil pass, 13's beta=0.5 run for
+#6/#7, 14's 512^3 run for dual_timek_padded, and for ns_fused_helm the
+Helmholtz warm start after phase 6: one semi-implicit step's T and W
+solves fed through that mode, against the separate passes; no solver path
+launches it, as none of the JAX package does), with the counts set to 0
+just before it; phases 14-18 print and check their own counts as well.  The second-to-last line is the kernel table as JSON; the
 last line is ``{"ok": true, "device": {...}}``.
 """
 
@@ -100,7 +115,13 @@ PEAK_F64_FLOPS_S = 34e12
 DEVICE = "cuda"
 
 
+T0 = time.perf_counter()
+
+
 def log(msg: str) -> None:
+    """Print a line; a phase's heading gets the seconds since the start."""
+    if msg.startswith("== phase"):
+        msg = f"{msg}  [{time.perf_counter() - T0:.0f} s]"
     print(msg, flush=True)
 
 
@@ -386,6 +407,8 @@ def phase_kernels(kc: KernelCheck):
     phase_kernels_3d(kc)
     phase_kernels_host(kc)
     phase_kernels_shards(kc)
+    phase_kernels_cols(kc)
+    phase_kernels_helm(kc)
     for name, row in kc.rows.items():
         b_ms, b_by = kc.bound(name)
         log(f"{name:12s} {row['shape']}: call {row['ms'] * 1e3:9.1f} us  "
@@ -554,6 +577,156 @@ def phase_kernels_shards(kc: KernelCheck, dev=None, n=512):
     if dev.type == "cuda":
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
+
+
+def phase_kernels_cols(kc: KernelCheck, dev=None, n=2049):
+    """The column hooks of K1, #6 and #7 (still phase 3): the four windows of
+    a 2x2 split of n^2 at phase 17's fine-level plan, against their plain
+    versions and against the owned cells of the call on the whole grid,
+    all bitwise."""
+    import numpy as np
+    import torch
+
+    from fpr_tpu_torch.core.config import CoarseSolver, MGConfig
+    from fpr_tpu_torch.ops import ds, transfer, vcycle_legs
+    from fpr_tpu_torch.solvers import dist_mg_ds
+
+    log(f"== phase 3, 2D mesh: row and column hooks of defect (K1), smooth2r_split (#6), "
+        f"corr_smooth2 (#7) on a 2x2 split of {n}^2")
+    dev = torch.device("cuda", 0) if dev is None else dev
+    rng = np.random.default_rng(4)
+    G, GX = dist_mg_ds.G, dist_mg_ds.GX
+    plan = dist_mg_ds.plan_shards_2d(n, n, 2, 2, MGConfig(coarse_size=513,
+                                                          coarse_solver=CoarseSolver.DST), 513)
+    ny_l, nx_l = plan.ny_l, plan.nx_l
+    h = 1.0 / (n - 1)
+    split = [(dy, dx) for dy in range(2) for dx in range(2)]
+
+    def rand(*shape, scale=1.0):
+        return torch.tensor(rng.standard_normal(shape) * scale, dtype=torch.float32, device=dev)
+
+    def window(a, dy, dx):
+        ap = torch.nn.functional.pad(a, (GX, 2 * nx_l + GX - n, G, 2 * ny_l + G - n))
+        return ap[..., dy * ny_l:dy * ny_l + ny_l + 2 * G,
+                  dx * nx_l:dx * nx_l + nx_l + 2 * GX].contiguous()
+
+    def owned(name, local, glob, dy, dx, tag):
+        k, j = min(ny_l, n - dy * ny_l), min(nx_l, n - dx * nx_l)
+        kc.fields(name, (local[..., G:G + k, GX:GX + j],),
+                  (glob[..., dy * ny_l:dy * ny_l + k, dx * nx_l:dx * nx_l + j],),
+                  f"{tag} shard ({dy},{dx}): owned cells vs the whole grid's")
+
+    u64 = torch.tensor(rng.standard_normal((n, n)), dtype=torch.float64, device=dev)
+    u = torch.stack([u64.float(), (u64 - u64.float().double()).float()])
+    f, e = rand(1, n, n), rand(n, n, scale=1e-3)
+    del u64
+    cT = torch.tensor(41.25, dtype=torch.float32, device=dev)
+    for tag, c, kw in (("c=0", 0.0, dict(velocity_max=True, field_sumsq=True)),
+                       ("c tensor", cT, dict())):
+        C = ds.defect_scalars(c, h, dev)
+        c_zero = not isinstance(c, torch.Tensor)
+        whole = ds._defect_cuda(u, f, e, 1.0, h, C, c_zero, **kw)
+        sums = []
+        for dy, dx in split:
+            hooks = plan.hooks(0, dy, dx)
+            a = (window(u, dy, dx), window(f, dy, dx), window(e, dy, dx), 1.0, h, C, c_zero)
+            got = ds._defect_cuda(*a, **hooks, **kw)
+            want = ds.defect_pass_plain(*a, **hooks, **kw)
+            kc.fields("defect", got[:2], want[:2], f"{tag} 2D shard ({dy},{dx})")
+            kc.sums("defect", (got[2][0], got[2][3]), (want[2][0], want[2][3]),
+                    f"{tag} 2D shard ({dy},{dx}) sums")
+            kc.sums("defect", got[2][1:3], want[2][1:3], f"{tag} 2D shard ({dy},{dx}) maxima",
+                    exact=True)
+            owned("defect", got[0], whole[0], dy, dx, f"K1 {tag}")
+            owned("defect", got[1], whole[1], dy, dx, f"K1 {tag} r")
+            sums.append(got[2])
+        kc.sums("defect", (sum(float(p[0]) for p in sums),), (whole[2][0],),
+                f"{tag} 2D shards' sum(r^2) vs the whole grid's")
+        del whole
+    del u, f, e
+    f2, u2 = rand(n, n), rand(n, n)
+    c = torch.zeros((), device=dev)
+    for ns in (1, 3, 6):
+        for uu in (None, u2):
+            whole = vcycle_legs._smooth2r_split_cuda(uu, f2, h, c, 0.8, ns, False)
+            for dy, dx in split:
+                a = (None if uu is None else window(uu, dy, dx), window(f2, dy, dx), h, c, 0.8,
+                     ns, False)
+                hooks = plan.hooks(0, dy, dx)
+                got = vcycle_legs._smooth2r_split_cuda(*a, **hooks)
+                want = vcycle_legs.smooth_down_plain(*a, **hooks)
+                tag = f"ns={ns} zero_u={uu is None}"
+                kc.fields("smooth2r_split", got, want, f"{tag} 2D shard ({dy},{dx})")
+                owned("smooth2r_split", got[0], whole[0], dy, dx, f"#6 {tag} u")
+                owned("smooth2r_split", got[1], whole[1], dy, dx, f"#6 {tag} res")
+            del whole
+    coarse = rand((n - 1) // 2 + 1, (n - 1) // 2 + 1, scale=1e-2)
+    corrx = transfer.x_interleave_coarse(coarse)
+    padded = torch.nn.functional.pad(corrx, (GX, 2 * nx_l + GX - n, G // 2, ny_l + G))
+    for ns in (2, 5):
+        whole, rr = vcycle_legs._corr_smooth2_cuda(u2, f2, corrx, h, c, 0.8, ns, False, True)
+        sums = []
+        for dy, dx in split:
+            win = padded[dy * ny_l // 2:dy * ny_l // 2 + (ny_l + 2 * G) // 2 + 1,
+                         dx * nx_l:dx * nx_l + nx_l + 2 * GX].contiguous()
+            a = (window(u2, dy, dx), window(f2, dy, dx), win, h, c, 0.8, ns, False, True, None)
+            hooks = plan.hooks(0, dy, dx)
+            got = vcycle_legs._corr_smooth2_cuda(*a, **hooks)
+            want = vcycle_legs.corr_up_plain(*a, **hooks)
+            kc.fields("corr_smooth2", got[:1], want[:1], f"ns={ns} 2D shard ({dy},{dx})")
+            kc.sums("corr_smooth2", got[1:], want[1:], f"ns={ns} 2D shard ({dy},{dx}) norm")
+            owned("corr_smooth2", got[0], whole, dy, dx, f"#7 ns={ns}")
+            sums.append(float(got[1]) ** 2)
+        kc.sums("corr_smooth2", (sum(sums),), (float(rr) ** 2,),
+                f"ns={ns} 2D shards' norm^2 vs the whole grid's")
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+
+
+def phase_kernels_helm(kc: KernelCheck, dev=None, ny=513, nx=2049):
+    """K4's with_helm_defect mode (still phase 3) at the NS shape: against
+    its plain version and against the separate rhs pass and two K1 passes
+    (T with the BCs), bitwise; timed as the ns_fused_helm row."""
+    import numpy as np
+    import torch
+
+    from fpr_tpu_torch.ops import ds, ns_fused
+
+    log(f"== phase 3, ns_fused with_helm_defect (K4) at {ny}x{nx}")
+    dev = torch.device("cuda", 0) if dev is None else dev
+    rng = np.random.default_rng(5)
+    h = 1.0 / (ny - 1)
+
+    def rand(*shape, scale=1.0):
+        return torch.tensor(rng.standard_normal(shape) * scale, dtype=torch.float32, device=dev)
+
+    TW = torch.stack([rand(ny, nx, scale=0.3) + 0.5, rand(ny, nx, scale=10.0)])
+    S = rand(ny, nx, scale=0.1)
+    dt = torch.tensor(1.9e-6, dtype=torch.float32, device=dev)
+    cT = torch.tensor(1.0, dtype=torch.float32, device=dev) / (0.5 * dt)
+    cW = cT / torch.tensor(0.01, dtype=torch.float32, device=dev)
+    scal = torch.stack([dt, cT, cW])
+    cpairs = torch.cat([ds.defect_scalars(cT, h, dev), ds.defect_scalars(cW, h, dev)])
+    a = (TW, S, scal, h, 0.01, 1e6, 1.0, 0.5, "rhs", False, None, cpairs)
+    ok, rk, sk = ns_fused._ns_fused_cuda(*a)
+    op, rp, sp = ns_fused.ns_fused_plain(*a)
+    kc.fields("ns_fused_helm", (ok, rk), (op, rp), "rhs beta=0.5")
+    kc.sums("ns_fused_helm", sk[:4], sp[:4], "rhs beta=0.5 sums")
+    # the separate passes: the rhs, then K1 on (T, 0) with the BCs and on (W, 0)
+    out = ns_fused.ns_fused_rp(TW, S, dt, h, 0.01, 1e6, beta=0.5, mode="rhs", cT=cT, cW=cW)
+    zl = torch.zeros_like(TW[0])
+    _, rT, _ = ds.defect_pass(torch.stack([TW[0], zl]), out[0:1], None, 0.0, h, cT,
+                              apply_bcs=True)
+    _, rW, _ = ds.defect_pass(torch.stack([TW[1], zl]), out[1:2], None, 0.0, h, cW)
+    kc.fields("ns_fused_helm", (ok, rk[0], rk[1]), (out, rT, rW),
+              "against the rhs pass and two defect passes")
+    # bytes: T, W, S read, T', W', rT, rW written; about 200 flops a cell
+    kc.timed("ns_fused_helm", lambda: ns_fused._ns_fused_cuda(*a),
+             lambda: ns_fused.ns_fused_plain(*a), (TW, S), (ny, nx), ["ns_kernel"],
+             flops=200 * ny * nx, result=lambda o: (o[0], o[1]))
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
 
 
 def diffusion_kw(shape):
@@ -1332,6 +1505,148 @@ def phase_dist_ns(single_semi, nx=2049, ny=513, shards=4, timed_steps=200):
     return counts
 
 
+def phase_dist_mg_2d(single_it, single_u, n=4097):
+    """Phase 17: the 2D (y, x) mesh ds MG against phase 4."""
+    import torch
+
+    from fpr_tpu_torch.core.config import CoarseSolver, MGConfig
+    from fpr_tpu_torch.solvers.dist_mg_ds import mg_solve_ds_sharded_2d
+
+    log(f"== phase 17: mg_solve_ds_sharded_2d {n}^2, DST-513, V(5,5), tol 1e-6, "
+        f"replicate_below=1025, on 2x2 and 1x4 (y, x) meshes")
+    tol = 1e-6
+    cfg = MGConfig(coarse_size=513, coarse_solver=CoarseSolver.DST, pre_smooth=5,
+                   post_smooth=5)
+    h = 1.0 / (n - 1)
+    b = poisson_rhs(n, "float32")
+    main_counts = None
+    for shape in ((2, 2), (1, 4)):
+        mesh = mesh_of(shape, ("y", "x"))
+
+        def solve():
+            return mg_solve_ds_sharded_2d(b, h, 0.0, tol, 30, mesh, cfg=cfg,
+                                          replicate_below=1025)
+
+        solve()  # warm-up
+        ((uh, ul), r, it), secs, counts = counted(solve)
+        u = uh.double() + ul.double()
+        rel = true_rel(u, b, h)
+        diff = float((u - single_u).abs().max() / single_u.abs().max())
+        log(f"{shape[0]}x{shape[1]}: outers {it} (single device {single_it})  solve {secs:.4f} s  "
+            f"true f64 r_rms/f_rms {rel:.3e}  max rel diff to the single device {diff:.3e} "
+            f"(bitwise: {torch.equal(u, single_u)})  launches "
+            f"{ {k: v for k, v in counts.items() if v} }")
+        require(it == single_it, f"{shape}: outers {it} vs single device {single_it}")
+        require(rel <= tol, f"{shape}: true f64 relative residual {rel:.3e} > {tol}")
+        require(diff <= 1e-6, f"{shape}: u differs from the single device by {diff:.3e}")
+        for k in ("defect", "smooth2r_split", "corr_smooth2"):
+            require(counts[k] > 0, f"the 2D-mesh MG never launched {k}")
+        main_counts = main_counts or counts
+        del u, uh, ul
+    return main_counts
+
+
+def phase_gspmd(n=2049, shards=4, **size):
+    """Phase 18: the GSPMD tier (row-sharded mg_solve and simulate(mesh=))
+    against the single device, float64."""
+    import dataclasses
+
+    import numpy as np
+
+    from fpr_tpu_torch.core.config import MGConfig
+    from fpr_tpu_torch.models.navier_stokes import simulate
+    from fpr_tpu_torch.solvers.dist_multigrid import mg_solve_sharded, plan_rows
+    from fpr_tpu_torch.solvers.multigrid import mg_solve
+
+    cfg = dataclasses.replace(host_cfg(0.5, **size), mg_solver="direct", ttot=1.0)
+    log(f"== phase 18: GSPMD tier, mg_solve_sharded {n}^2 float64 on {shards} row shards, "
+        f"simulate(mesh=) {cfg.nx}x{cfg.ny} direct float64, beta=0.5, 3 steps")
+    tol = 1e-6
+    h = 1.0 / (n - 1)
+    mesh = mesh_of((shards,), ("y",))
+    b = poisson_rhs(n, "float64")
+    (ud, _, itd), secs, _ = counted(lambda: mg_solve_sharded(b.new_zeros(b.shape), b, h, 0.0,
+                                                             tol, 30, mesh))
+    (us, _, its), ssecs, _ = counted(lambda: mg_solve(b.new_zeros(b.shape), b, h, 0.0, tol, 30))
+    err = float((ud - us).abs().max())
+    log(f"mg_solve_sharded: cycles {itd} (single device {its})  {secs:.3f} s (single device "
+        f"{ssecs:.3f} s)  sharded levels {plan_rows(n, n, shards, MGConfig()).s}  "
+        f"max abs diff {err:.3e}  true f64 r_rms/f_rms {true_rel(ud, b, h):.3e}")
+    require(itd == its < 30, f"mg_solve_sharded: cycles {itd} vs single device {its}")
+    require(err <= 1e-12, f"mg_solve_sharded: fields differ by {err:.3e}")
+    del ud, us, b
+    got, secs, _ = counted(lambda: simulate(cfg, seed=0, max_steps=3, mesh=mesh))
+    ref, rsecs, _ = counted(lambda: simulate(cfg, seed=0, max_steps=3, device=DEVICE))
+    diffs = {k: float(np.abs(getattr(got, k) - getattr(ref, k)).max()) for k in "TWS"}
+    log(f"simulate(mesh=) beta=0.5: steps {got.steps} (single device {ref.steps})  sim_time "
+        f"{got.sim_time!r} vs {ref.sim_time!r}  {secs:.3f} s (single device {rsecs:.3f} s)  "
+        f"max abs diffs {diffs}")
+    require(got.steps == ref.steps == 3, f"simulate(mesh=): steps {got.steps} vs {ref.steps}")
+    require(abs(got.sim_time - ref.sim_time) <= 1e-12 * ref.sim_time,
+            "simulate(mesh=): sim_time differs")
+    require(diffs["T"] <= 1e-11 and diffs["S"] <= 1e-11
+            and diffs["W"] <= 1e-9 * float(np.abs(ref.W).max()),
+            f"simulate(mesh=): fields beyond tests/test_distributed.py's bounds: {diffs}")
+
+
+def phase_helm_warm_start(semi):
+    """The Helmholtz warm start through K4's with_helm_defect (after phase
+    6): one semi-implicit step's T and W solves at the state phase 6 ended
+    in, fed by ns_fused_rp(with_helm_defect=True) and mg_solve_ds_rp(r0=...),
+    against the same solves after the plain rhs pass (the path
+    simulate_fast takes).  No solver path of the port launches this mode,
+    as none of the JAX package does; this run is its counted path."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from fpr_tpu_torch.models.navier_stokes import fast_mg_default
+    from fpr_tpu_torch.ops.ns_fused import ns_fused_rp
+    from fpr_tpu_torch.solvers.multigrid import mg_solve_ds_rp
+
+    cfg = fast_mg_default(dataclasses.replace(ns_cfg(0.5), ny=semi.T.shape[0],
+                                              nx=semi.T.shape[1]))
+    log("== phase 6, the Helmholtz warm start of K4's with_helm_defect mode")
+    dev = torch.device(DEVICE)
+    TW = torch.tensor(np.stack([semi.T, semi.W]), dtype=torch.float32, device=dev)
+    S = torch.tensor(semi.S, dtype=torch.float32, device=dev)
+    dt = torch.tensor(semi.sim_time / semi.steps, dtype=torch.float32, device=dev)
+    cT = torch.ones_like(dt) / (torch.full_like(dt, cfg.beta) * dt)
+    cW = cT / torch.full_like(dt, cfg.Pr)
+    h, n_cells = cfg.h, torch.full_like(dt, float(cfg.nx * cfg.ny))
+    z = torch.zeros_like(TW[0])
+    kw = dict(cfg=cfg.mg, inner_cycles=1, tol=cfg.tol)
+
+    def solves(rhs, trhs_ss, wrhs_ss, r0T=None, r0W=None):
+        T, _, itT = mg_solve_ds_rp(torch.stack([TW[0], z]), rhs[0:1],
+                                   cfg.tol * torch.sqrt(trhs_ss / n_cells), h, cT, cfg.niters,
+                                   apply_bcs=True, r0=r0T, **kw)
+        W, _, itW = mg_solve_ds_rp(torch.stack([TW[1], z]), rhs[1:2],
+                                   cfg.tol * torch.sqrt(wrhs_ss / n_cells), h, cW, cfg.niters,
+                                   r0=r0W, **kw)
+        return T, W, itT, itW
+
+    args = (TW, S, dt, h, cfg.Pr, cfg.Ra)
+    opts = dict(k=cfg.k, beta=cfg.beta, mode="rhs", cT=cT, cW=cW)
+
+    def fused():
+        rhs, (tss, wss), r0T, r0W = ns_fused_rp(*args, with_helm_defect=True, **opts)
+        return solves(rhs, tss, wss, r0T, r0W)
+
+    (Tf, Wf, itT, itW), secs, counts = counted(fused)
+    rhs, (tss, wss) = ns_fused_rp(*args, with_sumsq=True, **opts)
+    Tp, Wp, itTp, itWp = solves(rhs, tss, wss)
+    log(f"outers T {itT} W {itW} (separate passes: {itTp} {itWp})  {secs:.4f} s  T and W "
+        f"bitwise: {bool(torch.equal(Tf, Tp))} {bool(torch.equal(Wf, Wp))}  launches "
+        f"{ {k: v for k, v in counts.items() if v} }")
+    require((itT, itW) == (itTp, itWp) and min(itT, itW) >= 1,
+            f"outers {itT}/{itW} vs separate passes {itTp}/{itWp}")
+    require(torch.equal(Tf, Tp) and torch.equal(Wf, Wp), "fields differ from the separate passes")
+    require(counts["ns_fused_helm"] == 1, "the warm start did not launch ns_fused_helm once")
+    return counts
+
+
 NS_KERNELS = ("defect", "smooth_down", "corr_up", "ns_fused")
 # kernel: (source, the TPU kernel it replaces)
 SOURCES = {
@@ -1346,6 +1661,7 @@ SOURCES = {
     "smooth2r_split": ("fpr_tpu_torch/csrc/vcycle_legs.cu", "fpr_tpu/ops/pallas2d.py:333"),
     "corr_smooth2": ("fpr_tpu_torch/csrc/vcycle_legs.cu", "fpr_tpu/ops/pallas2d.py:595"),
     "dual_timek_padded": ("fpr_tpu_torch/csrc/dual_time.cu", "fpr_tpu/ops/pallas3d.py:270"),
+    "ns_fused_helm": ("fpr_tpu_torch/csrc/ns_fused.cu", "fpr_tpu/ops/pallas_ns.py:58"),
 }
 
 
@@ -1373,6 +1689,7 @@ def main() -> int:
         ns_counts, _ = phase_ns_explicit()
         semi = phase_ns_semi()
         launches = {k: ns_counts[k] for k in NS_KERNELS}
+        launches["ns_fused_helm"] = phase_helm_warm_start(semi)["ns_fused_helm"]
         bench_counts, out_512 = phase_diffusion_bench()
         launches["dual_timek"] = bench_counts["dual_timek"]
         f32_counts, out_128 = phase_diffusion_f32()
@@ -1389,9 +1706,12 @@ def main() -> int:
         del out_512
         phase_dist_mg(mg_it, mg_u)
         phase_dist_ns(semi)
+        phase_dist_mg_2d(mg_it, mg_u)
+        phase_gspmd()
     except Failed as exc:
         log(f"chip_smoke FAILED: {exc}")
         return 1
+    log(f"chip_smoke: 18 phases passed in {time.perf_counter() - T0:.0f} s")
     table = []
     for k, (source, replaces) in SOURCES.items():
         row = kc.rows[k]

@@ -22,8 +22,10 @@ diffusion, and their sharded tiers:
 - the sharded tiers on a single-controller mesh of shards
   (``parallel.mesh``, ``parallel.halo``): ``parallel.dist_diffusion``
   (part 1 over a 1D/2D/3D mesh), ``solvers.dist_mg_ds`` (the ds multigrid
-  over row shards) and ``models.dist_ns`` (the fast loop over row
-  shards), with ``parallel.dryrun``;
+  over row shards or a 2D (y, x) mesh), ``models.dist_ns`` (the fast loop
+  over row shards) and the GSPMD tier (``solvers.dist_multigrid``:
+  ``mg_solve`` on row shards; ``simulate(mesh=)``), with
+  ``parallel.dryrun``;
 - ``ops``: the plain PyTorch operators and the hand-written CUDA kernels
   of those paths (``csrc/``, built by ``kernels``).
 

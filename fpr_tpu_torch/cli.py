@@ -6,11 +6,13 @@
     python -m fpr_tpu_torch ns --nx 1025 --ny 257 --beta 0.5 --Pr 0.1 --tol 1e-7 --f64
     python -m fpr_tpu_torch mg --k 12 --l 9 --coarse dst --smooths 5 --solver ds
     python -m fpr_tpu_torch mg --k 12 --l 2 --coarse jacobi --solver mixed
+    python -m fpr_tpu_torch mg --k 12 --l 9 --coarse dst --smooths 5 --solver ds --devices 4 --mesh 2x2
 
 ``--device`` defaults to ``cuda``; ``--device cpu`` runs the plain PyTorch
 versions of the kernels.  ``--devices N`` runs the sharded tier over a
 virtual mesh of N shards, all on ``--device`` (``diffusion3d``: N z-shards
-of n^3 cells each; ``ns --fast`` and ``mg --solver ds``: N row shards).
+of n^3 cells each; ``ns --fast`` and ``mg --solver ds``: N row shards, or
+with ``mg --mesh YxX`` a Y x X (y, x) mesh).
 """
 
 from __future__ import annotations
@@ -99,6 +101,12 @@ def cmd_mg(args):
 
     if args.devices > 1 and args.solver != "ds":
         raise SystemExit("--devices > 1 requires --solver ds (the sharded tier)")
+    mesh_shape = None
+    if args.mesh:
+        mesh_shape = tuple(int(v) for v in args.mesh.lower().split("x"))
+        if len(mesh_shape) != 2 or mesh_shape[0] * mesh_shape[1] != args.devices:
+            raise SystemExit(f"--mesh {args.mesh} needs {mesh_shape[0] * mesh_shape[-1]} "
+                             f"devices, --devices says {args.devices}")
     if args.smooths < 1:
         raise SystemExit("--smooths must be >= 1 (the convergence check reads the "
                          "final post-smooth's residual norm)")
@@ -121,10 +129,14 @@ def cmd_mg(args):
         """(the solution as a tuple of parts to add in float64, r_rms, count)"""
         if args.devices > 1:
             from fpr_tpu_torch.parallel.mesh import make_mesh
-            from fpr_tpu_torch.solvers.dist_mg_ds import mg_solve_ds_sharded
+            from fpr_tpu_torch.solvers import dist_mg_ds
 
+            if mesh_shape is not None:
+                mesh = make_mesh(mesh_shape, ("y", "x"), device=args.device)
+                return dist_mg_ds.mg_solve_ds_sharded_2d(b, h, 0.0, args.tol, 30, mesh,
+                                                         cfg=cfg)
             mesh = make_mesh((args.devices,), ("y",), device=args.device)
-            return mg_solve_ds_sharded(b, h, 0.0, args.tol, 30, mesh, cfg=cfg)
+            return dist_mg_ds.mg_solve_ds_sharded(b, h, 0.0, args.tol, 30, mesh, cfg=cfg)
         if args.solver == "ds":
             return multigrid.mg_solve_ds(None, b, h, 0.0, args.tol, 30, cfg=cfg,
                                          return_pair=True)
@@ -204,6 +216,8 @@ def main(argv=None):
     p.add_argument("--f64", action="store_true", help="direct: a float64 solve")
     p.add_argument("--devices", type=int, default=1,
                    help="--solver ds: row shards of a virtual mesh on --device")
+    p.add_argument("--mesh", default=None,
+                   help="--solver ds: a YxX (y, x) mesh of the --devices shards instead")
     p.set_defaults(fn=cmd_mg)
 
     args = ap.parse_args(argv)

@@ -25,10 +25,16 @@ def neumann_left_right(T: torch.Tensor):
     return T
 
 
-def ns_temperature_bcs(T: torch.Tensor):
+def ns_temperature_bcs(T: torch.Tensor, rows=None):
     """Dirichlet bottom/top, then Neumann sides, which win at the corners
-    (bc.ns_temperature_bcs)."""
-    return neumann_left_right(dirichlet_top_bottom(T))
+    (bc.ns_temperature_bcs).  rows: on a row shard, the row hooks
+    (``ops.rows.Rows``) that say which local rows are the global bottom
+    and top."""
+    if rows is None:
+        return neumann_left_right(dirichlet_top_bottom(T))
+    g = rows.global_rows(T.shape[0], T.device)[:, None]
+    T = torch.where(g == 0, T.new_ones(()), torch.where(g == rows.ny - 1, T.new_zeros(()), T))
+    return neumann_left_right(T)
 
 
 def dirichlet_faces_3d(H: torch.Tensor, value: float = 0.0):

@@ -11,12 +11,22 @@
 // partials of sum(r_hi^2) over the interior, max |du'/dy| and max |du'/dx|
 // over the interior, and sum(u'_hi^2) over the domain.
 //
-// Row hooks (ds.py:575-641, row_off/ny_mask/raw_sumsq): local row y is
-// global row row_off + y of an ny_g-row grid.  The BCs' Dirichlet rows and
-// the interior follow the global row, and the local first and last rows,
-// which lack an outer neighbour, are never interior.  The sums and maxima
-// cover the owned local rows [own0, own1) only.  A single device passes
-// row_off 0, ny_g = ny and owns every row.
+// Shard hooks (ds.py:355-372 and 575-641: row_off/ny_mask, col_off/nx_mask,
+// own_lanes, raw_sumsq): local row y is global row row_off + y of an
+// ny_g-row grid, local column x global column col_off + x of an nx_g-column
+// grid (col_off < 0 on a 2D mesh's left-edge shards).  The BCs' Dirichlet
+// rows and the interior follow the global row and column, and the local
+// first and last rows and columns, which lack an outer neighbour, are never
+// interior.  The sums and maxima cover the owned local cells, rows
+// [own0, own1) x columns [ownc0, ownc1), only: a ghost column is an interior
+// cell that the x-neighbour owns.  sum(u'^2) covers the owned cells inside
+// the global grid.  A single device passes row_off = col_off = 0, the
+// physical sizes, and owns every cell.  The BCs' Neumann columns are the
+// local side columns, so apply_bcs takes whole columns (the wrapper checks).
+// The column tests are compiled in only where the column hooks are not
+// whole (the template flag COLS): in every launch they cost 2-4 % of the
+// device time (scripts/kernel_times.py, PERF.md), which the single device
+// and the row shards need not pay.
 //
 // Bound on the H100: memory bandwidth.  A cell reads u hi/lo, f (one or
 // two planes) and e, and writes u' hi/lo and r: 6-8 f32 words, against
@@ -29,8 +39,7 @@
 // which keeps it one launch with no intermediate plane.  Cross-block sums go
 // to a per-block partials buffer that the caller adds in a fixed order.
 // Left for later: shared-memory tiles so each value is loaded and updated
-// once per block, and the column hooks of a 2D mesh (col_off, nx_mask,
-// own_lanes).
+// once per block.
 #include "fpr_common.cuh"
 
 namespace {
@@ -64,20 +73,23 @@ __device__ __forceinline__ void updated(const float* __restrict__ uh,
     fpr::ds_add(uh[i], ul[i], -ph, -pe, h, l);
 }
 
+template <bool COLS>
 __global__ void __launch_bounds__(FPR_THREADS)
 defect_kernel(const float* __restrict__ uh, const float* __restrict__ ul,
               const float* __restrict__ fh, const float* __restrict__ fl,
               const float* __restrict__ e, const float* __restrict__ cpair,
               float scale, float inv_h2, float inv2h, int ny, int nx, int flags,
-              int row_off, int ny_g, int own0, int own1, float* __restrict__ uh_out,
+              int row_off, int ny_g, int own0, int own1, int col_off, int nx_g, int ownc0,
+              int ownc1, float* __restrict__ uh_out,
               float* __restrict__ ul_out, float* __restrict__ r_out,
               float* __restrict__ partials) {
     __shared__ float sh[FPR_BY];
     const int x = blockIdx.x * FPR_BX + threadIdx.x;
     const int y = blockIdx.y * FPR_BY + threadIdx.y;
     const int gy = row_off + y;
+    const int gx = col_off + x;
     const bool bcs = flags & APPLY_BCS;
-    const bool own = y >= own0 && y < own1;
+    const bool own = y >= own0 && y < own1 && (!COLS || (x >= ownc0 && x < ownc1));
     float rsq = 0.0f, vx = 0.0f, vy = 0.0f, usq = 0.0f;
 
     if (x < nx && y < ny) {
@@ -86,9 +98,10 @@ defect_kernel(const float* __restrict__ uh, const float* __restrict__ ul,
         updated(uh, ul, e, scale, bcs, ny_g, nx, y, gy, x, ch, cl);
         uh_out[i] = ch;
         ul_out[i] = cl;
-        if (own && gy >= 0 && gy < ny_g) usq = ch * ch;
+        if (own && gy >= 0 && gy < ny_g && (!COLS || (gx >= 0 && gx < nx_g))) usq = ch * ch;
         float r = 0.0f;
-        if (x > 0 && y > 0 && x < nx - 1 && y < ny - 1 && gy > 0 && gy < ny_g - 1) {
+        if (x > 0 && y > 0 && x < nx - 1 && y < ny - 1 && gy > 0 && gy < ny_g - 1 &&
+            (!COLS || (gx > 0 && gx < nx_g - 1))) {
             float uph, upl, dnh, dnl, lfh, lfl, rth, rtl;
             updated(uh, ul, e, scale, bcs, ny_g, nx, y - 1, gy - 1, x, uph, upl);
             updated(uh, ul, e, scale, bcs, ny_g, nx, y + 1, gy + 1, x, dnh, dnl);
@@ -150,16 +163,19 @@ int fpr_num_blocks(int ny, int nx) {
 }
 
 // partials: (4, fpr_num_blocks) f32.  fl may be null when F_SINGLE, e null
-// for a zero correction.  row_off, ny_g, own0, own1: the row hooks.
-// Returns the launch's cudaError_t.
+// for a zero correction.  row_off, ny_g, own0, own1: the row hooks;
+// col_off, nx_g, ownc0, ownc1: the column hooks.  Returns the launch's
+// cudaError_t.
 int fpr_defect(const float* uh, const float* ul, const float* fh, const float* fl,
                const float* e, const float* cpair, float scale, float inv_h2,
                float inv2h, int ny, int nx, int flags, int row_off, int ny_g, int own0,
-               int own1, float* uh_out, float* ul_out, float* r_out, float* partials,
-               cudaStream_t stream) {
-    defect_kernel<<<fpr::grid_of(ny, nx), dim3(FPR_BX, FPR_BY), 0, stream>>>(
+               int own1, int col_off, int nx_g, int ownc0, int ownc1, float* uh_out,
+               float* ul_out, float* r_out, float* partials, cudaStream_t stream) {
+    const bool cols = !(col_off == 0 && nx_g == nx && ownc0 == 0 && ownc1 == nx);
+    auto kernel = cols ? defect_kernel<true> : defect_kernel<false>;
+    kernel<<<fpr::grid_of(ny, nx), dim3(FPR_BX, FPR_BY), 0, stream>>>(
         uh, ul, fh, fl, e, cpair, scale, inv_h2, inv2h, ny, nx, flags, row_off, ny_g, own0,
-        own1, uh_out, ul_out, r_out, partials);
+        own1, col_off, nx_g, ownc0, ownc1, uh_out, ul_out, r_out, partials);
     return static_cast<int>(cudaGetLastError());
 }
 

@@ -26,7 +26,8 @@ the dual-time kernel K times, and
 ``stencil`` calls of its wrappers (``smooth2`` launches the kernel twice).
 ``smooth2r_split`` and ``corr_smooth2`` count the separate-buffer V-cycle
 legs of the row-padded V-cycle, which launch the CUDA code of
-``smooth_down`` and ``corr_up``.
+``smooth_down`` and ``corr_up``.  ``ns_fused_helm`` counts the NS operator
+kernel's launches in its Helmholtz-defect mode, ``ns_fused`` the others.
 """
 
 from __future__ import annotations
@@ -43,7 +44,7 @@ from pathlib import Path
 import torch
 
 KERNELS = ("defect", "smooth_down", "corr_up", "ns_fused", "dual_time", "dual_timek", "ds3d",
-           "stencil", "smooth2r_split", "corr_smooth2", "dual_timek_padded")
+           "stencil", "smooth2r_split", "corr_smooth2", "dual_timek_padded", "ns_fused_helm")
 launches = dict.fromkeys(KERNELS, 0)
 
 # the block shape of csrc/fpr_common.cuh (FPR_BX, FPR_BY); the 3D entry
@@ -70,12 +71,10 @@ NVCC_FLAGS = (
 _P, _I, _F, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_double
 _SIGNATURES = {
     "fpr_num_blocks": [_I, _I],
-    "fpr_defect": [_P, _P, _P, _P, _P, _P, _F, _F, _F, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P,
-                   _P, _P],
-    "fpr_sweep": [_P, _P, _P, _P, _F, _F, _F, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P],
-    "fpr_residual": [_P, _P, _P, _F, _F, _I, _I, _I, _I, _P, _P],
-    "fpr_ns_fused": [_P, _P, _P, _P, _P, _F, _F, _F, _F, _F, _F, _F, _I, _I, _I, _I, _I,
-                     _I, _I, _P, _P, _P, _P, _P],
+    "fpr_defect": [*[_P] * 6, _F, _F, _F, *[_I] * 11, _P, _P, _P, _P, _P],
+    "fpr_sweep": [_P, _P, _P, _P, _F, _F, _F, *[_I] * 12, _P, _P, _P],
+    "fpr_residual": [_P, _P, _P, _F, _F, *[_I] * 6, _P, _P],
+    "fpr_ns_fused": [*[_P] * 6, *[_F] * 7, *[_I] * 7, *[_P] * 6],
     "fpr_dual_time": [_P, _P, _P, _P, _I, *[_F] * 6, *[_I] * 12, _P],
     "fpr_ds3d": [_P, _P, _P, _P, _I, *[_F] * 10, _I, _I, _I, _P],
     "fpr_stencil_f32": [_P, _P, _P, _F, _F, _F, _I, _I, _I, _P, _P, _P],

@@ -17,6 +17,14 @@ float32 V-cycles on the legs #6/#7).  Semi-implicit steps solve
 c = 1/(beta dt), a device scalar, and the analogous W solve.  Each step
 reads dt on the host once, to advance the simulated time.
 
+``simulate(mesh=)`` is the GSPMD tier of the host loop: with at least
+``SHARD_ROWS`` rows, T, W and S live on the mesh's row shards
+(``solvers.dist_multigrid.RowShards``), every solve is
+``mg_solve_sharded``, the NS operators run per shard after a refresh of
+the ghost rows with their global boundary rows zeroed, and dt's maxima are
+maxima over the shards (exact).  It takes ``mg_solver="direct"`` only, as
+in JAX.
+
 The fast loop's state: T and W as a stacked (2, ny, nx) float32 tensor, S as a
 double-single hi/lo (2, ny, nx) pair; every linear solve is
 ``mg_solve_ds_rp`` warm-started from the previous field.  A step is one
@@ -46,10 +54,14 @@ from fpr_tpu_torch.core import bc
 from fpr_tpu_torch.core.config import CoarseSolver, InitScheme, MGConfig, NSConfig
 from fpr_tpu_torch.ops import ds as dsm
 from fpr_tpu_torch.ops import stencil2d as ops
+from fpr_tpu_torch.ops import reductions
 from fpr_tpu_torch.ops.ns_fused import ns_fused_rp
+from fpr_tpu_torch.parallel.halo import refresh_rows
+from fpr_tpu_torch.solvers import dist_multigrid as dmg
 from fpr_tpu_torch.solvers.multigrid import mg_solve, mg_solve_ds_rp, mg_solve_mixed
 
 F32 = torch.float32
+SHARD_ROWS = 257  # simulate(mesh=)'s replicate_below (navier_stokes.py:205-208)
 
 
 @dataclasses.dataclass
@@ -100,8 +112,12 @@ def _needs_diffusion_term(beta: float) -> bool:
 def compute_dt(vx, vy, cfg: NSConfig) -> torch.Tensor:
     """The adaptive timestep on the device (navier_stokes.compute_dt,
     part2.jl:76-87)."""
-    vmax2 = torch.amax(vx * vx + vy * vy)
-    ax, ay = torch.amax(torch.abs(vx)), torch.amax(torch.abs(vy))
+    return _dt_of(torch.amax(vx * vx + vy * vy), torch.amax(torch.abs(vx)),
+                  torch.amax(torch.abs(vy)), cfg)
+
+
+def _dt_of(vmax2, ax, ay, cfg: NSConfig) -> torch.Tensor:
+    """compute_dt from max(vx^2 + vy^2), max|vx| and max|vy|."""
     h = _full(ax, cfg.h)
     dt_adv = cfg.a_adv * torch.minimum(h / ax, h / ay)  # inf when v = 0
     dt_dif = _full(ax, cfg.dt_dif)
@@ -150,16 +166,84 @@ def ns_step(T, W, S, cfg: NSConfig):
     return T, W, S, dt
 
 
+def _ns_step_sharded(T, W, S, cfg: NSConfig, mesh, axis: str):
+    """ns_step on ``RowShards`` T, W, S (navier_stokes.ns_step with the
+    constrain hook); returns (T, W, S, dt)."""
+    h, plan = cfg.h, T.plan
+    rows = [plan.rows(0, d) for d in range(plan.ndev)]
+    own = slice(dmg.GR, dmg.GR + plan.ny_l)
+
+    def solve(u, f, c, apply_bcs):
+        return dmg.mg_solve_sharded(u, dmg.RowShards(f, plan), h, c, cfg.tol, cfg.niters, mesh,
+                                    axis, apply_bcs=apply_bcs, cfg=cfg.mg,
+                                    replicate_below=SHARD_ROWS)[0]
+
+    def per_shard(op, *fields):
+        """op per shard, its result's global boundary rows zeroed (the
+        operators' zero ring); the fields' ghost rows are fresh."""
+        return [dmg.zero_boundary_rows(op(*(f[d] for f in fields)), r.off, r.ny)
+                for d, r in enumerate(rows)]
+
+    S = solve(S, W.blocks, 0.0, False)
+    Sb, Wb = S.blocks, W.blocks
+    refresh_rows(Sb, mesh, axis, plan.ny_l, dmg.GR)
+    refresh_rows(Wb, mesh, axis, plan.ny_l, dmg.GR)
+    vel = [ops.velocity(s, h, h) for s in Sb]
+    vx, vy = ([dmg.zero_boundary_rows(v[k], r.off, r.ny) for v, r in zip(vel, rows)]
+              for k in (0, 1))
+    dt = _dt_of(reductions.dist_max([torch.amax((a * a + b * b)[own]) for a, b in zip(vx, vy)]),
+                reductions.dist_max([torch.amax(torch.abs(a[own])) for a in vx]),
+                reductions.dist_max([torch.amax(torch.abs(b[own])) for b in vy]), cfg)
+    refresh_rows(T.blocks, mesh, axis, plan.ny_l, dmg.GR)
+    Tb = [bc.ns_temperature_bcs(t, r) for t, r in zip(T.blocks, rows)]
+    Ra_dTdx = per_shard(lambda t: ops.buoyancy(t, cfg.Ra, h), Tb)
+    if _needs_diffusion_term(cfg.beta):
+        dT2 = per_shard(lambda t: ops.diffusion(t, cfg.k, h, h), Tb)
+        dW2 = per_shard(lambda w: ops.diffusion(w, cfg.Pr, h, h), Wb)
+    else:
+        dT2, dW2 = [torch.zeros_like(t) for t in Tb], [torch.zeros_like(w) for w in Wb]
+    dTx, dTy = per_shard(lambda t, v: ops.advection_x(t, v, h), Tb, vx), \
+        per_shard(lambda t, v: ops.advection_y(t, v, h), Tb, vy)
+    dWx, dWy = per_shard(lambda w, v: ops.advection_x(w, v, h), Wb, vx), \
+        per_shard(lambda w, v: ops.advection_y(w, v, h), Wb, vy)
+    n = range(plan.ndev)
+    if _semi_implicit(cfg.beta):
+        c = _full(dt, 1.0) / (cfg.beta * dt)
+        T_rhs = [-c * (Tb[d] + dt * ((1.0 - cfg.beta) * dT2[d] - dTx[d] - dTy[d])) for d in n]
+        T = solve(dmg.RowShards(Tb, plan), T_rhs, c, True)
+        cW = c / _full(c, cfg.Pr)
+        W_rhs = [-cW * (Wb[d] + dt * ((1.0 - cfg.beta) * dW2[d] - dWx[d] - dWy[d]
+                                      - cfg.Pr * Ra_dTdx[d])) for d in n]
+        W = solve(W, W_rhs, cW, False)
+    else:
+        T = dmg.RowShards([Tb[d] + dt * (dT2[d] - dTx[d] - dTy[d]) for d in n], plan)
+        W = dmg.RowShards([Wb[d] + dt * (dW2[d] - dWx[d] - dWy[d] - cfg.Pr * Ra_dTdx[d])
+                           for d in n], plan)
+    return T, W, S, dt
+
+
 def simulate(cfg: NSConfig = NSConfig(), W0=None, T0=None, max_steps: Optional[int] = None,
              verbose: bool = False, snapshot_every: int = 0, dtype=torch.float64,
-             seed: int = 0, *, device="cuda") -> NSResult:
+             seed: int = 0, mesh=None, shard_axis: str = "y", *, device="cuda") -> NSResult:
     """Run the host loop until sim_time >= ttot (navier_stokes.simulate,
     part2.jl:181-250).  Steps 1-3 are warm-up, excluded from t_elapsed and
     timed_iters.  max_steps=1 is the reference's test mode;
-    snapshot_every > 0 keeps (T, W, S) every that many steps.  The JAX
-    function's GSPMD-sharded variant (``mesh``) is not ported; the sharded
-    NS tier of the port is the fast loop's, ``models.dist_ns``."""
+    snapshot_every > 0 keeps (T, W, S) every that many steps.
+
+    mesh: a ``parallel.mesh.Mesh``: the GSPMD tier, T, W and S row-sharded
+    over ``shard_axis`` with ``mg_solve_sharded`` for every solve (the
+    fields start on shard 0's device; ``device`` is not used).  It needs
+    ``mg_solver="direct"``.  With fewer than SHARD_ROWS rows nothing is
+    sharded, as in JAX, and the steps run on shard 0's device."""
     dev = torch.device(device)
+    plan = None
+    if mesh is not None:
+        if cfg.mg_solver != "direct":
+            raise ValueError("sharded ns_step requires mg_solver='direct'")
+        dev = mesh.devices[0]
+        plan = dmg.plan_rows(cfg.ny, cfg.nx, mesh.shape[shard_axis], cfg.mg, SHARD_ROWS)
+        if plan.s == 0:
+            plan = None
 
     def field(scheme, array):
         if array is not None:
@@ -168,8 +252,18 @@ def simulate(cfg: NSConfig = NSConfig(), W0=None, T0=None, max_steps: Optional[i
 
     T, W = field(cfg.T_init, T0), field(cfg.W_init, W0)
     S = torch.zeros((cfg.ny, cfg.nx), dtype=dtype, device=dev)
+    if plan is not None:
+        T, W, S = (dmg.RowShards.of(a, plan, mesh) for a in (T, W, S))
+
+    def sync():
+        if mesh is not None:
+            mesh.synchronize()
+        else:
+            _sync(dev)
 
     def host(a):
+        if isinstance(a, dmg.RowShards):
+            a = a.gather()
         return a.cpu().double().numpy()
 
     snapshots = [] if snapshot_every else None
@@ -177,9 +271,12 @@ def simulate(cfg: NSConfig = NSConfig(), W0=None, T0=None, max_steps: Optional[i
     tic = time.perf_counter()
     while sim_time < cfg.ttot:
         if step == 3:  # warm-up exclusion (part2.jl:182-184)
-            _sync(dev)
+            sync()
             tic = time.perf_counter()
-        T, W, S, dt = ns_step(T, W, S, cfg)
+        if plan is None:
+            T, W, S, dt = ns_step(T, W, S, cfg)
+        else:
+            T, W, S, dt = _ns_step_sharded(T, W, S, cfg, mesh, shard_axis)
         sim_time += float(dt)  # the one host read per step
         step += 1
         if snapshot_every and (step - 1) % snapshot_every == 0:
@@ -188,7 +285,7 @@ def simulate(cfg: NSConfig = NSConfig(), W0=None, T0=None, max_steps: Optional[i
             print(f"time, step: {sim_time} {step}")
         if max_steps is not None and step >= max_steps:
             break
-    _sync(dev)
+    sync()
     t_elapsed = time.perf_counter() - tic
     return NSResult(T=host(T), W=host(W), S=host(S), t_elapsed=t_elapsed,
                     timed_iters=max(step - 3, 0), steps=step, sim_time=sim_time,

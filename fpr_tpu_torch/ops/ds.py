@@ -15,7 +15,10 @@ sum(r^2).  The port's arrays are physical (ny, nx) planes: u_ds is
 (2, ny, nx), e and r (ny, nx).  On a row shard the arrays are the shard's
 local rows and ``rows`` (``ops.rows.Rows``) gives the row hooks: the
 BCs' Dirichlet rows and the interior follow the global row, and the sums
-and maxima cover the owned rows (ds.py:575-641).
+and maxima cover the owned rows (ds.py:575-641).  On a 2D-mesh shard
+``cols`` (``ops.rows.Cols``) adds the column hooks: the interior follows
+the global column too, and the sums and maxima cover the owned columns
+(K1's ``own_lanes``, ds.py:355-372).
 """
 
 from __future__ import annotations
@@ -28,7 +31,7 @@ import torch
 from fpr_tpu_torch import kernels
 from fpr_tpu_torch.core import bc
 from fpr_tpu_torch.ops import rows as rowhooks
-from fpr_tpu_torch.ops.rows import Rows
+from fpr_tpu_torch.ops.rows import Cols, Rows
 
 # ---------------------------------------------------------------------------
 # error-free transforms (tensors of any shape; scalars as 0-dim tensors)
@@ -123,11 +126,13 @@ def defect_scalars(c, h: float, device) -> torch.Tensor:
 
 
 def defect_pass_plain(u_ds, f_ds, e, scale, h, C, c_zero, apply_bcs=False,
-                      velocity_max=False, field_sumsq=False, r_out=None, rows=None):
+                      velocity_max=False, field_sumsq=False, r_out=None, rows=None,
+                      cols=None):
     """Plain PyTorch version of K1; see ``defect_pass``."""
     uh, ul = u_ds[0], u_ds[1]
-    n_loc = uh.shape[0]
+    n_loc, m_loc = uh.shape
     rows = Rows.whole(n_loc) if rows is None else rows
+    cols = Cols.whole(m_loc) if cols is None else cols
     if e is None:
         e = torch.zeros_like(uh)
     ph, pe = two_prod(e, uh.new_full((), float(scale)))
@@ -157,30 +162,33 @@ def defect_pass_plain(u_ds, f_ds, e, scale, h, C, c_zero, apply_bcs=False,
         r_int = rs + (re + tl)
     else:
         r_int = rs + (re + (tl - f_ds[1][I]))
-    interior = rows.interior(n_loc, uh.device)[1:-1, None]
+    interior = (rows.interior(n_loc, uh.device)[1:-1, None]
+                & cols.interior(m_loc, uh.device)[None, 1:-1])
     r_int = torch.where(interior, r_int, r_int.new_zeros(()))
     r = torch.zeros_like(uh) if r_out is None else r_out.zero_()
     r[I] = r_int
     sums = r.new_zeros(4)
-    sums[0] = torch.sum((r * r)[rows.own[0]:rows.own[1]])
+    own = (slice(*rows.own), slice(*cols.own))
+    sums[0] = torch.sum((r * r)[own])
     if velocity_max:
         inv2h = 0.5 / float(h)
-        y = torch.arange(n_loc, device=uh.device)
-        m = interior & ((y >= rows.own[0]) & (y < rows.own[1]))[1:-1, None]
+        m = interior & (rows.owned(n_loc, uh.device)[1:-1, None]
+                        & cols.owned(m_loc, uh.device)[None, 1:-1])
         zero = r.new_zeros(())
         sums[1] = torch.amax(torch.where(m, torch.abs((uh[dn] - uh[up]) * inv2h), zero))
         sums[2] = torch.amax(torch.where(m, torch.abs((uh[rt] - uh[lf]) * inv2h), zero))
     if field_sumsq:
-        sums[3] = torch.sum((uh * uh)[rows.owned_physical(n_loc)])
+        sums[3] = torch.sum((uh * uh)[rows.owned_physical(n_loc), cols.owned_physical(m_loc)])
     return torch.stack([uh, ul]), r, sums
 
 
 def _defect_cuda(u_ds, f_ds, e, scale, h, C, c_zero, apply_bcs=False,
-                 velocity_max=False, field_sumsq=False, r_out=None, rows=None):
+                 velocity_max=False, field_sumsq=False, r_out=None, rows=None, cols=None):
     """K1 on the card (csrc/defect.cu); see ``defect_pass``."""
     kernels.require_cuda_f32("defect_pass", u_ds, f_ds, e, C, r_out)
     _, ny, nx = u_ds.shape
     rows = Rows.whole(ny) if rows is None else rows
+    cols = Cols.whole(nx) if cols is None else cols
     lib = kernels.lib()
     u_out = torch.empty_like(u_ds)
     r = torch.empty_like(u_ds[0]) if r_out is None else r_out
@@ -193,7 +201,8 @@ def _defect_cuda(u_ds, f_ds, e, scale, h, C, c_zero, apply_bcs=False,
         u_ds[0].data_ptr(), u_ds[1].data_ptr(), f_ds[0].data_ptr(),
         f_ds[1].data_ptr() if f_ds.shape[0] == 2 else None, kernels.ptr(e),
         C.data_ptr(), float(scale), 1.0 / (float(h) * float(h)), 0.5 / float(h),
-        ny, nx, flags, *rows.args(), u_out[0].data_ptr(), u_out[1].data_ptr(), r.data_ptr(),
+        ny, nx, flags, *rows.args(), *cols.args(), u_out[0].data_ptr(), u_out[1].data_ptr(),
+        r.data_ptr(),
         partials.data_ptr(), kernels.stream(u_ds),
     )
     kernels.check(err, "fpr_defect")
@@ -204,7 +213,7 @@ def _defect_cuda(u_ds, f_ds, e, scale, h, C, c_zero, apply_bcs=False,
 
 
 def _pass(u_ds, f_ds, e, scale, h, c, C, r_out, apply_bcs, velocity_max, field_sumsq,
-          rows=None, raw_sumsq=False):
+          rows=None, raw_sumsq=False, cols=None):
     """The shared body of defect_pass and defect_pass_stk."""
     inv_h2 = 1.0 / (float(h) * float(h))
     if not _is_pow2(inv_h2):
@@ -213,13 +222,14 @@ def _pass(u_ds, f_ds, e, scale, h, c, C, r_out, apply_bcs, velocity_max, field_s
         raise ValueError(f"f_ds must be (1|2, ny, nx), got {tuple(f_ds.shape)}")
     if rows is not None:
         rowhooks.check("defect_pass", rows, u_ds.shape[1])
+    rowhooks.check_cols("defect_pass", cols, u_ds.shape[2], apply_bcs=apply_bcs)
     c_zero = not isinstance(c, torch.Tensor) and float(c) == 0.0
     if C is None:
         C = defect_scalars(c, h, u_ds.device)
     fn = defect_pass_plain if u_ds.device.type == "cpu" else _defect_cuda
     u_out, r, sums = fn(u_ds, f_ds, e, scale, h, C, c_zero, apply_bcs=apply_bcs,
                         velocity_max=velocity_max, field_sumsq=field_sumsq, r_out=r_out,
-                        rows=rows)
+                        rows=rows, cols=cols)
     _, ny, nx = u_ds.shape
     r_rms = sums[0] if raw_sumsq else torch.sqrt(sums[0] / sums.new_full((), float(nx * ny)))
     extras = (sums[1], sums[2], sums[3]) if velocity_max or field_sumsq else None
@@ -227,7 +237,8 @@ def _pass(u_ds, f_ds, e, scale, h, c, C, r_out, apply_bcs, velocity_max, field_s
 
 
 def defect_pass(u_ds, f_ds, e, scale, h, c, C=None, apply_bcs=False,
-                velocity_max=False, field_sumsq=False, rows=None, raw_sumsq=False):
+                velocity_max=False, field_sumsq=False, rows=None, raw_sumsq=False,
+                cols=None):
     """K1: u' = u - scale*e (ds), [NS temperature BCs on u'], r = A u' - f
     (ds), sum(r_hi^2)  (ds.defect_pass).
 
@@ -245,10 +256,11 @@ def defect_pass(u_ds, f_ds, e, scale, h, c, C=None, apply_bcs=False,
     rows: the row hooks of a row shard (``ops.rows.Rows``; None is one
     device).  raw_sumsq: return the (owned rows') sum(r^2) in place of
     r_rms, for the sharded solver to add across shards before it
-    normalises by the global cell count.
+    normalises by the global cell count.  cols: the column hooks of a
+    2D-mesh shard (``ops.rows.Cols``; even offset, not with apply_bcs).
     """
     u_out, r, r_rms, extras = _pass(u_ds, f_ds, e, scale, h, c, C, None, apply_bcs,
-                                    velocity_max, field_sumsq, rows, raw_sumsq)
+                                    velocity_max, field_sumsq, rows, raw_sumsq, cols)
     return (u_out, r, r_rms) + (() if extras is None else (extras,))
 
 

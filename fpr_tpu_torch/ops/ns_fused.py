@@ -1,6 +1,6 @@
 """The fused Navier-Stokes operator pass K4 (fpr_tpu/ops/pallas_ns.py::
-ns_fused_rp, modes ``explicit`` with ``with_defect`` and ``rhs`` with
-``with_sumsq``).
+ns_fused_rp: modes ``explicit`` with ``with_defect`` and ``rhs`` with
+``with_sumsq`` and ``with_helm_defect``).
 
 One pass over the stacked (2, ny, nx) float32 state TW = [T | W] and the
 stream function S:
@@ -15,12 +15,18 @@ On the boundary T' is the BC'd T and W' the old W (explicit), or -c times
 them (rhs).  Also returned: sum(T'^2) and sum(W'^2); with ``with_defect``
 (explicit only, S the (2, ny, nx) ds pair) the next stream-function
 solve's initial defect r = A S - W' in ds arithmetic, its rms, and the
-curl maxima max|dS/dy|, max|dS/dx| of S.  dt, cT and cW are 0-dim device
-tensors.  The port's arrays are physical; ``with_helm_defect`` is not
-ported (the fast loop does not use it).  On a row shard ``rows``
-(``ops.rows.Rows``) gives the row hooks: the T BCs' Dirichlet rows and the
-interior follow the global row, outputs outside the global grid are 0, and
-the sums and maxima cover the owned rows (pallas_ns.py:431-495).
+curl maxima max|dS/dy|, max|dS/dx| of S.  With ``with_helm_defect`` (rhs
+only, pallas_ns.py:82-88, 266-296) the two Helmholtz solves' warm-start
+defects rT = A_cT (BC(T), 0) - T' and rW = A_cW (W, 0) - W' in ds
+arithmetic, exactly what K1 (``ds.defect_pass``, scale 0, T with
+apply_bcs) gives on those warm starts, and their sums of squares.  No
+solver path uses that mode, as in the JAX package, whose fast loop measured
+it slower than the two separate defect passes (pallas_ns.py:455-459).  dt,
+cT and cW are 0-dim device tensors.  The port's arrays are physical.  On a
+row shard ``rows`` (``ops.rows.Rows``) gives the row hooks: the T BCs'
+Dirichlet rows and the interior follow the global row, outputs outside the
+global grid are 0, and the sums and maxima cover the owned rows
+(pallas_ns.py:431-495).
 """
 
 from __future__ import annotations
@@ -30,25 +36,25 @@ import torch
 from fpr_tpu_torch import kernels
 from fpr_tpu_torch.core import bc
 from fpr_tpu_torch.ops import rows as rowhooks
-from fpr_tpu_torch.ops.ds import ds_add, two_sum
+from fpr_tpu_torch.ops.ds import defect_pass_plain, defect_scalars, ds_add, two_sum
 from fpr_tpu_torch.ops.rows import Rows
 
-_MODE_RHS, _WITH_DEFECT, _USE_DIF = 1, 2, 4
+_MODE_RHS, _WITH_DEFECT, _USE_DIF, _HELM_DEFECT = 1, 2, 4, 8
 
 
 def _use_dif(beta: float) -> bool:
     return abs(beta - 1.0) > 1e-8
 
 
-def ns_fused_plain(TW, S, scal, h, Pr, Ra, k, beta, mode, with_defect, rows=None):
-    """Plain PyTorch version of K4; see ``ns_fused_rp``."""
+def ns_fused_plain(TW, S, scal, h, Pr, Ra, k, beta, mode, with_defect, rows=None,
+                   cpairs=None):
+    """Plain PyTorch version of K4; see ``ns_fused_rp``.  cpairs: the
+    (4,) [CT_hi, CT_lo, CW_hi, CW_lo] of the Helmholtz defects, or None."""
     dt = scal[0]
     n_loc = TW.shape[1]
     rows = Rows.whole(n_loc) if rows is None else rows
-    g = rows.global_rows(n_loc, TW.device)[:, None]
     zero = TW.new_zeros(())
-    T = torch.where(g == 0, TW.new_ones(()), torch.where(g == rows.ny - 1, zero, TW[0]))
-    T = bc.neumann_left_right(T)
+    T = bc.ns_temperature_bcs(TW[0], rows)
     W = TW[1]
     m = rows.interior(n_loc, TW.device)[1:-1, None]
     Sh = S[0] if with_defect else S
@@ -107,37 +113,51 @@ def ns_fused_plain(TW, S, scal, h, Pr, Ra, k, beta, mode, with_defect, rows=None
         sums[2] = torch.sum((r * r)[own])
         sums[3] = torch.amax(torch.where(mo, torch.abs(vx), zero))
         sums[4] = torch.amax(torch.where(mo, torch.abs(vy), zero))
+    if cpairs is not None:
+        # K1's arithmetic on the warm starts (T, 0) with the BCs and (W, 0)
+        zl = torch.zeros_like(W)
+        _, rT, sT = defect_pass_plain(torch.stack([TW[0], zl]), out[0:1], None, 0.0, h,
+                                      cpairs[0:2], False, apply_bcs=True, rows=rows)
+        _, rW, sW = defect_pass_plain(torch.stack([W, zl]), out[1:2], None, 0.0, h,
+                                      cpairs[2:4], False, rows=rows)
+        r = torch.stack([rT, rW])
+        sums[2], sums[3] = sT[0], sW[0]
     return out, r, sums
 
 
-def _ns_fused_cuda(TW, S, scal, h, Pr, Ra, k, beta, mode, with_defect, rows=None):
-    """K4 on the card (csrc/ns_fused.cu); see ``ns_fused_rp``."""
-    kernels.require_cuda_f32("ns_fused_rp", TW, S, scal)
+def _ns_fused_cuda(TW, S, scal, h, Pr, Ra, k, beta, mode, with_defect, rows=None,
+                   cpairs=None):
+    """K4 on the card (csrc/ns_fused.cu); see ``ns_fused_rp``.  The
+    Helmholtz-defect launches (cpairs given) count as ``ns_fused_helm``."""
+    kernels.require_cuda_f32("ns_fused_rp", TW, S, scal, cpairs)
     lib = kernels.lib()
     _, ny, nx = TW.shape
     rows = Rows.whole(ny) if rows is None else rows
+    helm = cpairs is not None
     out = torch.empty_like(TW)
-    r = torch.empty_like(TW[0]) if with_defect else None
+    r = torch.empty_like(TW) if helm else (torch.empty_like(TW[0]) if with_defect else None)
     partials = torch.zeros((5, kernels.num_blocks(ny, nx)), dtype=torch.float32,
                            device=TW.device)
     flags = ((_MODE_RHS if mode == "rhs" else 0) | (_WITH_DEFECT if with_defect else 0)
-             | (_USE_DIF if _use_dif(beta) else 0))
+             | (_USE_DIF if _use_dif(beta) else 0) | (_HELM_DEFECT if helm else 0))
     Sh = S[0] if with_defect else S
     err = lib.fpr_ns_fused(
         TW[0].data_ptr(), TW[1].data_ptr(), Sh.data_ptr(),
-        S[1].data_ptr() if with_defect else None, scal.data_ptr(),
+        S[1].data_ptr() if with_defect else None, scal.data_ptr(), kernels.ptr(cpairs),
         0.5 / h, 1.0 / h, 1.0 / (h * h), Pr, Ra, k, 1.0 - beta, ny, nx, flags, *rows.args(),
-        out[0].data_ptr(), out[1].data_ptr(), kernels.ptr(r), partials.data_ptr(),
-        kernels.stream(TW),
+        out[0].data_ptr(), out[1].data_ptr(), kernels.ptr(r[0] if helm else r),
+        r[1].data_ptr() if helm else None, partials.data_ptr(), kernels.stream(TW),
     )
     kernels.check(err, "fpr_ns_fused")
-    kernels.launches["ns_fused"] += 1
-    sums = torch.cat([partials[:3].sum(dim=1), partials[3:].amax(dim=1)])
+    kernels.launches["ns_fused_helm" if helm else "ns_fused"] += 1
+    sums = (partials[:4].sum(dim=1) if helm else
+            torch.cat([partials[:3].sum(dim=1), partials[3:].amax(dim=1)]))
     return out, r, sums
 
 
 def ns_fused_rp(TW, S, dt, h, Pr, Ra, k=1.0, beta=0.0, mode="explicit", cT=None,
-                cW=None, with_sumsq=False, with_defect=False, rows=None):
+                cW=None, with_sumsq=False, with_defect=False, rows=None,
+                with_helm_defect=False):
     """K4: the fused NS operator pass (pallas_ns.ns_fused_rp).
 
     TW: (2, ny, nx) float32 [T | W]; S: (ny, nx) stream function, or the
@@ -146,14 +166,19 @@ def ns_fused_rp(TW, S, dt, h, Pr, Ra, k=1.0, beta=0.0, mode="explicit", cT=None,
 
     Returns out; with ``with_sumsq`` (out, (sum T'^2, sum W'^2)); with
     ``with_defect`` (out, (sum T'^2, sum W'^2), (r, r_rms),
-    (max|dS/dy|, max|dS/dx|, 0)).  rows: the row hooks of a shard's local
-    rows (None: one device); the sums are then the owned rows'.  A CPU
-    tensor runs the plain version, a CUDA tensor the kernel.
+    (max|dS/dy|, max|dS/dx|, 0)); with ``with_helm_defect`` (rhs only) (out,
+    (sum T'^2, sum W'^2), (rT, rT_rms), (rW, rW_rms)), the Helmholtz
+    solves' initial defects, each to feed its ``mg_solve_ds_rp(r0=...)``.
+    The rms values are over the global nx*ny cells.  rows: the row hooks
+    of a shard's local rows (None: one device); the sums are then the owned
+    rows'.  A CPU tensor runs the plain version, a CUDA tensor the kernel.
     """
     if mode not in ("explicit", "rhs"):
         raise ValueError(f"mode must be 'explicit' or 'rhs', got {mode!r}")
     if with_defect and (mode != "explicit" or S.dim() != 3):
         raise ValueError("with_defect is explicit-only and needs the (2, ny, nx) ds S")
+    if with_helm_defect and (mode != "rhs" or with_defect):
+        raise ValueError("with_helm_defect is rhs-only and excludes with_defect")
     if mode == "rhs" and (cT is None or cW is None):
         raise ValueError("rhs mode needs cT and cW")
     zero = TW.new_zeros(())
@@ -162,12 +187,22 @@ def ns_fused_rp(TW, S, dt, h, Pr, Ra, k=1.0, beta=0.0, mode="explicit", cT=None,
                         zero if cW is None else cW.reshape(()).to(TW.dtype)])
     if rows is not None:
         rowhooks.check("ns_fused_rp", rows, TW.shape[1])
+    cpairs = None
+    if with_helm_defect:
+        # the C = 4 + c h^2 pairs on the device, in the EFT order of
+        # pallas_ns.py:473-485 (ds._defect_scalars' float32 branch)
+        cpairs = torch.cat([defect_scalars(scal[1], h, TW.device),
+                            defect_scalars(scal[2], h, TW.device)])
     fn = ns_fused_plain if TW.device.type == "cpu" else _ns_fused_cuda
     out, r, sums = fn(TW, S, scal, float(h), float(Pr), float(Ra), float(k),
-                      float(beta), mode, with_defect, rows)
+                      float(beta), mode, with_defect, rows, cpairs)
+    _, ny, nx = TW.shape
+    n_cells = sums.new_full((), float(nx * (ny if rows is None else rows.ny)))
+    if with_helm_defect:
+        return (out, (sums[0], sums[1]), (r[0], torch.sqrt(sums[2] / n_cells)),
+                (r[1], torch.sqrt(sums[3] / n_cells)))
     if with_defect:
-        _, ny, nx = TW.shape
-        r_rms = torch.sqrt(sums[2] / sums.new_full((), float(nx * ny)))
+        r_rms = torch.sqrt(sums[2] / n_cells)
         return out, (sums[0], sums[1]), (r, r_rms), (sums[3], sums[4], zero)
     if with_sumsq:
         return out, (sums[0], sums[1])

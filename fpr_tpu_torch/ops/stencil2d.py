@@ -6,6 +6,14 @@ Each keeps the JAX function's operation order, so its roundings are the
 same.  Divisions take a device tensor as divisor: PyTorch's CUDA division
 by a Python scalar multiplies by its reciprocal instead.  Every operator
 writes the interior and leaves a zero boundary ring.
+
+The multigrid operators also run on a row shard of the row-sharded tier
+(``solvers.dist_multigrid``): ``rows`` (``ops.rows.Rows``) gives the local
+rows' global indices, and the residual is then zero on every row that is
+not interior under the hooks (the global boundary rows, the rows past the
+grid, the local first and last rows), red-black colours follow the global
+row, and a norm is the owned rows' sum of squares, for the caller to add
+across shards.
 """
 
 from __future__ import annotations
@@ -39,7 +47,7 @@ def laplacian_interior(u: torch.Tensor, hx: float, hy: float) -> torch.Tensor:
             + _div(u[2:, 1:-1] - 2.0 * c + u[:-2, 1:-1], hy * hy))
 
 
-def residual(u: torch.Tensor, f: torch.Tensor, h: float, c) -> torch.Tensor:
+def residual(u: torch.Tensor, f: torch.Tensor, h: float, c, rows=None) -> torch.Tensor:
     """res = (u_E + u_W + u_N + u_S - C u)/h^2 - f on the interior, 0 on the
     boundary, C = 4 + c h^2 (stencil2d.residual)."""
     c = as_scalar(c, u)
@@ -48,7 +56,10 @@ def residual(u: torch.Tensor, f: torch.Tensor, h: float, c) -> torch.Tensor:
         u[1:-1, 2:] + u[1:-1, :-2] + u[2:, 1:-1] + u[:-2, 1:-1]
         - C * u[1:-1, 1:-1]
     ) / u.new_full((), h * h) - f[1:-1, 1:-1]
-    return _pad0(inner)
+    res = _pad0(inner)
+    if rows is not None:
+        res = torch.where(rows.interior(u.shape[0], u.device)[:, None], res, res.new_zeros(()))
+    return res
 
 
 def matvec(x: torch.Tensor, hx: float, hy: float, c) -> torch.Tensor:
@@ -66,33 +77,41 @@ def rms(a: torch.Tensor) -> torch.Tensor:
     return torch.sqrt(torch.sum(a * a) / a.new_full((), a.numel()))
 
 
-def jacobi_step(u, f, h, c, alpha=0.8, with_norm=True):
+def _norm(res, rows):
+    """rms(res), or on a row shard the owned rows' sum of squares."""
+    return rms(res) if rows is None else torch.sum((res * res)[rows.own[0]:rows.own[1]])
+
+
+def jacobi_step(u, f, h, c, alpha=0.8, with_norm=True, rows=None):
     """One damped-Jacobi sweep u + alpha h^2/C res (stencil2d.jacobi_step).
 
     Returns (u_new, rms of the residual that fed the sweep, or None)."""
     c = as_scalar(c, u)
     C = 4.0 + c * h * h
-    res = residual(u, f, h, c)
-    r_rms = rms(res) if with_norm else None
+    res = residual(u, f, h, c, rows)
+    r_rms = _norm(res, rows) if with_norm else None
     return u + (u.new_full((), alpha * h * h) / C) * res, r_rms
 
 
-def red_black_gs_step(u, f, h, c, with_norm=True):
+def red_black_gs_step(u, f, h, c, with_norm=True, rows=None):
     """One red-black Gauss-Seidel sweep: the (ix + iy) even points update
     first, then the others from the half-updated u
     (stencil2d.red_black_gs_step).  Returns (u_new, rms of the residual on
-    entry, or None)."""
+    entry, or None).  On a row shard iy is the global row, and the second
+    half-sweep's rows next to the local edges are stale: two ghost rows
+    keep the owned rows right."""
     ny, nx = u.shape
-    iy = torch.arange(ny, device=u.device).reshape(-1, 1)
+    iy = torch.arange(ny, device=u.device) if rows is None else rows.global_rows(ny, u.device)
+    iy = iy.reshape(-1, 1)
     ix = torch.arange(nx, device=u.device).reshape(1, -1)
     red = ((ix + iy) % 2 == 0).to(u.dtype)
     c = as_scalar(c, u)
     C = 4.0 + c * h * h
     w = u.new_full((), h * h) / C
-    res0 = residual(u, f, h, c)
-    r_rms = rms(res0) if with_norm else None
+    res0 = residual(u, f, h, c, rows)
+    r_rms = _norm(res0, rows) if with_norm else None
     u = u + w * res0 * red
-    res1 = residual(u, f, h, c)
+    res1 = residual(u, f, h, c, rows)
     u = u + w * res1 * (1.0 - red)
     return u, r_rms
 

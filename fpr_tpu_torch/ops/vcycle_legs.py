@@ -16,11 +16,13 @@ the row-padded one (pallas2d.smooth2r_split_rp, corr_smooth2_rp).
 - ``corr_smooth2_raw`` (#7, pallas2d.corr_smooth2_raw): the up leg on a
   prebuilt x-interleaved correction window, for the row-sharded V-cycle.
 
-#6 and #7 take the row hooks of the TPU kernels (row_off, ny_mask;
-``ops.rows.Rows``): on a row shard the interior follows the global row,
-the local first and last rows are never interior, and a norm covers the
-owned rows.  The column hooks (col_off, nx_mask) of a 2D mesh are not
-ported.
+#6 and #7 take the shard hooks of the TPU kernels: the row hooks (row_off,
+ny_mask; ``ops.rows.Rows``) of a row shard and the column hooks (col_off,
+nx_mask; ``ops.rows.Cols``) of a 2D-mesh shard.  The interior follows the
+global row and column, the local first and last rows and columns are never
+interior, and a norm covers the owned cells.  Both offsets must be even
+(the transfers' parity), and elim, which copies the local side columns,
+takes whole columns.
 
 res(u) = (u_N + u_S + u_W + u_E - C u)/h^2 - f on the interior and 0 on
 the boundary, with C = 4 + c h^2.  The constants C, 1/h^2 and
@@ -49,7 +51,7 @@ import torch
 from fpr_tpu_torch import kernels
 from fpr_tpu_torch.ops import rows as rowhooks
 from fpr_tpu_torch.ops import transfer
-from fpr_tpu_torch.ops.rows import Rows
+from fpr_tpu_torch.ops.rows import Cols, Rows
 from fpr_tpu_torch.ops.stencil2d import as_scalar
 
 _SRC_ARRAY, _SRC_ZERO, _SRC_CORR = 0, 1, 2
@@ -63,23 +65,25 @@ def _consts(c, h, like):
     return C, 1.0 / (float(h) * float(h)), h2 / C
 
 
-def _row_mask(res, rows):
-    """res with the rows that are not interior under the row hooks zeroed
-    (nothing to do on one device)."""
-    if rows is None:
+def _hook_mask(res, rows, cols):
+    """res with the cells that are not interior under the shard hooks
+    zeroed (nothing to do on one device)."""
+    if rows is None and cols is None:
         return res
-    m = rows.interior(res.shape[0], res.device)[:, None]
+    ny, nx = res.shape
+    m = ((Rows.whole(ny) if rows is None else rows).interior(ny, res.device)[:, None]
+         & (Cols.whole(nx) if cols is None else cols).interior(nx, res.device)[None, :])
     return torch.where(m, res, res.new_zeros(()))
 
 
-def _residual(v, f, C, inv_h2, rows=None):
+def _residual(v, f, C, inv_h2, rows=None, cols=None):
     # the legs' operation order (pallas2d.py:1088-1095), not stencil2d's:
     # the kernels and the TPU legs round this way
     res = torch.zeros_like(v)
     res[1:-1, 1:-1] = (
         v[:-2, 1:-1] + v[2:, 1:-1] + v[1:-1, :-2] + v[1:-1, 2:] - C * v[1:-1, 1:-1]
     ) * inv_h2 - f[1:-1, 1:-1]
-    return _row_mask(res, rows)
+    return _hook_mask(res, rows, cols)
 
 
 def _elim(v):
@@ -99,7 +103,7 @@ def prolong_y(corrx: torch.Tensor, ny: int) -> torch.Tensor:
     return P
 
 
-def smooth_down_plain(u, f, h, c, alpha=0.8, ns=2, elim=False, rows=None):
+def smooth_down_plain(u, f, h, c, alpha=0.8, ns=2, elim=False, rows=None, cols=None):
     """Plain PyTorch version of K2 and #6; see ``smooth_down`` and
     ``smooth2r_split``."""
     C, inv_h2, hc = _consts(c, h, f)
@@ -107,20 +111,20 @@ def smooth_down_plain(u, f, h, c, alpha=0.8, ns=2, elim=False, rows=None):
     if u is None:
         r1 = torch.zeros_like(f)
         r1[1:-1, 1:-1] = -f[1:-1, 1:-1]
-        v = w * _row_mask(r1, rows)
+        v = w * _hook_mask(r1, rows, cols)
     else:
-        v = u + w * _residual(u, f, C, inv_h2, rows)
+        v = u + w * _residual(u, f, C, inv_h2, rows, cols)
     if elim:
         v = _elim(v)
     for _ in range(ns - 1):
-        v = v + w * _residual(v, f, C, inv_h2, rows)
+        v = v + w * _residual(v, f, C, inv_h2, rows, cols)
         if elim:
             v = _elim(v)
-    return v, _residual(v, f, C, inv_h2, rows)
+    return v, _residual(v, f, C, inv_h2, rows, cols)
 
 
 def corr_up_plain(u, f, corrx, h, c, alpha=0.8, ns=2, elim=False,
-                  with_norm=False, out=None, rows=None):
+                  with_norm=False, out=None, rows=None, cols=None):
     """Plain PyTorch version of K3 and #7; see ``corr_up`` and
     ``corr_smooth2_raw``."""
     C, inv_h2, hc = _consts(c, h, f)
@@ -130,7 +134,7 @@ def corr_up_plain(u, f, corrx, h, c, alpha=0.8, ns=2, elim=False,
         v = _elim(v)
     res = None
     for _ in range(ns):
-        res = _residual(v, f, C, inv_h2, rows)
+        res = _residual(v, f, C, inv_h2, rows, cols)
         v = v + w * res
         if elim:
             v = _elim(v)
@@ -139,14 +143,14 @@ def corr_up_plain(u, f, corrx, h, c, alpha=0.8, ns=2, elim=False,
         v = out
     if not with_norm:
         return v, None
-    if rows is None:
-        n = res.new_full((), float(res.numel()))
-        return v, torch.sqrt(torch.sum(res * res) / n)
-    n = res.new_full((), float(rows.ny * res.shape[1]))
-    return v, torch.sqrt(torch.sum((res * res)[rows.own[0]:rows.own[1]]) / n)
+    ny, nx = res.shape
+    rows = Rows.whole(ny) if rows is None else rows
+    cols = Cols.whole(nx) if cols is None else cols
+    n = res.new_full((), float(rows.ny * cols.nx))
+    return v, torch.sqrt(torch.sum((res * res)[slice(*rows.own), slice(*cols.own)]) / n)
 
 
-def _check(name, ns, f, rows=None):
+def _check(name, ns, f, rows=None, cols=None, elim=False):
     if not 1 <= ns <= 6:
         raise ValueError(f"{name}: ns must be in [1, 6], got {ns}")
     if f.dim() != 2 or min(f.shape) < 3:
@@ -156,15 +160,23 @@ def _check(name, ns, f, rows=None):
         if rows.off % 2:
             raise ValueError(f"{name}: the row offset {rows.off} must be even (the y "
                              "interpolation's row parity)")
+    rowhooks.check_cols(name, cols, f.shape[1], elim=elim)
 
 
-def _down_cuda(name, u, f, h, c, alpha, ns, elim, rows=None):
+def _hooks(f, rows, cols):
+    """The kernels' (row_off, ny_g, own0, own1, col_off, nx_g, ownc0, ownc1)."""
+    ny, nx = f.shape
+    return ((Rows.whole(ny) if rows is None else rows).args()
+            + (Cols.whole(nx) if cols is None else cols).args())
+
+
+def _down_cuda(name, u, f, h, c, alpha, ns, elim, rows=None, cols=None):
     """The down leg on the card (csrc/vcycle_legs.cu), counted as ``name``."""
     c = as_scalar(c, f)
     kernels.require_cuda_f32(name, u, f, c)
     lib = kernels.lib()
     ny, nx = f.shape
-    hooks = (Rows.whole(ny) if rows is None else rows).args()
+    hooks = _hooks(f, rows, cols)
     h2, inv_h2 = float(h) * float(h), 1.0 / (float(h) * float(h))
     st = kernels.stream(f)
     bufs = (torch.empty_like(f), torch.empty_like(f))
@@ -179,7 +191,7 @@ def _down_cuda(name, u, f, h, c, alpha, ns, elim, rows=None):
         src = dst
     res = torch.empty_like(f)
     err = lib.fpr_residual(src.data_ptr(), f.data_ptr(), c.data_ptr(), h2, inv_h2,
-                           ny, nx, *hooks[:2], res.data_ptr(), st)
+                           ny, nx, *hooks[:2], *hooks[4:6], res.data_ptr(), st)
     kernels.check(err, "fpr_residual")
     kernels.launches[name] += 1
     return src, res
@@ -190,18 +202,19 @@ def _smooth_down_cuda(u, f, h, c, alpha=0.8, ns=2, elim=False):
     return _down_cuda("smooth_down", u, f, h, c, alpha, ns, elim)
 
 
-def _smooth2r_split_cuda(u, f, h, c, alpha=0.8, ns=2, elim=False, rows=None):
+def _smooth2r_split_cuda(u, f, h, c, alpha=0.8, ns=2, elim=False, rows=None, cols=None):
     """#6 on the card; see ``smooth2r_split``."""
-    return _down_cuda("smooth2r_split", u, f, h, c, alpha, ns, elim, rows)
+    return _down_cuda("smooth2r_split", u, f, h, c, alpha, ns, elim, rows, cols)
 
 
-def _up_cuda(name, u, f, corrx, h, c, alpha, ns, elim, with_norm, out, rows=None):
+def _up_cuda(name, u, f, corrx, h, c, alpha, ns, elim, with_norm, out, rows=None,
+             cols=None):
     """The up leg on the card (csrc/vcycle_legs.cu), counted as ``name``."""
     c = as_scalar(c, f)
     kernels.require_cuda_f32(name, u, f, corrx, c, out)
     lib = kernels.lib()
     ny, nx = f.shape
-    hooks = (Rows.whole(ny) if rows is None else rows).args()
+    hooks = _hooks(f, rows, cols)
     h2, inv_h2 = float(h) * float(h), 1.0 / (float(h) * float(h))
     st = kernels.stream(f)
     if out is None:
@@ -224,7 +237,7 @@ def _up_cuda(name, u, f, corrx, h, c, alpha, ns, elim, with_norm, out, rows=None
     kernels.launches[name] += 1
     if not with_norm:
         return out, None
-    n = partials.new_full((), float(nx * hooks[1]))
+    n = partials.new_full((), float(hooks[5] * hooks[1]))
     return out, torch.sqrt(partials.sum() / n)
 
 
@@ -235,9 +248,10 @@ def _corr_up_cuda(u, f, corrx, h, c, alpha=0.8, ns=2, elim=False,
 
 
 def _corr_smooth2_cuda(u, f, corrx, h, c, alpha=0.8, ns=2, elim=False,
-                       with_norm=False, out=None, rows=None):
+                       with_norm=False, out=None, rows=None, cols=None):
     """#7 on the card; see ``corr_smooth2`` and ``corr_smooth2_raw``."""
-    return _up_cuda("corr_smooth2", u, f, corrx, h, c, alpha, ns, elim, with_norm, out, rows)
+    return _up_cuda("corr_smooth2", u, f, corrx, h, c, alpha, ns, elim, with_norm, out, rows,
+                    cols)
 
 
 def smooth_down(u, f, h, c, alpha=0.8, ns=2, elim=False):
@@ -275,19 +289,20 @@ def corr_up(u, f, corrx, h, c, alpha=0.8, ns=2, elim=False, with_norm=False,
     return _corr_up_cuda(u, f, corrx, h, c, alpha, ns, elim, with_norm, out)
 
 
-def smooth2r_split(u, f, h, c, alpha=0.8, zero_u=False, ns=2, elim=False, rows=None):
-    """#6, the down leg of ``vcycle_rp`` and of the row-sharded V-cycle
+def smooth2r_split(u, f, h, c, alpha=0.8, zero_u=False, ns=2, elim=False, rows=None,
+                   cols=None):
+    """#6, the down leg of ``vcycle_rp`` and of the sharded V-cycles
     (pallas2d.smooth2r_split_rp).  u: the (ny, nx) iterate, never read with
-    zero_u (it may be None).  rows: the row hooks of a shard's local rows
-    (None: one device).  Returns (u', res) as ``smooth_down`` does;
-    ``transfer.restrict`` of res is the TPU's ``restrict_ps`` of its
-    parity-split residual.
+    zero_u (it may be None).  rows, cols: the row and column hooks of a
+    shard's local cells (None: one device).  Returns (u', res) as
+    ``smooth_down`` does; ``transfer.restrict`` of res is the TPU's
+    ``restrict_ps`` of its parity-split residual.
     """
-    _check("smooth2r_split", ns, f, rows)
+    _check("smooth2r_split", ns, f, rows, cols, elim)
     u = None if zero_u else u
     if f.device.type == "cpu":
-        return smooth_down_plain(u, f, h, c, alpha, ns, elim, rows)
-    return _smooth2r_split_cuda(u, f, h, c, alpha, ns, elim, rows)
+        return smooth_down_plain(u, f, h, c, alpha, ns, elim, rows, cols)
+    return _smooth2r_split_cuda(u, f, h, c, alpha, ns, elim, rows, cols)
 
 
 def corr_smooth2(u, f, corr, h, c, alpha=0.8, apply_bcs=False, with_norm=False, ns=2,
@@ -308,19 +323,22 @@ def corr_smooth2(u, f, corr, h, c, alpha=0.8, apply_bcs=False, with_norm=False, 
 
 
 def corr_smooth2_raw(u, f, corrx, h, c, alpha=0.8, with_norm=False, ns=2, elim=False,
-                     rows=None):
+                     rows=None, cols=None):
     """#7 on a prebuilt correction window (pallas2d.corr_smooth2_raw): u -
-    P(corrx), then ``ns`` sweeps, for the row-sharded V-cycle.
+    P(corrx), then ``ns`` sweeps, for the sharded V-cycles.
 
-    u, f: a shard's local (n, nx) rows; corrx: the (n//2 + 1, nx)
+    u, f: a shard's local (n, m) cells; corrx: the (n//2 + 1, m)
     x-interleaved coarse correction whose row k is global coarse row
     rows.off/2 + k (with the shard's coarse halo rows; zeros past the
-    global edge).  Returns (u', r_rms or None) in a new tensor, r_rms over
-    the owned rows' residual and the global ny*nx cells.
+    global edge) and whose column x is the fine column of u's column x.
+    Returns (u', r_rms or None) in a new tensor, r_rms over the owned
+    cells' residual and the global ny*nx cells.
     """
-    _check("corr_smooth2_raw", ns, f, rows)
+    _check("corr_smooth2_raw", ns, f, rows, cols, elim)
     if corrx.shape != (f.shape[0] // 2 + 1, f.shape[1]):
         raise ValueError(f"corrx {tuple(corrx.shape)} does not fit {tuple(f.shape)}")
     if f.device.type == "cpu":
-        return corr_up_plain(u, f, corrx, h, c, alpha, ns, elim, with_norm, rows=rows)
-    return _corr_smooth2_cuda(u, f, corrx, h, c, alpha, ns, elim, with_norm, rows=rows)
+        return corr_up_plain(u, f, corrx, h, c, alpha, ns, elim, with_norm, rows=rows,
+                             cols=cols)
+    return _corr_smooth2_cuda(u, f, corrx, h, c, alpha, ns, elim, with_norm, rows=rows,
+                              cols=cols)

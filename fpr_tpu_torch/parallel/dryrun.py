@@ -16,11 +16,11 @@ def dryrun_multichip(n_shards: int, device="cuda") -> None:
     """One step of each sharded workload on a virtual mesh of ``n_shards``
     shards on ``device``: (a) part 1's diffusion over a (z, y) mesh with the
     PALLAS tier (ghost refresh, the dual-time kernel with update boxes, the
-    summed norm); (b) ``mg_solve_ds_sharded`` at 1025^2 over row shards;
-    (c) one semi-implicit NS step over row shards (the rhs-mode operator
-    and three sharded ds solves, T under the BCs).  The JAX dry run's
-    2D-mesh multigrid part is not here: the port has no 2D-mesh ds solver
-    yet."""
+    summed norm); (b) ``mg_solve_ds_sharded`` at 1025^2 over row shards,
+    and for an even shard count above 2 ``mg_solve_ds_sharded_2d`` over an
+    (n/2, 2) (y, x) mesh; (c) one semi-implicit NS step over row shards
+    (the rhs-mode operator and three sharded ds solves, T under the
+    BCs)."""
     from fpr_tpu_torch.core import bc
     from fpr_tpu_torch.core.config import (CoarseSolver, DiffusionConfig, ExecutionPolicy,
                                            MGConfig, NSConfig)
@@ -60,6 +60,16 @@ def dryrun_multichip(n_shards: int, device="cuda") -> None:
         raise RuntimeError(f"dryrun mg_solve_ds_sharded: r_rms {float(r_rms):.3e}")
     print(f"dryrun_multichip: mg_solve_ds_sharded {n}^2 over {n_shards} row shards, "
           f"{iters} outer iterations, r_rms={float(r_rms):.3e}")
+    if n_shards % 2 == 0 and n_shards > 2:
+        mesh2 = make_mesh((n_shards // 2, 2), ("y", "x"), device=device)
+        (hi2, _), r2, it2 = dist_mg_ds.mg_solve_ds_sharded_2d(
+            b, h, 0.0, 1e-3, 10, mesh2,
+            cfg=MGConfig(coarse_size=129, coarse_solver=CoarseSolver.DST), replicate_below=513)
+        if not torch.isfinite(hi2).all() or not float(r2) < 1e-3 * float(
+                torch.sqrt(torch.mean(b * b))):
+            raise RuntimeError(f"dryrun mg_solve_ds_sharded_2d: r_rms {float(r2):.3e}")
+        print(f"dryrun_multichip: mg_solve_ds_sharded_2d {n}^2 over a {n_shards // 2}x2 "
+              f"(y, x) mesh, {it2} outer iterations, r_rms={float(r2):.3e}")
 
     ns_cfg = NSConfig(nx=129, ny=65, ttot=0.1, beta=0.5, Pr=0.01, tol=1e-7, niters=50)
     out = dist_ns.simulate_fast_sharded(ns_cfg, mg_mesh, max_steps=1, replicate_below=33)

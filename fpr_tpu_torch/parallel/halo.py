@@ -1,6 +1,7 @@
 """Halo exchange between the shards of a mesh (fpr_tpu/parallel/halo.py:
 exchange_faces, refresh_ghosts_ext, mask_bounds, refresh_ghosts_zk, and
-fpr_tpu/solvers/dist_mg_ds.py::_refresh as ``refresh_rows``).
+fpr_tpu/solvers/dist_mg_ds.py: _refresh, _refresh_x and _refresh2d as
+``refresh_rows``, ``refresh_cols`` and ``refresh_2d``).
 
 Each function takes the list of per-shard tensors of one field, in the
 mesh's shard order.  A JAX ``ppermute`` of a face becomes a copy of the
@@ -105,3 +106,27 @@ def refresh_rows(blocks, mesh, axis: str, ny_l: int, G: int) -> None:
         _put(b[..., 0:G, :], None if up is None else blocks[up][..., ny_l:ny_l + G, :])
         _put(b[..., G + ny_l:2 * G + ny_l, :],
              None if dn is None else blocks[dn][..., G:2 * G, :])
+
+
+def refresh_cols(blocks, mesh, axis: str, nx_l: int, GX: int) -> None:
+    """Refresh the GX ghost columns on each side of column-sharded blocks
+    (..., GX + nx_l + GX), columns at dim -1, over every row
+    (dist_mg_ds._refresh_x with GX for CPAD): the left slot takes the left
+    neighbour's last GX owned columns, the right slot the right neighbour's
+    first GX.  Each face is a strided slab, copied by one ``copy_``."""
+    for i, b in enumerate(blocks):
+        lf, rt = mesh.neighbor(i, axis, -1), mesh.neighbor(i, axis, +1)
+        _put(b[..., 0:GX], None if lf is None else blocks[lf][..., nx_l:nx_l + GX])
+        _put(b[..., GX + nx_l:2 * GX + nx_l],
+             None if rt is None else blocks[rt][..., GX:2 * GX])
+
+
+def refresh_2d(blocks, mesh, axes, ny_l: int, nx_l: int, G: int, GX: int) -> None:
+    """Refresh the ghost ring of 2D-sharded blocks (..., G + ny_l + G,
+    GX + nx_l + GX) over the mesh axes (ay, ax) (dist_mg_ds._refresh2d):
+    columns first, then full-width rows, so that the row faces carry the
+    y-neighbour's fresh ghost columns and the corner ghosts hold the
+    diagonal neighbour's cells.  Global edges get zeros."""
+    ay, ax = axes
+    refresh_cols(blocks, mesh, ax, nx_l, GX)
+    refresh_rows(blocks, mesh, ay, ny_l, G)

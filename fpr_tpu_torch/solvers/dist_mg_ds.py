@@ -1,6 +1,7 @@
-"""The double-single defect-correction multigrid over row shards
-(fpr_tpu/solvers/dist_mg_ds.py: ShardPlan, plan_shards, _refresh,
-_vcycle_dist, mg_solve_ds_sharded; the 1D row mesh).
+"""The double-single defect-correction multigrid over row shards and over a
+2D (y, x) mesh (fpr_tpu/solvers/dist_mg_ds.py: ShardPlan, plan_shards,
+_refresh, _vcycle_dist, mg_solve_ds_sharded; ShardPlan2D, plan_shards_2d,
+_refresh2d, _vcycle_dist_2d, mg_solve_ds_sharded_2d).
 
 Rows are decomposed.  Each shard owns ``ny_l`` contiguous global rows at
 the fine level, ``ny_l`` a multiple of ``16 * 2**(s-1)`` so that each of
@@ -29,6 +30,22 @@ every device; the numbers are the same.  The outer loop is K1
 (``defect_pass``) with the row hooks and the sums of the shards added in
 shard order.  As in ``solvers.multigrid``, the JAX on-device loops are
 host loops that read one scalar per test.
+
+The 2D mesh shards the columns as well: each shard owns ``nx_l`` columns,
+``nx_l`` and the levels that may be column-sharded planned exactly as JAX
+plans them (``CPAD``-column alignment, at least 2 CPAD columns a column
+shard at every sharded level), so both packages shard the same levels.
+The local layout is the port's own, (G + ny_l + G, GX + nx_l + GX) with
+GX = 8 ghost columns in physical columns: JAX's 128-lane ghost slabs are
+the TPU's lane tile, and 8 ghost columns feed ns <= 6 sweeps as 8 ghost
+rows do.  Every kernel takes the row and column hooks; one refresh
+(``halo.refresh_2d``: columns, then full-width rows, so the corners hold
+the diagonal neighbour's cells) per array per leg.  Restriction takes the
+even owned rows and columns (both offsets are even at every level); below
+the deepest sharded level the correction window takes G/2 coarse halo rows
+and GX/2 coarse halo columns plus the interpolation midpoint (JAX's GC =
+4).  The coarse subtree is gathered, columns then rows, and runs once on
+shard 0's device; the 2D tier takes no apply_bcs, as in JAX.
 """
 
 from __future__ import annotations
@@ -41,12 +58,14 @@ from fpr_tpu_torch.core.config import ExecutionPolicy, MGConfig, Smoother
 from fpr_tpu_torch.core.grid import mg_levels
 from fpr_tpu_torch.ops import ds as dsm
 from fpr_tpu_torch.ops import reductions, stencil2d, transfer
-from fpr_tpu_torch.ops.rows import Rows
+from fpr_tpu_torch.ops.rows import Cols, Rows
 from fpr_tpu_torch.ops.vcycle_legs import corr_smooth2_raw, smooth2r_split
-from fpr_tpu_torch.parallel.halo import refresh_rows
+from fpr_tpu_torch.parallel.halo import refresh_2d, refresh_rows
 from fpr_tpu_torch.solvers.multigrid import _auto_inner_cycles, _warn_unconverged, vcycle
 
 G = 8  # ghost rows on each side of a shard: one exchange feeds up to G-2 sweeps
+GX = 8  # ghost columns on each side of a 2D-mesh shard, likewise
+CPAD = 128  # JAX's column-shard alignment (the TPU lane tile): the 2D plans match it
 
 
 @dataclasses.dataclass(frozen=True)
@@ -291,4 +310,240 @@ def mg_solve_ds_sharded(f, h: float, c, tol: float, niters: int, mesh, axis: str
     if not gather_result:
         return u_ds, r_rms, it
     u = gather_rows(u_ds, plan)
+    return (u[0], u[1]), r_rms, it
+
+
+# ---------------------------------------------------------------------------
+# the 2D (y, x) mesh
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardPlan2D:
+    ny: int
+    nx: int
+    ndev_y: int
+    ndev_x: int
+    s: int                    # sharded levels (>= 1)
+    ny_l: int                 # local rows at the fine level
+    nx_l: int                 # local columns at the fine level
+
+    def level(self, m: int):
+        """(ny_l_m, nx_l_m, ny_g_m, nx_g_m) of sharded level m."""
+        return (self.ny_l >> m, self.nx_l >> m, ((self.ny - 1) >> m) + 1,
+                ((self.nx - 1) >> m) + 1)
+
+    def hooks(self, m: int, dy: int, dx: int) -> dict:
+        """The row and column hooks of shard (dy, dx)'s local tensor at
+        level m."""
+        ny_lm, nx_lm, ny_gm, nx_gm = self.level(m)
+        return dict(rows=Rows(dy * ny_lm - G, ny_gm, (G, G + ny_lm)),
+                    cols=Cols(dx * nx_lm - GX, nx_gm, (GX, GX + nx_lm)))
+
+
+def plan_shards_2d(ny: int, nx: int, ndev_y: int, ndev_x: int, cfg: MGConfig,
+                   replicate_below: int = 1025) -> ShardPlan2D:
+    """The levels to shard (at least ``replicate_below`` rows, at least
+    ``max(replicate_below, 2 CPAD ndev_x)`` columns, all but the coarsest)
+    and the local sizes (dist_mg_ds.plan_shards_2d)."""
+    levels = mg_levels(nx, ny, cfg.coarse_size)
+    s = 0
+    for m, (nxm, nym) in enumerate(levels):
+        if (nym >= replicate_below and nxm >= max(replicate_below, 2 * CPAD * ndev_x)
+                and m < len(levels) - 1):
+            s += 1
+        else:
+            break
+    if s < 1:
+        raise ValueError(
+            f"grid {ny}x{nx} too small to 2D-shard over {ndev_y}x{ndev_x} "
+            f"(replicate_below={replicate_below}, column shards need "
+            f">= {2 * CPAD} cols each at every sharded level); use the "
+            "1D row solver or fewer column shards")
+    align_y = 16 * (1 << (s - 1))
+    ny_l = -(-ny // (ndev_y * align_y)) * align_y
+    align_x = CPAD * (1 << (s - 1))
+    nx_l = -(-nx // (ndev_x * align_x)) * align_x
+    return ShardPlan2D(ny=ny, nx=nx, ndev_y=ndev_y, ndev_x=ndev_x, s=s, ny_l=ny_l, nx_l=nx_l)
+
+
+def _yx(mesh, axes, i: int):
+    """Shard i's (dy, dx) on the mesh axes (ay, ax)."""
+    cc = mesh.coords(i)
+    return cc[axes[0]], cc[axes[1]]
+
+
+def _pack_2d(phys: torch.Tensor) -> torch.Tensor:
+    """Physical local cells (..., ny_l, nx_l) -> (..., G + ny_l + G, GX + nx_l + GX),
+    zero ghosts."""
+    return torch.nn.functional.pad(phys, (GX, GX, G, G))
+
+
+def shard_2d(a: torch.Tensor, plan: ShardPlan2D, mesh, axes=("y", "x")) -> list:
+    """A global (..., ny, nx) field as per-shard local tensors (..., G + ny_l
+    + G, GX + nx_l + GX), zero ghost and dead cells, each on its shard's
+    device."""
+    ap = torch.nn.functional.pad(a, (0, plan.ndev_x * plan.nx_l - plan.nx,
+                                     0, plan.ndev_y * plan.ny_l - plan.ny))
+    out = []
+    for i in range(mesh.size):
+        dy, dx = _yx(mesh, axes, i)
+        blk = ap[..., dy * plan.ny_l:(dy + 1) * plan.ny_l, dx * plan.nx_l:(dx + 1) * plan.nx_l]
+        out.append(_pack_2d(blk).to(mesh.devices[i]).contiguous())
+    return out
+
+
+def _assemble(parts, mesh, axes, ndev_y, ndev_x, device):
+    """Per-shard (..., a, b) tiles as one (..., ndev_y a, ndev_x b) tensor on
+    device: each y-row of shards joined along the columns, then the rows."""
+    tile = {_yx(mesh, axes, i): p for i, p in enumerate(parts)}
+    return torch.cat([torch.cat([tile[(dy, dx)].to(device) for dx in range(ndev_x)], dim=-1)
+                      for dy in range(ndev_y)], dim=-2)
+
+
+def gather_2d(blocks, plan: ShardPlan2D, mesh, axes=("y", "x"), device=None) -> torch.Tensor:
+    """The owned cells of per-shard local tensors as the global (..., ny,
+    nx) field, on ``device`` (default shard 0's)."""
+    device = blocks[0].device if device is None else device
+    owned = [b[..., G:G + plan.ny_l, GX:GX + plan.nx_l] for b in blocks]
+    return _assemble(owned, mesh, axes, plan.ndev_y, plan.ndev_x,
+                     device)[..., :plan.ny, :plan.nx]
+
+
+def _interleave_cols(ext: torch.Tensor) -> torch.Tensor:
+    """The x interpolation of a window of coarse cells in mid-grid, without
+    any boundary zeroing, dropping the last coarse column: (rows, n) ->
+    (rows, 2 (n - 1)) (dist_mg_ds.py:569-573)."""
+    rows, n = ext.shape
+    out = ext.new_empty((rows, 2 * (n - 1)))
+    out[:, 0::2] = ext[:, :-1]
+    out[:, 1::2] = (ext[:, :-1] + ext[:, 1:]) * 0.5
+    return out
+
+
+def _vcycle_dist_2d(e, r, plan: ShardPlan2D, h: float, c, tol: float, cfg: MGConfig, mesh,
+                    axes, assume_zero_u: bool):
+    """One V-cycle on the 2D shards' level-0 local tensors
+    (dist_mg_ds._vcycle_dist_2d).  e, r: per-shard corrections and
+    right-hand sides; with assume_zero_u e is never read.  Returns the
+    per-shard new corrections (their ghost cells stale)."""
+    alpha = cfg.jacobi_damping
+    if cfg.smoother is not Smoother.JACOBI or not (1 <= cfg.pre_smooth <= G - 2
+                                                   and 1 <= cfg.post_smooth <= G - 2):
+        raise ValueError("the sharded V-cycle runs the Jacobi smoother with 1-6 sweeps a "
+                         "leg (one 8-cell halo exchange per leg)")
+    yx = [_yx(mesh, axes, i) for i in range(mesh.size)]
+    down = []
+    u, f = e, r
+    zero_u = assume_zero_u
+    for m in range(plan.s):
+        ny_lm, nx_lm, _, _ = plan.level(m)
+        h_m = h * (2.0 ** m)
+        refresh_2d(f, mesh, axes, ny_lm, nx_lm, G, GX)
+        if not zero_u:
+            refresh_2d(u, mesh, axes, ny_lm, nx_lm, G, GX)
+        legs = [smooth2r_split(None if zero_u else u[i], f[i], h_m, c, alpha, zero_u=zero_u,
+                               ns=cfg.pre_smooth, **plan.hooks(m, dy, dx))
+                for i, (dy, dx) in enumerate(yx)]
+        u = [leg[0] for leg in legs]
+        down.append((u, f))
+        # injection: the even owned rows and columns (even offsets: local
+        # parity is global parity); the kernels zeroed the global boundary
+        # and the dead cells
+        res_c = [leg[1][G:G + ny_lm:2, GX:GX + nx_lm:2] for leg in legs]
+        if m + 1 < plan.s:
+            f = [_pack_2d(rc) for rc in res_c]
+            u, zero_u = None, True
+        else:
+            # the replicated coarse subtree, once, on shard 0's device
+            dev0 = mesh.devices[0]
+            ny_gs, nx_gs = ((plan.ny - 1) >> (m + 1)) + 1, ((plan.nx - 1) >> (m + 1)) + 1
+            res_glob = _assemble(res_c, mesh, axes, plan.ndev_y, plan.ndev_x,
+                                 dev0)[:ny_gs, :nx_gs]
+            sub_cfg = dataclasses.replace(cfg, policy=ExecutionPolicy.JNP)
+            corr_glob, _ = vcycle(torch.zeros_like(res_glob), res_glob, h_m * 2.0, c, tol,
+                                  sub_cfg)
+
+    corr_next = None
+    for m in reversed(range(plan.s)):
+        u, f = down[m]
+        ny_lm, nx_lm, _, _ = plan.level(m)
+        h_m = h * (2.0 ** m)
+        nyc_l, nxc_l = ny_lm // 2, nx_lm // 2
+        span = G + nyc_l + 1  # coarse rows of a window: the local rows' // 2 + 1
+        if m == plan.s - 1:
+            # every shard slices its window, G/2 coarse halo rows and GX fine
+            # halo columns each side, out of the replicated x-interleaved
+            # correction
+            corrx_g = transfer.x_interleave_coarse(corr_glob)
+            nyc_g, nx_gm = corrx_g.shape
+            padded = torch.nn.functional.pad(
+                corrx_g, (GX, plan.ndev_x * nx_lm + GX - nx_gm,
+                          G // 2, plan.ndev_y * nyc_l + G + 1 - G // 2 - nyc_g))
+            corrx = [padded[dy * nyc_l:dy * nyc_l + span,
+                            dx * nx_lm:dx * nx_lm + nx_lm + 2 * GX].to(mesh.devices[i])
+                     .contiguous() for i, (dy, dx) in enumerate(yx)]
+        else:
+            # G/2 coarse halo rows and GX/2 coarse halo columns (+1 for the
+            # interpolation midpoint) of the refreshed coarse correction
+            refresh_2d(corr_next, mesh, axes, nyc_l, nxc_l, G, GX)
+            corrx = [_interleave_cols(cn[G // 2:G // 2 + span, GX // 2:GX // 2 + nxc_l + GX + 1])
+                     for cn in corr_next]
+        refresh_2d(u, mesh, axes, ny_lm, nx_lm, G, GX)
+        u = [corr_smooth2_raw(u[i], f[i], corrx[i], h_m, c, alpha, ns=cfg.post_smooth,
+                              **plan.hooks(m, dy, dx))[0]
+             for i, (dy, dx) in enumerate(yx)]
+        corr_next = u
+    return u
+
+
+def mg_solve_ds_sharded_2d(f, h: float, c, tol: float, niters: int, mesh, axes=("y", "x"),
+                           cfg: MGConfig = MGConfig(), inner_cycles: int | None = None,
+                           replicate_below: int = 1025, gather_result: bool = True):
+    """The double-single defect-correction MG over a 2D (y, x) mesh, zero
+    initial guess (dist_mg_ds.mg_solve_ds_sharded_2d).
+
+    f: the global (ny, nx) float32 rhs (a zero boundary ring).  c: the
+    Helmholtz shift, taken as a float32 device scalar.  No apply_bcs, as in
+    JAX (the NS tiers shard rows only).  Returns ((hi, lo), r_rms,
+    outer_iterations), hi/lo global on shard 0's device, or with
+    gather_result=False the per-shard (2, G + ny_l + G, GX + nx_l + GX)
+    local pairs in place of (hi, lo).
+    """
+    ay, ax = axes
+    f = torch.as_tensor(f).to(mesh.devices[0])
+    if f.dtype != torch.float32:
+        raise ValueError("sharded ds solver takes an exactly-f32 rhs")
+    ny, nx = f.shape
+    if inner_cycles is None:
+        inner_cycles = _auto_inner_cycles(ny, nx, cfg)
+    plan = plan_shards_2d(ny, nx, mesh.shape[ay], mesh.shape[ax], cfg, replicate_below)
+    c = torch.as_tensor(c, dtype=torch.float32, device=mesh.devices[0])
+    f_rms = stencil2d.rms(f)
+    tolf = tol * f_rms
+    f_l = shard_2d(f, plan, mesh, axes)
+    C = [dsm.defect_scalars(c, h, b.device) for b in f_l]
+    hooks = [plan.hooks(0, *_yx(mesh, axes, i)) for i in range(mesh.size)]
+    n_cells = tolf.new_full((), float(nx * ny))
+    u_ds = [torch.zeros((2,) + tuple(b.shape), dtype=torch.float32, device=b.device)
+            for b in f_l]
+    r32, r_rms = [-b for b in f_l], f_rms
+    it = 0
+    while it < niters and bool(r_rms >= tolf):
+        e = None
+        for cyc in range(inner_cycles):
+            e = _vcycle_dist_2d(e, r32, plan, h, c, tol, cfg, mesh, axes,
+                                assume_zero_u=(cyc == 0))
+        refresh_2d(u_ds, mesh, axes, plan.ny_l, plan.nx_l, G, GX)
+        refresh_2d(e, mesh, axes, plan.ny_l, plan.nx_l, G, GX)
+        outs = [dsm.defect_pass(u_ds[i], f_l[i][None], e[i], 1.0, h, c, C=C[i],
+                                raw_sumsq=True, **hooks[i])
+                for i in range(mesh.size)]
+        r_rms = torch.sqrt(reductions.dist_sumsq([o[2] for o in outs]) / n_cells)
+        u_ds, r32 = [o[0] for o in outs], [o[1] for o in outs]
+        it += 1
+    _warn_unconverged("mg_solve_ds_sharded_2d", r_rms, tolf, it, niters)
+    if not gather_result:
+        return u_ds, r_rms, it
+    u = gather_2d(u_ds, plan, mesh, axes)
     return (u[0], u[1]), r_rms, it

@@ -11,9 +11,12 @@ K=3 iterations at 512^3 float32, 2000 calls at 128^3 float32 and 2000 at
 sharded tiers on a virtual mesh of shards on the one card: one physical
 diffusion step at 512^3 on 4 z-shards (K=3, 300 iterations) and at 128^3
 on 2x2x2 shards (to convergence), one ``mg_solve_ds_sharded`` at 4097^2
-on 4 row shards, and 20 explicit and 8 semi-implicit steps of
-``simulate_fast_sharded`` at 2049x513 on 4 row shards; each window after a
-warm-up run.  It prints per window the wall time, the summed device time
+on 4 row shards, one ``mg_solve_ds_sharded_2d`` at 4097^2 on a 2x2 (y, x)
+mesh, 20 explicit and 8 semi-implicit steps of ``simulate_fast_sharded``
+at 2049x513 on 4 row shards, one ``mg_solve_sharded`` (the GSPMD tier) at
+2049^2 float64 on 4 row shards, and 3 steps of the host loop's
+``simulate(mesh=)`` at 2049x513 float64 on 4 row shards; each window
+after a warm-up run.  It prints per window the wall time, the summed device time
 (kernels and memory copies), the device busy share, the device time of the
 copy kernels (the halo exchange's face copies, and casts), the kernel
 launch counts of the port's CUDA wrappers, and the top device kernels and
@@ -43,7 +46,9 @@ from fpr_tpu_torch.models.dist_ns import simulate_fast_sharded  # noqa: E402
 from fpr_tpu_torch.models.navier_stokes import simulate, simulate_fast  # noqa: E402
 from fpr_tpu_torch.parallel import dist_diffusion  # noqa: E402
 from fpr_tpu_torch.parallel.mesh import make_mesh  # noqa: E402
-from fpr_tpu_torch.solvers.dist_mg_ds import mg_solve_ds_sharded  # noqa: E402
+from fpr_tpu_torch.solvers.dist_mg_ds import (mg_solve_ds_sharded,  # noqa: E402
+                                               mg_solve_ds_sharded_2d)
+from fpr_tpu_torch.solvers.dist_multigrid import mg_solve_sharded  # noqa: E402
 from fpr_tpu_torch.solvers.multigrid import mg_solve_ds, mg_solve_mixed  # noqa: E402
 
 
@@ -146,11 +151,23 @@ def sharded_windows(b):
                    post_smooth=5)
     window("dist MG 4097^2 on 4 row shards",
            lambda: mg_solve_ds_sharded(b, 1.0 / (n - 1), 0.0, 1e-6, 30, y4, cfg=cfg))
+    window("dist MG 4097^2 on a 2x2 (y, x) mesh",
+           lambda: mg_solve_ds_sharded_2d(b, 1.0 / (n - 1), 0.0, 1e-6, 30,
+                                          make_mesh((2, 2), ("y", "x")), cfg=cfg))
     ns_kw = dict(nx=2049, ny=513, ttot=0.005, Pr=0.01, tol=1e-7, niters=50)
     window("dist NS explicit on 4 row shards, 20 steps",
            lambda: simulate_fast_sharded(NSConfig(beta=0.0, **ns_kw), y4, max_steps=20))
     window("dist NS semi on 4 row shards, 8 steps",
            lambda: simulate_fast_sharded(NSConfig(beta=0.5, **ns_kw), y4, max_steps=8))
+    m = 2049
+    b64 = b[:m, :m].double().clone()
+    b64[-1] = 0.0
+    b64[:, -1] = 0.0
+    window("GSPMD mg_solve 2049^2 float64 on 4 row shards",
+           lambda: mg_solve_sharded(torch.zeros_like(b64), b64, 1.0 / (m - 1), 0.0, 1e-6, 30, y4))
+    host = NSConfig(beta=0.5, mg_solver="direct", **dict(ns_kw, ttot=1.0))
+    window("GSPMD simulate(mesh=) direct float64 beta=0.5 on 4 row shards, 3 steps",
+           lambda: simulate(host, seed=0, max_steps=3, mesh=y4))
 
 
 if __name__ == "__main__":

@@ -118,7 +118,8 @@ def test_snapshots():
 def test_dryrun_multichip_cpu(capsys):
     dryrun_multichip(4, device="cpu")
     out = capsys.readouterr().out
-    assert out.count("dryrun_multichip:") == 3 and "2x2 z-y mesh" in out
+    assert out.count("dryrun_multichip:") == 4 and "2x2 z-y mesh" in out
+    assert "mg_solve_ds_sharded_2d 1025^2 over a 2x2 (y, x) mesh" in out
 
 
 def test_cli_devices(capsys):

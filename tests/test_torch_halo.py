@@ -92,6 +92,57 @@ def test_refresh_rows_matches_jax(rng, lead):
         np.testing.assert_array_equal(mine[k].numpy(), got_j[k].reshape(mine[k].shape))
 
 
+@pytest.mark.parametrize("lead", [(), (2,)])
+def test_refresh_2d_matches_jax(rng, lead):
+    """A 2x2 (y, x) mesh at JAX's own ghost widths (8 rows, CPAD columns):
+    refresh_2d equals dist_mg_ds._refresh2d in shard_map bitwise."""
+    PAD, CPAD, ny_l, nx_l = jdist.PAD, jdist.CPAD, 16, 128
+    R, C = ny_l + 2 * PAD, nx_l + 2 * CPAD
+    blocks = rng.random((2, 2, *lead, R, C))
+    nl = len(lead)
+    perm = (*range(2, 2 + nl), 0, 2 + nl, 1, 3 + nl)
+    glob = blocks.transpose(perm).reshape(*lead, 2 * R, 2 * C)
+    spec = P(*([None] * nl), "y", "x")
+    out = jax.jit(shard_map(lambda x: jdist._refresh2d(x, ny_l, nx_l, "y", "x"),
+                            mesh=jmesh((2, 2), ("y", "x")), in_specs=(spec,),
+                            out_specs=spec))(jnp.asarray(glob))
+    got_j = np.asarray(out).reshape(*lead, 2, R, 2, C)
+    mine = [torch.tensor(blocks[dy, dx]) for dy in range(2) for dx in range(2)]
+    halo.refresh_2d(mine, make_mesh((2, 2), ("y", "x"), device="cpu"), ("y", "x"), ny_l,
+                    nx_l, PAD, CPAD)
+    for i, (dy, dx) in enumerate([(0, 0), (0, 1), (1, 0), (1, 1)]):
+        np.testing.assert_array_equal(mine[i].numpy(), got_j[..., dy, :, dx, :])
+
+
+def test_refresh_2d_fills_corners_from_the_diagonal_neighbour():
+    """Columns first, then full-width rows: the corner ghosts of a 3x3 mesh's
+    middle shard hold its diagonal neighbours' cells, and a corner shard's
+    ghosts past the global edge are zeros."""
+    G, GX, ny_l, nx_l = 2, 3, 4, 5
+    R, C = ny_l + 2 * G, nx_l + 2 * GX
+    mesh = make_mesh((3, 3), ("y", "x"), device="cpu")
+    glob = torch.arange(3 * ny_l * 3 * nx_l, dtype=torch.float64).reshape(3 * ny_l, 3 * nx_l)
+    glob += 1.0  # no global cell is 0
+    blocks = []
+    for i in range(9):
+        cc = mesh.coords(i)
+        b = torch.full((R, C), -1.0, dtype=torch.float64)
+        b[G:G + ny_l, GX:GX + nx_l] = glob[cc["y"] * ny_l:(cc["y"] + 1) * ny_l,
+                                           cc["x"] * nx_l:(cc["x"] + 1) * nx_l]
+        blocks.append(b)
+    halo.refresh_2d(blocks, mesh, ("y", "x"), ny_l, nx_l, G, GX)
+    padded = torch.nn.functional.pad(glob, (GX, GX, G, G))
+    for i in range(9):
+        cc = mesh.coords(i)
+        want = padded[cc["y"] * ny_l:cc["y"] * ny_l + R, cc["x"] * nx_l:cc["x"] * nx_l + C]
+        torch.testing.assert_close(blocks[i], want, rtol=0, atol=0)
+    mid = blocks[4]
+    assert float(mid[0, 0]) == float(glob[ny_l - G, nx_l - GX])           # up-left shard
+    assert float(mid[-1, -1]) == float(glob[2 * ny_l + G - 1, 2 * nx_l + GX - 1])
+    assert not blocks[0][:G].any() and not blocks[0][:, :GX].any()
+    assert not blocks[8][-G:].any() and not blocks[8][:, -GX:].any()
+
+
 def test_refresh_ghosts_ext_matches_jax(rng):
     """A 2x2x2 mesh: each sharded dim's ghost faces from the neighbours,
     zeros at the global edges, ghost edges and corners untouched (zero)."""

@@ -119,3 +119,79 @@ def test_rejects_bad_modes(rng):
     with pytest.raises(ValueError):
         ns_fused.ns_fused_rp(TW, torch.zeros((9, 9)), dt, 0.125, 1.0, 1.0,
                              with_defect=True)
+
+
+def _helm_inputs(rng):
+    """test_pallas_ns.py:154-208's inputs: 65x257, beta 0.5, dt 1e-4."""
+    ny, nx = 65, 257
+    T, W, S = (rng.standard_normal((ny, nx)).astype(np.float32) for _ in range(3))
+    dt = np.float32(1e-4)
+    cT = np.float32(1.0) / (np.float32(0.5) * dt)
+    return ny, nx, T, W, S, dt, cT, np.float32(cT / np.float32(0.01))
+
+
+def _port_helm(T, W, S, dt, cT, cW, h, **kw):
+    return ns_fused.ns_fused_rp(torch.tensor(np.stack([T, W])), torch.tensor(S),
+                                torch.tensor(dt), h, 0.01, 1e6, mode="rhs", beta=0.5,
+                                cT=torch.tensor(cT), cW=torch.tensor(cW), **kw)
+
+
+def test_helm_defect_matches_jax(rng):
+    """with_helm_defect against fpr_tpu's in interpret mode.  XLA:CPU
+    contracts the rhs pass's a*b+c into FMAs (see the top of this file), so
+    the rhs is held to 16 ulps and its sums to 1e-5; the two warm-start
+    defects, which are ds arithmetic, equal fpr_tpu's defect pass on the
+    same rhs bitwise (that pass equals fpr_tpu's with_helm_defect bitwise,
+    tests/test_pallas_ns.py:154-208), and their rms values agree with
+    fpr_tpu's with_helm_defect within 1e-5."""
+    from fpr_tpu.ops import ds as jds
+
+    ny, nx, T, W, S, dt, cT, cW = _helm_inputs(rng)
+    h = 1.0 / (ny - 1)
+    br = pallas2d._pick_br(ny, nx, 4)
+    pad = lambda a: pallas2d.pad2d(jnp.asarray(a), br)  # noqa: E731
+    unp = lambda a: np.asarray(pallas2d.unpad2d(a, ny, nx))  # noqa: E731
+    out_j, ss_j, (_, rTr_j), (_, rWr_j) = pallas_ns.ns_fused_rp(
+        jnp.stack([pad(T), pad(W)]), pad(S), jnp.float32(dt), ny, nx, br, h, 0.01, 1e6,
+        mode="rhs", beta=0.5, cT=jnp.float32(cT), cW=jnp.float32(cW), with_helm_defect=True)
+    out, ss, (rT, rTr), (rW, rWr) = _port_helm(T, W, S, dt, cT, cW, h, with_helm_defect=True)
+    for i in range(2):
+        g, w = out[i].numpy(), unp(out_j[i])
+        assert np.abs(g - w).max() <= 16 * EPS32 * np.abs(w).max(), i
+    _close_sums(ss, ss_j)
+    _close_sums((rTr, rWr), (rTr_j, rWr_j))
+    zeros = jnp.zeros_like(pad(T))
+    for X, r, c, plane, bcs in ((T, rT, cT, 0, True), (W, rW, cW, 1, False)):
+        _, r_j, _ = jds.defect_pass(jnp.stack([pad(X), zeros]), pad(out[plane].numpy())[None],
+                                    zeros, 0.0, ny, nx, br, h, jnp.float32(c), apply_bcs=bcs)
+        np.testing.assert_array_equal(r.numpy(), unp(r_j))
+
+
+def test_helm_defect_equals_rhs_and_two_defect_passes(rng):
+    """The contract of test_pallas_ns.py:154-208 on the port: the rhs pass
+    plus ds.defect_pass on (T, 0) with the BCs and on (W, 0), bitwise."""
+    from fpr_tpu_torch.ops import ds
+
+    ny, nx, T, W, S, dt, cT, cW = _helm_inputs(rng)
+    h = 1.0 / (ny - 1)
+    rhs, (tss, wss) = _port_helm(T, W, S, dt, cT, cW, h, with_sumsq=True)
+    zeros = torch.zeros((ny, nx))
+    _, rT_ref, rTr_ref = ds.defect_pass(torch.stack([torch.tensor(T), zeros]), rhs[0:1], None,
+                                        0.0, h, torch.tensor(cT), apply_bcs=True)
+    _, rW_ref, rWr_ref = ds.defect_pass(torch.stack([torch.tensor(W), zeros]), rhs[1:2], None,
+                                        0.0, h, torch.tensor(cW))
+    out, ss, (rT, rTr), (rW, rWr) = _port_helm(T, W, S, dt, cT, cW, h, with_helm_defect=True)
+    torch.testing.assert_close(out, rhs, rtol=0, atol=0)
+    torch.testing.assert_close(rT, rT_ref, rtol=0, atol=0)
+    torch.testing.assert_close(rW, rW_ref, rtol=0, atol=0)
+    assert (float(ss[0]), float(ss[1])) == (float(tss), float(wss))
+    assert (float(rTr), float(rWr)) == (float(rTr_ref), float(rWr_ref))
+
+
+def test_helm_defect_rejects_explicit_and_with_defect(rng):
+    TW, S, dt = torch.zeros((2, 9, 9)), torch.zeros((2, 9, 9)), torch.tensor(1.0)
+    with pytest.raises(ValueError, match="rhs-only"):
+        ns_fused.ns_fused_rp(TW, S[0], dt, 0.125, 1.0, 1.0, with_helm_defect=True)
+    with pytest.raises(ValueError, match="explicit-only"):
+        ns_fused.ns_fused_rp(TW, S, dt, 0.125, 1.0, 1.0, mode="rhs", cT=dt, cW=dt,
+                             with_defect=True, with_helm_defect=True)
