@@ -13,8 +13,10 @@ Phases, in order; the first failure stops the run with a non-zero exit:
    relative 1e-5 (a different summation order), maxima equal; times of a
    wrapper call from CUDA events over 20 calls after a warm-up, and the
    device time of its CUDA kernels from torch.profiler.  Part 1's kernels
-   (dual_time K=1 and K=3 at 512^3, ds3d at 128^3, all three at a ragged
-   67x45x130) run here too.
+   run here too: dual_time at 512^3 and at a ragged 67x45x130, the fused
+   K-sweep kernel (dual_timek, #10) at 512^3 K=3 and at the ragged shape
+   for K = 1..5 (K = 5 as two passes), with its input unwritten, and ds3d
+   at 128^3 and the ragged shape.
 4. the MG row: ``mg_solve_ds`` at 4097^2, DST coarse 513, V(5,5), tol 1e-6,
    with a true float64 residual checked on the card.
 5. NS explicit at 2049x513, Pr=0.01, tol 1e-7, ttot 0.005 (the main path):
@@ -26,8 +28,10 @@ Phases, in order; the first failure stops the run with a non-zero exit:
    capped at 300 iterations; then 30 iterations per step through the
    kernels and through the plain versions: equal counts, bitwise fields.
 8. diffusion 128^3 float32, ttot 2, tol 1e-6, converged with check_every
-   1 (the dual_time kernel) and 3: the probe within 1e-4 of the reference's
-   0.0799870; the check_every=1 solve again through the plain versions.
+   1 (the dual_time kernel) and 3 (the fused kernel; its count beside that
+   of K launches of the one-sweep kernel): the probe within 1e-4 of the
+   reference's 0.0799870; the check_every=1 solve again through the plain
+   versions.
 9. the double-single tier at 128^3, ttot 2, tol 1e-10: converged, the probe
    within 1e-6 of the reference's 0.0799604096; kernels against plain for
    200 iterations per step.
@@ -77,7 +81,8 @@ versions: the stencil pass (#5) in every mode in float32 at 2049x513 and
 1e-12), and the legs #6/#7 at 2049x513 with ns 2 and 5, with and without
 elim.  And the sharded tiers' shard windows: #9 against its plain version
 and, on the owned planes, against the global #10 (first, interior and last
-shard of 4, K 2 and 3, at phase 14's 512^3), #8 with the update boxes of
+shard of 4, K 2 and 3, at phase 14's 512^3, the ghost planes of the result
+buffer set to NaN before the call), #8 with the update boxes of
 phase 14's shards, and K1, #6, #7 and K4 with the row hooks against their
 plain versions and against the rows of their call on the whole 2049x513
 grid, K1, #6 and #7 with the row and column hooks on the four windows of a
@@ -448,30 +453,33 @@ def phase_kernels_shards(kc: KernelCheck, dev=None, n=512):
             Ht_k = torch.nn.functional.pad(Ht, (0, 0, 0, 0, K - 1, K - 1))[
                 z0:z0 + nzl + 2 * K - 2].clone()
             zb = (1 if d == 0 else -K, nzl - 2 if d == nsh - 1 else nzl - 1 + K)
-            got = dual_time._dual_time_stepk_padded_cuda(Ht_k, Hp.clone(), K, cf, zb)
+            # the result's ghost planes are unspecified: NaN before the call
+            scratch = torch.empty_like(Hp)
+            scratch[:K] = scratch[-K:] = float("nan")
+            got = dual_time._dual_time_stepk_padded_cuda(Ht_k, Hp, K, cf, zb, scratch)
             want = dual_time.dual_time_stepk_padded_plain(Ht_k, Hp.clone(), K, cf, zb)
             tag = f"shard {d} of {nsh}, K={K}"
-            # the owned planes: the ghost planes of the result are stale
+            # the owned planes
             kc.fields("dual_timek_padded", (got[0][K:K + nzl],), (want[0][K:K + nzl],), tag)
             kc.sums("dual_timek_padded", got[1:], want[1:], f"{tag} last sumsq")
             kc.fields("dual_timek_padded", (got[0][K:K + nzl],), (glob[z0:z0 + nzl],),
                       f"{tag} owned planes vs the global #10")
-            del got, want
+            del got, want, scratch
         del glob
     # the timed call: an interior shard of phase 14, K=3, buffers reused
     K = 3
     Hp = torch.nn.functional.pad(H, (0, 0, 0, 0, K, K))[nzl:2 * nzl + 2 * K].clone()
     Ht_k = torch.nn.functional.pad(Ht, (0, 0, 0, 0, K - 1, K - 1))[nzl:2 * nzl + 2 * K - 2]
     Ht_k = Ht_k.clone()
-    scratch, part = torch.empty_like(Hp), dual_time.box_partials(Hp, nzl)
+    scratch, part = torch.empty_like(Hp), dual_time.fused_partials(Hp, nzl, K)
     a = (Ht_k, Hp, K, cf, (-K, nzl - 1 + K))
     sweep_cells = sum(nzl + 2 * (K - j) for j in range(1, K + 1)) * n * n
     # the function's result is the owned planes and the norm: the ghost
-    # planes of the returned buffer are stale, and the last sweep writes nzl
+    # planes of the returned buffer are unspecified
     kc.timed("dual_timek_padded",
              lambda: dual_time._dual_time_stepk_padded_cuda(*a, scratch, part),
              lambda: dual_time.dual_time_stepk_padded_plain(*a, scratch, part),
-             (Ht_k, Hp), tuple(Hp.shape), ["dual_time_kernel"], flops=27 * sweep_cells,
+             (Ht_k, Hp), tuple(Hp.shape), ["dual_timek_kernel"], flops=27 * sweep_cells,
              result=lambda out: (out[0][K:K + nzl], out[1]))
     del Ht, H, Hp, Ht_k, scratch, part
     if dev.type == "cuda":
@@ -747,7 +755,8 @@ def phase_kernels_3d(kc: KernelCheck):
     from fpr_tpu_torch import kernels
     from fpr_tpu_torch.ops import ds3d, dual_time
 
-    log("== phase 3, part 1: dual_time (K=1, K=3) and ds3d against their plain versions")
+    log("== phase 3, part 1: dual_time, dual_timek (the fused K-sweep kernel) and ds3d "
+        "against their plain versions")
     dev = torch.device("cuda", 0)
     rng = np.random.default_rng(1)
     ragged = (67, 45, 130)
@@ -760,21 +769,27 @@ def phase_kernels_3d(kc: KernelCheck):
         want = dual_time.dual_time_step_plain(Ht, Hs, cf)
         kc.fields("dual_time", got[:1], want[:1], f"{shape}")
         kc.sums("dual_time", got[1:], want[1:], f"{shape} sumsq")
-        got = dual_time._dual_timek_cuda(Ht, Hs.clone(), 3, cf)
-        want = dual_time.dual_time_stepk_plain(Ht, Hs.clone(), 3, cf)
-        kc.fields("dual_timek", got[:1], want[:1], f"{shape} K=3")
-        kc.sums("dual_timek", got[1:], want[1:], f"{shape} K=3 last sumsq")
         del got, want
+        # the fused kernel: K = 5 runs as two passes; Hs is never written
+        for K in ((3,) if shape != ragged else (1, 2, 3, 4, 5)):
+            Hs0 = Hs.clone()
+            got = dual_time._dual_timek_cuda(Ht, Hs, K, cf)
+            want = dual_time.dual_time_stepk_plain(Ht, Hs.clone(), K, cf)
+            kc.fields("dual_timek", got[:1], want[:1], f"{shape} K={K}")
+            kc.sums("dual_timek", got[1:], want[1:], f"{shape} K={K} last sumsq")
+            kc.fields("dual_timek", (Hs,), (Hs0,), f"{shape} K={K}: its input unwritten")
+            del got, want, Hs0
         if shape != ragged:
             # the solve's steady state: ping-pong buffers and partials reused
             out, part = torch.empty_like(Hs), kernels.partials_3d(shape, dev)
             kc.timed("dual_time", lambda: dual_time._dual_time_cuda(Ht, Hs, cf, out, part),
                      lambda: dual_time.dual_time_step_plain(Ht, Hs, cf, out),
                      (Ht, Hs), shape, ["dual_time_kernel"], flops=27 * cells)
+            part = dual_time.fused_partials(Hs, shape[0], 3)
             kc.timed("dual_timek",
                      lambda: dual_time._dual_timek_cuda(Ht, Hs, 3, cf, out, part),
                      lambda: dual_time.dual_time_stepk_plain(Ht, Hs, 3, cf, out),
-                     (Ht, Hs), shape, ["dual_time_kernel"], flops=3 * 27 * cells)
+                     (Ht, Hs), shape, ["dual_timek_kernel"], flops=3 * 27 * cells)
             del out, part
         del Ht, Hs
         torch.cuda.empty_cache()
@@ -1084,6 +1099,10 @@ def phase_diffusion_bench():
 
 
 REF_PROBE_F32 = 0.0799870          # 128^3, ttot 2, tol 1e-6 (the reference's val column)
+# 128^3, ttot 2, tol 1e-6, check_every 3 through K launches of #8's one-sweep
+# kernel on an H100 (iters_total): the fused kernel's norm adds its dH^2 in
+# another order, so a stop may move by one check (3 iterations)
+K3_ITERS_UNFUSED = 18984
 REF_PROBE_DS = 0.07996040957329686  # 128^3, ttot 2, tol 1e-10 (error_vs_tolerance.csv)
 
 
@@ -1101,9 +1120,11 @@ def phase_diffusion_f32():
     require(out.converged, "128^3 K=1 did not converge")
     require(abs(v - REF_PROBE_F32) <= 1e-4, f"probe {v} is not within 1e-4 of {REF_PROBE_F32}")
     require(counts["dual_time"] > 0, "the 128^3 K=1 run never launched dual_time")
-    out3, _ = diffusion_run(dataclasses.replace(cfg, check_every=3), "128^3 K=3")
+    out3, counts3 = diffusion_run(dataclasses.replace(cfg, check_every=3), "128^3 K=3")
     v3 = probe(out3)
-    log(f"probe H(4.5,4.5,4.5) {v3:.7f}")
+    log(f"probe H(4.5,4.5,4.5) {v3:.7f}; {out3.iters_total} iterations (K launches of the "
+        f"one-sweep kernel, the norm summed per launch block: {K3_ITERS_UNFUSED})")
+    require(counts3["dual_timek"] > 0, "the 128^3 K=3 run never launched dual_timek")
     require(out3.converged and abs(v3 - REF_PROBE_F32) <= 1e-4, "128^3 K=3 run failed")
     compare_diffusion(cfg, "128^3 K=1 converged", k=out)
     return counts, out
@@ -1655,12 +1676,12 @@ SOURCES = {
     "corr_up": ("fpr_tpu_torch/csrc/vcycle_legs.cu", "fpr_tpu/ops/pallas2d.py:1223"),
     "ns_fused": ("fpr_tpu_torch/csrc/ns_fused.cu", "fpr_tpu/ops/pallas_ns.py:58"),
     "dual_time": ("fpr_tpu_torch/csrc/dual_time.cu", "fpr_tpu/ops/pallas3d.py:168"),
-    "dual_timek": ("fpr_tpu_torch/csrc/dual_time.cu", "fpr_tpu/ops/pallas3d.py:516"),
+    "dual_timek": ("fpr_tpu_torch/csrc/dual_timek.cu", "fpr_tpu/ops/pallas3d.py:516"),
     "ds3d": ("fpr_tpu_torch/csrc/ds3d.cu", "fpr_tpu/ops/ds3d.py:70"),
     "stencil": ("fpr_tpu_torch/csrc/stencil.cu", "fpr_tpu/ops/pallas2d.py:108"),
     "smooth2r_split": ("fpr_tpu_torch/csrc/vcycle_legs.cu", "fpr_tpu/ops/pallas2d.py:333"),
     "corr_smooth2": ("fpr_tpu_torch/csrc/vcycle_legs.cu", "fpr_tpu/ops/pallas2d.py:595"),
-    "dual_timek_padded": ("fpr_tpu_torch/csrc/dual_time.cu", "fpr_tpu/ops/pallas3d.py:270"),
+    "dual_timek_padded": ("fpr_tpu_torch/csrc/dual_timek.cu", "fpr_tpu/ops/pallas3d.py:270"),
     "ns_fused_helm": ("fpr_tpu_torch/csrc/ns_fused.cu", "fpr_tpu/ops/pallas_ns.py:58"),
 }
 

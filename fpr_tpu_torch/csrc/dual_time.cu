@@ -1,12 +1,11 @@
 // Part 1's pseudo-time iteration in float32: the counterpart of TPU
-// kernels #8, #9 and #10.
+// kernel #8.
 //
 // Replaces fpr_tpu/ops/pallas3d.py::_dual_time_kernel (#8, built at
-// pallas3d.py:834, wrapped by dual_time_step_padded, with its update box),
-// and, launched K times over a ping-pong pair, ::_dual_timek_kernel (#9,
-// pallas3d.py:412, dual_time_stepk_padded: K iterations on a K-deep
-// z-ghost-padded shard block) and ::_dual_timek_stacked_kernel (#10,
-// pallas3d.py:691, dual_time_stepk_stacked).  One launch computes, on the
+// pallas3d.py:834, wrapped by dual_time_step_padded, with its update box).
+// The K-sweep kernels #9 and #10 have their own counterpart,
+// csrc/dual_timek.cu, with the same per-cell arithmetic.  One launch
+// computes, on the
 // planes [w0, w0 + nw) of an (nz, ny, nx) field with x fastest,
 //
 //     lap = ((xp - 2c) + xm) / dx^2 + ((yp - 2c) + ym) / dy^2 + ((zp - 2c) + zm) / dz^2
@@ -20,9 +19,8 @@
 // bits).  The box is inclusive, in the field's own coordinates, and lies
 // inside [1, n-2] on every axis, so that every stencil read is in range:
 // a single device's box is the interior, a shard's box comes from its
-// global-edge masks (pallas3d.py:235-246), and #9's shrinks sweep by sweep.
-// ht is read ht_shift planes below the cell: #9's Ht carries K-1 ghost
-// planes where Htau carries K.  Planes outside the window are not written.
+// global-edge masks (pallas3d.py:235-246).  Planes outside the window are
+// not written.
 //
 // Bound on the H100: memory bandwidth.  A cell reads Htau and Ht and writes
 // Htau', 12 bytes, against 27 flops: one 512^3 iteration moves 1.61 GB, at
@@ -33,14 +31,7 @@
 // read by the neighbouring rows and planes and mostly hit L1/L2).  out must
 // not be htau: blocks run in no order, so an in-place stencil would read
 // neighbours already updated.  The caller ping-pongs two buffers where the
-// TPU kernels alias their output onto the input (pallas3d.py:706-708).
-// The TPU's K-fused kernels (#9, #10) keep K sweeps on chip per pass over
-// HBM, which is their reason to exist; here each of the K launches makes a
-// pass over its window, 3x the bytes of the fused work for K = 3.  #9's
-// sweep j covers the owned planes and K-j ghost planes on each side, so its
-// ghost planes are recomputed locally and one K-plane exchange feeds K
-// iterations, as on the TPU.  Keeping the sweeps on chip (shared-memory
-// z-marching with TMA loads) is later work.
+// TPU kernel aliases its output onto the input (pallas3d.py:706-708).
 #include "fpr_common.cuh"
 
 namespace {
@@ -53,7 +44,7 @@ __global__ void __launch_bounds__(FPR_THREADS)
 dual_time_kernel(const float* __restrict__ ht, const float* __restrict__ htau,
                  float* __restrict__ out, float* __restrict__ partials, float inv_dx2,
                  float inv_dy2, float inv_dz2, float inv_dt, float D, float dtau, int ny,
-                 int nx, int w0, int ht_shift, Box box) {
+                 int nx, int w0, Box box) {
     __shared__ float sh[FPR_BY];
     const int x = blockIdx.x * FPR_BX + threadIdx.x;
     const int y = blockIdx.y * FPR_BY + threadIdx.y;
@@ -71,7 +62,7 @@ dual_time_kernel(const float* __restrict__ ht, const float* __restrict__ htau,
             const float lap = ((htau[i + 1] - 2.0f * c) + htau[i - 1]) * inv_dx2
                             + ((htau[i + sy] - 2.0f * c) + htau[i - sy]) * inv_dy2
                             + ((htau[i + sz] - 2.0f * c) + htau[i - sz]) * inv_dz2;
-            const float dh = (c - ht[i - ht_shift * sz]) * inv_dt - D * lap;
+            const float dh = (c - ht[i]) * inv_dt - D * lap;
             v = c - dtau * dh;
             dsq = dh * dh;
         }
@@ -92,19 +83,19 @@ extern "C" {
 // updating the cells of the inclusive box (z0..z1, y0..y1, x0..x1) and
 // copying the others.  partials: null (no norm) or n_partials f32, one per
 // block of the (nx/32, ny/8, nw) grid.  A window outside the field, nw
-// beyond the grid's z limit, a non-empty box outside [1, n-2], a ht read
-// below plane 0, or a partials length that does not fit the grid is
-// refused with cudaErrorInvalidValue.  Returns the launch's cudaError_t.
+// beyond the grid's z limit, a non-empty box outside [1, n-2], or a
+// partials length that does not fit the grid is refused with
+// cudaErrorInvalidValue.  Returns the launch's cudaError_t.
 int fpr_dual_time(const float* ht, const float* htau, float* out, float* partials,
                   int n_partials, float inv_dx2, float inv_dy2, float inv_dz2,
                   float inv_dt, float D, float dtau, int nz, int ny, int nx, int w0,
-                  int nw, int ht_shift, int z0, int z1, int y0, int y1, int x0, int x1,
+                  int nw, int z0, int z1, int y0, int y1, int x0, int x1,
                   cudaStream_t stream) {
     const dim3 grid = fpr::grid_of_3d(nw, ny, nx);
     const bool empty = z0 > z1 || y0 > y1 || x0 > x1;
     const bool box_ok = empty || (z0 >= 1 && z1 <= nz - 2 && y0 >= 1 && y1 <= ny - 2 &&
-                                  x0 >= 1 && x1 <= nx - 2 && z0 - ht_shift >= 0);
-    if (nw < 1 || nw > 65535 || w0 < 0 || w0 + nw > nz || ht_shift < 0 || !box_ok ||
+                                  x0 >= 1 && x1 <= nx - 2);
+    if (nw < 1 || nw > 65535 || w0 < 0 || w0 + nw > nz || !box_ok ||
         (partials != nullptr && static_cast<long long>(n_partials) !=
                                     static_cast<long long>(grid.x) * grid.y * grid.z)) {
         return static_cast<int>(cudaErrorInvalidValue);
@@ -112,7 +103,7 @@ int fpr_dual_time(const float* ht, const float* htau, float* out, float* partial
     const Box box{z0, z1, y0, y1, x0, x1};
     dual_time_kernel<<<grid, dim3(FPR_BX, FPR_BY), 0, stream>>>(
         ht, htau, out, partials, inv_dx2, inv_dy2, inv_dz2, inv_dt, D, dtau, ny, nx, w0,
-        ht_shift, box);
+        box);
     return static_cast<int>(cudaGetLastError());
 }
 

@@ -21,8 +21,8 @@ their plain PyTorch versions.
 ``launches`` counts, per kernel, the wrapper calls that launched the CUDA
 kernel (never the plain-PyTorch calls), so a run can show which kernels
 its main path went through.  ``dual_timek`` and ``dual_timek_padded``
-count calls of the K-fused wrappers (#10 and #9), each of which launches
-the dual-time kernel K times, and
+count calls of the K-sweep wrappers (#10 and #9), each of which launches
+the fused K-sweep kernel once per pass of at most ``K_MAX`` sweeps, and
 ``stencil`` calls of its wrappers (``smooth2`` launches the kernel twice).
 ``smooth2r_split`` and ``corr_smooth2`` count the separate-buffer V-cycle
 legs of the row-padded V-cycle, which launch the CUDA code of
@@ -50,6 +50,9 @@ launches = dict.fromkeys(KERNELS, 0)
 # the block shape of csrc/fpr_common.cuh (FPR_BX, FPR_BY); the 3D entry
 # points check the partials length they are given against their grid
 BX, BY = 32, 8
+# the sweeps of one launch of csrc/dual_timek.cu (KMAX), which refuses more;
+# its grid and partials length come from fpr_dual_timek_blocks
+K_MAX = 4
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 
@@ -75,7 +78,9 @@ _SIGNATURES = {
     "fpr_sweep": [_P, _P, _P, _P, _F, _F, _F, *[_I] * 12, _P, _P, _P],
     "fpr_residual": [_P, _P, _P, _F, _F, *[_I] * 6, _P, _P],
     "fpr_ns_fused": [*[_P] * 6, *[_F] * 7, *[_I] * 7, *[_P] * 6],
-    "fpr_dual_time": [_P, _P, _P, _P, _I, *[_F] * 6, *[_I] * 12, _P],
+    "fpr_dual_time": [_P, _P, _P, _P, _I, *[_F] * 6, *[_I] * 11, _P],
+    "fpr_dual_timek": [_P, _P, _P, _P, _I, *[_F] * 6, *[_I] * 7, _P, *[_I] * 4, _P],
+    "fpr_dual_timek_blocks": [_I, _I, _I, _I, ctypes.POINTER(_I)],
     "fpr_ds3d": [_P, _P, _P, _P, _I, *[_F] * 10, _I, _I, _I, _P],
     "fpr_stencil_f32": [_P, _P, _P, _F, _F, _F, _I, _I, _I, _P, _P, _P],
     "fpr_stencil_f64": [_P, _P, _P, _D, _D, _D, _I, _I, _I, _P, _P, _P],

@@ -18,8 +18,9 @@ is formed from it in the field's dtype (float32 for the kernel tiers and
 ds) with numpy scalars and compared with tol rounded to that dtype, which
 is the comparison the JAX loop makes on the device.  Iterations advance by
 K per call; convergence is err <= tol, not the count.  The kernel tiers
-iterate on a ping-pong pair of buffers and one partials buffer allocated
-once per solve; the commit Ht <- Htau is a device copy.
+iterate on a ping-pong pair of buffers (each call writes the one it does
+not read) and one partials buffer allocated once per solve; the commit
+Ht <- Htau is a device copy.
 """
 
 from __future__ import annotations
@@ -60,7 +61,9 @@ def _stepper(cfg: DiffusionConfig, kw: dict, Ht: torch.Tensor):
         return Ht, step, lambda Ht, Htau: Htau  # out of place: Htau is never written
 
     bufs = (Ht.clone(), torch.empty_like(Ht))
-    partials = kernels.partials_3d(Ht.shape[-3:], Ht.device)
+    fused = cfg.policy is ExecutionPolicy.PALLAS and cfg.check_every > 1
+    partials = (dual_time.fused_partials(Ht, Ht.shape[0], cfg.check_every) if fused
+                else kernels.partials_3d(Ht.shape[-3:], Ht.device))
 
     def other(Htau):
         return bufs[1] if Htau is bufs[0] else bufs[0]
@@ -68,7 +71,7 @@ def _stepper(cfg: DiffusionConfig, kw: dict, Ht: torch.Tensor):
     if cfg.policy is ExecutionPolicy.PALLAS_DS:
         def step(Ht, Htau):
             return ds3d.dual_time_step_ds(Ht, Htau, **kw, out=other(Htau), partials=partials)
-    elif cfg.check_every == 1:
+    elif not fused:
         def step(Ht, Htau):
             return dual_time.dual_time_step(Ht, Htau, **kw, out=other(Htau),
                                             partials=partials)

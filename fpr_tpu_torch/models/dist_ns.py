@@ -18,8 +18,8 @@ state payload (``result.state``) has the single-device global-field schema,
 so a single-device or a sharded run of either package (through
 ``navier_stokes.state_from_jax``) resumes here, and back.  The JAX
 function's ``chunk_steps`` bounds one device call under its TPU
-transport's deadline and has no counterpart: the step loop is a host loop,
-one host read per step.
+transport's deadline; it is taken and checked in its position but changes
+nothing, since the step loop is a host loop, one host read per step.
 """
 
 from __future__ import annotations
@@ -30,8 +30,8 @@ from typing import Optional
 import torch
 
 from fpr_tpu_torch.core.config import InitScheme, NSConfig
-from fpr_tpu_torch.models.navier_stokes import (NSResult, _semi_implicit, fast_mg_default,
-                                                init_field)
+from fpr_tpu_torch.models.navier_stokes import (NSResult, _semi_implicit, check_chunk_steps,
+                                                fast_mg_default, init_field)
 from fpr_tpu_torch.ops import ds as dsm
 from fpr_tpu_torch.ops import reductions
 from fpr_tpu_torch.ops.ns_fused import ns_fused_rp
@@ -107,19 +107,23 @@ def _loop(st: dict, limit: int, plan, mesh, axis: str, cfg: NSConfig) -> None:
         _step(st, plan, mesh, axis, cfg)
 
 
-def simulate_fast_sharded(cfg: NSConfig, mesh, axis: str = "y", W0=None,
+def simulate_fast_sharded(cfg: NSConfig, mesh, axis: str = "y", W0=None, T0=None,
                           max_steps: Optional[int] = None, seed: int = 0,
-                          replicate_below: int = 257, verbose: bool = False,
-                          snapshot_steps: int = 0, state0: Optional[dict] = None) -> NSResult:
+                          chunk_steps: int = 20_000, replicate_below: int = 257,
+                          verbose: bool = False, snapshot_steps: int = 0,
+                          state0: Optional[dict] = None) -> NSResult:
     """``navier_stokes.simulate_fast`` over ``mesh``'s ``axis``, every beta
-    tier (dist_ns.simulate_fast_sharded).
+    tier (dist_ns.simulate_fast_sharded, with its positional order).
 
-    Steps 1-3 are warm-up, excluded from t_elapsed and timed_iters.
+    W0, T0: initial fields (FROM_ARRAY), else cfg's init schemes.  Steps
+    1-3 are warm-up, excluded from t_elapsed and timed_iters.  chunk_steps:
+    checked as in ``simulate_fast``, and as there it changes nothing.
     snapshot_steps > 0 stores (T, W, S, sim_time, step) every that many
     steps and at the end.  state0: a previous result.state of either loop
     (or ``navier_stokes.state_from_jax`` of a JAX one); the run continues
     it exactly, with max_steps the total step budget.
     """
+    check_chunk_steps(chunk_steps)
     cfg = fast_mg_default(cfg)
     ny, nx = cfg.ny, cfg.nx
     plan = plan_shards(ny, nx, mesh.shape[axis], cfg.mg, replicate_below)
@@ -136,9 +140,9 @@ def simulate_fast_sharded(cfg: NSConfig, mesh, axis: str = "y", W0=None,
         st = dict(w_ss=on0(state0["w_sumsq"]).reshape(()), th=on0(state0["t_hi"]).reshape(()),
                   tl=on0(state0["t_lo"]).reshape(()), step=int(state0["step"]))
     else:
-        T = init_field(cfg, cfg.T_init, seed, device=dev0)
-        W = init_field(cfg, cfg.W_init, seed, device=dev0) if W0 is None else \
-            init_field(cfg, InitScheme.FROM_ARRAY, array=W0, device=dev0)
+        T, W = (init_field(cfg, scheme, seed, device=dev0) if a is None else
+                init_field(cfg, InitScheme.FROM_ARRAY, array=a, device=dev0)
+                for scheme, a in ((cfg.T_init, T0), (cfg.W_init, W0)))
         S_ds = [torch.zeros((2, G + plan.ny_l + G, nx), dtype=F32, device=dev)
                 for dev in mesh.devices]
         st = dict(w_ss=torch.sum(W * W), th=torch.zeros((), dtype=F32, device=dev0),

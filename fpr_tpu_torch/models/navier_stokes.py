@@ -34,9 +34,10 @@ thousands of float32 dt additions cannot drift the step count.
 
 The JAX ``lax.while_loop`` over steps is a host loop here: each step reads
 one scalar (is the time reached?) from the device.  The JAX function's
-``chunk_steps`` exists only to bound one device call under its TPU
-transport's RPC deadline; it has no counterpart.  ``max_steps``,
-``snapshot_steps`` and ``state0`` keep their meaning, and
+``chunk_steps`` bounds one device call under its TPU transport's RPC
+deadline; the port takes and checks it in the same position, and it
+changes nothing here.  ``max_steps``, ``snapshot_steps`` and ``state0``
+keep their meaning, and
 ``state_from_jax`` / ``state_to_jax`` convert the exact-resume payload
 between the two packages.
 """
@@ -261,10 +262,10 @@ def simulate(cfg: NSConfig = NSConfig(), W0=None, T0=None, max_steps: Optional[i
         else:
             _sync(dev)
 
-    def host(a):
+    def host(a):  # in the state's dtype, as JAX returns them
         if isinstance(a, dmg.RowShards):
             a = a.gather()
-        return a.cpu().double().numpy()
+        return a.cpu().numpy()
 
     snapshots = [] if snapshot_every else None
     sim_time, step = 0.0, 0
@@ -418,20 +419,32 @@ def state_to_jax(state: dict) -> dict:
     return out
 
 
-def simulate_fast(cfg: NSConfig = NSConfig(), W0=None,
+def check_chunk_steps(chunk_steps) -> None:
+    """JAX's ``chunk_steps`` must be an int >= 1; the port accepts and checks
+    it, but it cannot change a result (see ``simulate_fast``)."""
+    if isinstance(chunk_steps, bool) or not isinstance(chunk_steps, (int, np.integer)) \
+            or chunk_steps < 1:
+        raise ValueError(f"chunk_steps must be an int >= 1, got {chunk_steps!r}")
+
+
+def simulate_fast(cfg: NSConfig = NSConfig(), W0=None, T0=None,
                   max_steps: Optional[int] = None, verbose: bool = False,
-                  seed: int = 0, snapshot_steps: int = 0,
+                  seed: int = 0, chunk_steps: int = 20_000, snapshot_steps: int = 0,
                   state0: Optional[dict] = None, *, device="cuda") -> NSResult:
     """Run the fused fast loop until sim_time >= ttot
-    (navier_stokes.simulate_fast).
+    (navier_stokes.simulate_fast, with its positional order).
 
     device: where to run ("cuda", "cuda:0", "cpu", a torch.device).
+    W0, T0: initial fields (FROM_ARRAY), else cfg's init schemes.
     Steps 1-3 are warm-up, excluded from t_elapsed and timed_iters
-    (part2.jl:182-184).  snapshot_steps > 0 stores
-    (T, W, S, sim_time, step) every that many steps and at the end.
+    (part2.jl:182-184).  chunk_steps: an int >= 1, checked; in JAX it
+    bounds one device call of the on-device loop, but this loop reads the
+    host once per step, so it cannot change a result.  snapshot_steps > 0
+    stores (T, W, S, sim_time, step) every that many steps and at the end.
     state0: a previous result.state (or state_from_jax of a JAX one); the
     run continues it exactly, with max_steps the total step budget.
     """
+    check_chunk_steps(chunk_steps)
     cfg = fast_mg_default(cfg)
     ny, nx = cfg.ny, cfg.nx
     dev = torch.device(device)
@@ -444,9 +457,9 @@ def simulate_fast(cfg: NSConfig = NSConfig(), W0=None,
                   w_ss=on("w_sumsq").reshape(()), th=on("t_hi").reshape(()),
                   tl=on("t_lo").reshape(()), step=int(state0["step"]))
     else:
-        T = init_field(cfg, cfg.T_init, seed, device=dev)
-        W = init_field(cfg, cfg.W_init, seed, device=dev) if W0 is None else \
-            init_field(cfg, InitScheme.FROM_ARRAY, array=W0, device=dev)
+        T, W = (init_field(cfg, scheme, seed, device=dev) if a is None else
+                init_field(cfg, InitScheme.FROM_ARRAY, array=a, device=dev)
+                for scheme, a in ((cfg.T_init, T0), (cfg.W_init, W0)))
         st = dict(TW=torch.stack([T, W]),
                   S_ds=torch.zeros((2, ny, nx), dtype=F32, device=dev),
                   w_ss=torch.sum(W * W), th=torch.zeros((), dtype=F32, device=dev),

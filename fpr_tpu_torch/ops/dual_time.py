@@ -15,9 +15,9 @@ divides by dt instead and rounds differently.
 
 - ``dual_time_step``: one iteration and sum(dHdtau^2) (#8).
 - ``dual_time_stepk``: K iterations and the LAST one's sum(dHdtau^2)
-  (#10's function).  The kernel is launched K times over a ping-pong pair
-  and forms the norm on the last launch only; the TPU kernel keeps the K
-  sweeps on chip instead (see csrc/dual_time.cu).
+  (#10's function).  On the card it runs the K-sweep kernel
+  (csrc/dual_timek.cu), which keeps the intermediate sweeps on chip, once
+  per pass of at most ``kernels.K_MAX`` sweeps (``split_passes``).
 - ``dual_time_box``: one iteration over a window of planes with #8's
   update box, for the sharded tier's ghost-padded blocks: the cells inside
   the inclusive box are updated, the others copied, and the sums of
@@ -27,14 +27,19 @@ divides by dt instead and rounds differently.
 - ``dual_time_stepk_padded``: K iterations on a K-deep z-ghost-padded
   shard block (#9): sweep j updates the owned planes and K-j ghost planes
   on each side inside the z-bounds, so one K-plane halo exchange feeds K
-  iterations; the norm is the last sweep's over the owned planes.
+  iterations; the norm is the last sweep's over the owned planes.  On the
+  card, the K-sweep kernel, once per pass as for #10.
 
-A CPU tensor runs ``dual_time_step_plain``; a CUDA tensor the kernel
-(csrc/dual_time.cu, float32 only) or an error.  The output is a buffer
-other than the input, never the input itself: the TPU kernels alias their
-output onto the input, which races across the card's blocks.  Callers in a
-loop pass ``out``/``scratch`` and a ``kernels.partials_3d`` buffer, so that
-nothing is allocated per call.
+A CPU tensor runs the plain PyTorch versions; a CUDA tensor the kernels
+(csrc/dual_time.cu and csrc/dual_timek.cu, float32 only) or an error.  The
+output is a buffer other than the input, never the input itself: the TPU
+kernels alias their output onto the input, which races across the card's
+blocks.  The K-sweep calls write their result into ``scratch`` and leave
+their input unwritten, on both devices (passes or sweeps beyond the first
+pair go through a temporary buffer).  Callers in a loop pass
+``out``/``scratch`` and a partials buffer (``kernels.partials_3d`` for
+one iteration, ``fused_partials`` for K), so that nothing is allocated per
+call.
 
 ``pad3d``/``pad_ht``/``stack_state_k``/``unstack_state_k`` build the JAX
 kernels' padded layouts in numpy, and ``state_from_jax``/``state_to_jax``
@@ -42,6 +47,8 @@ convert a state between those layouts and the port's physical tensors.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import numpy as np
 import torch
@@ -74,13 +81,72 @@ def dual_time_step_plain(Ht, Htau, cf, out=None):
 
 
 def dual_time_stepk_plain(Ht, Htau, K, cf, scratch=None):
-    """K iterations of ``dual_time_step_plain`` over the pair (Htau,
-    scratch), with the buffer use of ``dual_time_stepk``."""
-    src, dst = Htau, torch.empty_like(Htau) if scratch is None else scratch
-    for _ in range(K):
-        dst, sumsq = dual_time_step_plain(Ht, src, cf, out=dst)
-        src, dst = dst, src
-    return src, sumsq
+    """K iterations of ``dual_time_step_plain``, with the buffer contract of
+    ``dual_time_stepk``: the result in scratch, Htau not written."""
+    scratch = torch.empty_like(Htau) if scratch is None else scratch
+    sumsq = _chain(K, Htau, scratch,
+                   lambda m, src, dst: dual_time_step_plain(Ht, src, cf, out=dst)[1])
+    return scratch, sumsq
+
+
+def split_passes(K: int) -> list[int]:
+    """K sweeps as consecutive fused passes of at most ``kernels.K_MAX``
+    sweeps each, as even as possible, the longer first: 5 -> [3, 2],
+    8 -> [4, 4]."""
+    if K < 1:
+        raise ValueError(f"K must be >= 1, got {K}")
+    n = -(-K // kernels.K_MAX)
+    q, r = divmod(K, n)
+    return [q + 1] * r + [q] * (n - r)
+
+
+def _chain(n, src, dst, stage):
+    """n stages from src into dst that never write src: stage(m, s, d)
+    reads s and writes d.  The last stage writes dst; going back from it
+    the stages alternate with a temporary buffer.  Returns the last stage's
+    value."""
+    tmp = torch.empty_like(dst) if n > 1 else None
+    for m in range(n):
+        d = dst if (n - 1 - m) % 2 == 0 else tmp
+        out = stage(m, src, d)
+        src = d
+    return out
+
+
+def _fused_passes(K, src, dst, launch):
+    """K sweeps as the passes of ``split_passes``: launch(s, d, a, k, last)
+    makes sweeps a+1..a+k from s into d, the norm when last; see
+    ``_chain``."""
+    ks = split_passes(K)
+    first = np.cumsum([0] + ks[:-1])
+    _chain(len(ks), src, dst,
+           lambda m, s, d: launch(s, d, int(first[m]), ks[m], m == len(ks) - 1))
+
+
+def _zboxes(nz, K, a, k, z_bounds=None):
+    """The z boxes of sweeps a+1..a+k of K: the interior on every sweep for
+    #10 (z_bounds None); for #9 sweep j's window (j, nz-1-j) clipped to the
+    local z_bounds, shifted by the K ghost planes."""
+    if z_bounds is None:
+        return [(1, nz - 2)] * k
+    zb0, zb1 = z_bounds
+    return [(max(zb0 + K, j), min(zb1 + K, nz - 1 - j)) for j in range(a + 1, a + k + 1)]
+
+
+def fused_partials(Htau, n_out: int, K: int) -> torch.Tensor:
+    """The partials buffer of a K-sweep call whose last pass writes n_out
+    planes of Htau's (ny, nx): per block (float32) on the card, per plane
+    (Htau's dtype, #9's plain version) on the CPU.  Every entry is written
+    by the call: no zeroing needed."""
+    _, ny, nx = Htau.shape
+    if Htau.device.type == "cpu":
+        return Htau.new_zeros(n_out)
+    n = ctypes.c_int(0)
+    with torch.cuda.device(Htau.device):
+        err = kernels.lib().fpr_dual_timek_blocks(split_passes(K)[-1], n_out, ny, nx,
+                                                   ctypes.byref(n))
+    kernels.check(err, "fpr_dual_timek_blocks")
+    return torch.empty(n.value, dtype=torch.float32, device=Htau.device)
 
 
 def interior_box(shape) -> tuple:
@@ -89,14 +155,14 @@ def interior_box(shape) -> tuple:
     return (1, nz - 2, 1, ny - 2, 1, nx - 2)
 
 
-def _launch(Ht, Htau, cf, out, partials, box=None, window=None, ht_shift=0):
+def _launch(Ht, Htau, cf, out, partials, box=None, window=None):
     nz, ny, nx = Htau.shape
     w0, w1 = (0, nz - 1) if window is None else window
     box = interior_box(Htau.shape) if box is None else box
     err = kernels.lib().fpr_dual_time(
         Ht.data_ptr(), Htau.data_ptr(), out.data_ptr(), kernels.ptr(partials),
         0 if partials is None else partials.numel(), *cf, nz, ny, nx, w0, w1 - w0 + 1,
-        ht_shift, *box, kernels.stream(Htau))
+        *box, kernels.stream(Htau))
     kernels.check(err, "fpr_dual_time")
 
 
@@ -110,16 +176,29 @@ def _dual_time_cuda(Ht, Htau, cf, out=None, partials=None):
     return out, partials.sum()
 
 
+def _launch_k(Ht, src, cf, out, partials, zboxes, planes, ht_shift):
+    """One launch of the K-sweep kernel: len(zboxes) sweeps with the z
+    boxes zboxes over the interior rows and columns, the output planes
+    (o0, o1) of the last one into out."""
+    nz, ny, nx = src.shape
+    zbox = (ctypes.c_int * (2 * len(zboxes)))(*(v for zb in zboxes for v in zb))
+    err = kernels.lib().fpr_dual_timek(
+        Ht.data_ptr(), src.data_ptr(), out.data_ptr(), kernels.ptr(partials),
+        0 if partials is None else partials.numel(), *cf, len(zboxes), nz, ny, nx, ht_shift,
+        *planes, ctypes.addressof(zbox), 1, ny - 2, 1, nx - 2, kernels.stream(src))
+    kernels.check(err, "fpr_dual_timek")
+
+
 def _dual_timek_cuda(Ht, Htau, K, cf, scratch=None, partials=None):
-    """K launches on the card, the norm on the last; see ``dual_time_stepk``."""
+    """The K-sweep kernel once per pass; see ``dual_time_stepk``."""
     kernels.require_cuda_f32("dual_time_stepk", Ht, Htau, scratch, partials)
-    src, dst = Htau, torch.empty_like(Htau) if scratch is None else scratch
-    partials = kernels.partials_3d(Htau.shape, Htau.device) if partials is None else partials
-    for j in range(K):
-        _launch(Ht, src, cf, dst, partials if j == K - 1 else None)
-        src, dst = dst, src
+    scratch = torch.empty_like(Htau) if scratch is None else scratch
+    nz = Htau.shape[0]
+    partials = fused_partials(Htau, nz, K) if partials is None else partials
+    _fused_passes(K, Htau, scratch, lambda s, d, a, k, last: _launch_k(
+        Ht, s, cf, d, partials if last else None, _zboxes(nz, K, a, k), (0, nz - 1), 0))
     kernels.launches["dual_timek"] += 1
-    return src, partials.sum()
+    return scratch, partials.sum()
 
 
 def _check(name, Ht, Htau, out):
@@ -155,11 +234,9 @@ def dual_time_stepk(Ht, Htau, K, dt, dtau, dx, dy, dz, D, *, scratch=None, parti
     """K pseudo-time iterations and the last one's sum(dHdtau^2) (#10,
     pallas3d.dual_time_stepk_stacked on physical fields).
 
-    Iteration j reads what iteration j-1 wrote and writes the other of the
-    pair (Htau, scratch): scratch for odd j, Htau for even j, so for K >= 2
-    Htau is overwritten.  scratch None takes a new tensor.  Returns (the
-    buffer of the last iteration, sumsq): scratch when K is odd, Htau when
-    K is even.
+    Writes the K-th iterate into scratch (a new tensor if None) and never
+    writes Htau.  Returns (scratch, sumsq).  partials: a ``fused_partials(
+    Htau, nz, K)`` buffer to reuse on CUDA.
     """
     if K < 1:
         raise ValueError(f"dual_time_stepk: K must be >= 1, got {K}")
@@ -224,7 +301,7 @@ def dual_time_box_plain(Ht, Htau, cf, box, window, out, partials=None, ht_shift=
     return dh
 
 
-def _check_box(name, shape, box, window, ht_shift):
+def _check_box(name, shape, box, window, ht_shift=0):
     nz, ny, nx = shape
     w0, w1 = window
     if not 0 <= w0 <= w1 < nz:
@@ -238,21 +315,20 @@ def _check_box(name, shape, box, window, ht_shift):
 
 
 def dual_time_box(Ht, Htau, box, dt, dtau, dx, dy, dz, D, *, window=None, out=None,
-                  partials=None, ht_shift=0):
+                  partials=None):
     """One iteration with #8's update box (pallas3d.dual_time_step_padded's
     ``bounds``) over the planes window = (w0, w1) of Htau (default all).
 
     box = (z0, z1, y0, y1, x0, x1): inclusive, in Htau's own coordinates,
     inside [1, n-2] on each axis when not empty; cells of the window outside
-    it are copied, planes outside the window not written.  Ht is read
-    ht_shift planes below the cell (Ht may be ht_shift planes shorter at
-    each end).  out: a new tensor if None, never Htau.  partials:
+    it are copied, planes outside the window not written.  Ht has Htau's
+    planes.  out: a new tensor if None, never Htau.  partials:
     ``box_partials(Htau, nw)`` or a slice of one (``plane_partials``);
     None takes a new one.  Returns (out, partials); partials.sum() is
     sum(dHdtau^2) over the box.
     """
     window = (0, Htau.shape[0] - 1) if window is None else tuple(window)
-    _check_box("dual_time_box", Htau.shape, box, window, ht_shift)
+    _check_box("dual_time_box", Htau.shape, box, window)
     if out is None:
         out = torch.empty_like(Htau)
     elif out.data_ptr() == Htau.data_ptr():
@@ -261,57 +337,52 @@ def dual_time_box(Ht, Htau, box, dt, dtau, dx, dy, dz, D, *, window=None, out=No
         partials = box_partials(Htau, window[1] - window[0] + 1)
     cf = coeffs(dt, dtau, dx, dy, dz, D)
     if Htau.device.type == "cpu":
-        dual_time_box_plain(Ht, Htau, cf, box, window, out, partials, ht_shift)
+        dual_time_box_plain(Ht, Htau, cf, box, window, out, partials)
     else:
-        _dual_time_box_cuda(Ht, Htau, cf, box, window, out, partials, ht_shift)
+        _dual_time_box_cuda(Ht, Htau, cf, box, window, out, partials)
     return out, partials
 
 
-def _dual_time_box_cuda(Ht, Htau, cf, box, window, out, partials, ht_shift=0):
+def _dual_time_box_cuda(Ht, Htau, cf, box, window, out, partials):
     """A boxed launch on the card, counted as ``dual_time``."""
     kernels.require_cuda_f32("dual_time_box", Ht, Htau, out, partials)
-    _launch(Ht, Htau, cf, out, partials, box, window, ht_shift)
+    _launch(Ht, Htau, cf, out, partials, box, window)
     kernels.launches["dual_time"] += 1
 
 
-def _sweeps_k(Ht_k, Hp, K, cf, z_bounds, scratch, partials, launch):
-    """#9's K sweeps over the pair (Hp, scratch); launch(src, box, window,
-    dst, partials) makes one."""
-    nz, ny, nx = Hp.shape
-    nzl = nz - 2 * K
-    zb0, zb1 = z_bounds
-    src, dst = Hp, scratch
-    for j in range(1, K + 1):
-        w = (j, nz - 1 - j)
-        box = (max(zb0 + K, w[0]), min(zb1 + K, w[1]), 1, ny - 2, 1, nx - 2)
-        _check_box("dual_time_stepk_padded", Hp.shape, box, w, 1)
-        launch(src, box, w, dst, partials if j == K else None)
-        src, dst = dst, src
-    return src, nzl
-
-
 def dual_time_stepk_padded_plain(Ht_k, Hp, K, cf, z_bounds, scratch=None, partials=None):
-    """Plain PyTorch version of #9; see ``dual_time_stepk_padded``."""
+    """Plain PyTorch version of #9; see ``dual_time_stepk_padded``: sweep j
+    writes its window (j, nz-1-j), the cells of its box updated."""
+    nz, ny, nx = Hp.shape
     scratch = torch.empty_like(Hp) if scratch is None else scratch
-    nzl = Hp.shape[0] - 2 * K
-    partials = Hp.new_zeros(nzl) if partials is None else partials
-    out, _ = _sweeps_k(Ht_k, Hp, K, cf, z_bounds, scratch, partials,
-                       lambda src, box, w, dst, part: dual_time_box_plain(
-                           Ht_k, src, cf, box, w, dst, part, 1))
-    return out, partials.sum()
+    partials = Hp.new_zeros(nz - 2 * K) if partials is None else partials
+
+    def sweep(m, src, dst):
+        j = m + 1
+        (z0, z1), = _zboxes(nz, K, m, 1, z_bounds)
+        w, box = (j, nz - 1 - j), (z0, z1, 1, ny - 2, 1, nx - 2)
+        _check_box("dual_time_stepk_padded", Hp.shape, box, w, 1)
+        dual_time_box_plain(Ht_k, src, cf, box, w, dst, partials if j == K else None, 1)
+
+    _chain(K, Hp, scratch, sweep)
+    return scratch, partials.sum()
 
 
 def _dual_time_stepk_padded_cuda(Ht_k, Hp, K, cf, z_bounds, scratch=None, partials=None):
-    """#9 on the card: K boxed launches over shrinking windows."""
+    """#9 on the card: the K-sweep kernel once per pass; a pass ending at
+    sweep j writes the window (j, nz-1-j), the last one the owned planes."""
     kernels.require_cuda_f32("dual_time_stepk_padded", Ht_k, Hp, scratch, partials)
+    nz, ny, nx = Hp.shape
     scratch = torch.empty_like(Hp) if scratch is None else scratch
-    nzl = Hp.shape[0] - 2 * K
-    partials = box_partials(Hp, nzl) if partials is None else partials
-    out, _ = _sweeps_k(Ht_k, Hp, K, cf, z_bounds, scratch, partials,
-                       lambda src, box, w, dst, part: _launch(Ht_k, src, cf, dst, part, box,
-                                                              w, 1))
+    partials = fused_partials(Hp, nz - 2 * K, K) if partials is None else partials
+    for j, (z0, z1) in enumerate(_zboxes(nz, K, 0, K, z_bounds), 1):
+        _check_box("dual_time_stepk_padded", Hp.shape, (z0, z1, 1, ny - 2, 1, nx - 2),
+                   (j, nz - 1 - j), 1)
+    _fused_passes(K, Hp, scratch, lambda s, d, a, k, last: _launch_k(
+        Ht_k, s, cf, d, partials if last else None, _zboxes(nz, K, a, k, z_bounds),
+        (a + k, nz - 1 - a - k), 1))
     kernels.launches["dual_timek_padded"] += 1
-    return out, partials.sum()
+    return scratch, partials.sum()
 
 
 def dual_time_stepk_padded(Ht_k, Hp, K, dt, dtau, dx, dy, dz, D, *, z_bounds=None,
@@ -323,10 +394,12 @@ def dual_time_stepk_padded(Ht_k, Hp, K, dt, dtau, dx, dy, dz, D, *, z_bounds=Non
     on each side refreshed (``halo.refresh_ghosts_zk``).  Ht_k: (nz_l + 2K -
     2, ny, nx), plane p at K - 1 + p.  z_bounds: the inclusive local planes
     that may be updated, reaching into the ghosts on an interior shard edge
-    (default (1, nz_l - 2), a whole domain).  Sweep j writes planes [j,
-    nz_l + 2K - 1 - j] of the pair (Hp, scratch), alternately, so for K >= 2
-    Hp is overwritten.  Returns (the buffer of the last sweep, sum(dHdtau^2)
-    of the last sweep over the owned planes); its ghost planes are stale.
+    (default (1, nz_l - 2), a whole domain).  Sweep j updates planes [j,
+    nz_l + 2K - 1 - j].  Writes the owned planes of the K-th sweep into
+    scratch (a new tensor if None) and never writes Hp; scratch's ghost
+    planes are left unspecified.  Returns (scratch, sum(dHdtau^2) of the
+    last sweep over the owned planes).  partials: a ``fused_partials(Hp,
+    nz_l, K)`` buffer to reuse.
     """
     nz = Hp.shape[0]
     nzl = nz - 2 * K

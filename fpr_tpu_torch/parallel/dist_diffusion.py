@@ -239,7 +239,7 @@ def build_step(cfg: DiffusionConfig, mesh: Mesh, dtype=torch.float32):
         Hp = [dual_time.pad3dk(b, K) for b in Htau_l]
         scratch = [torch.empty_like(b) for b in Hp]
         Ht_k = [dual_time.pad_htk(b, K) for b in Ht_l]
-        parts = [dual_time.box_partials(b, nzl) for b in Hp]
+        parts = [dual_time.fused_partials(b, nzl, K) for b in Hp]
         if 0 in sharded:
             # Ht is constant through pseudo-time: its K-1 ghost planes are
             # exchanged once per physical step
@@ -257,11 +257,12 @@ def build_step(cfg: DiffusionConfig, mesh: Mesh, dtype=torch.float32):
                 halo.refresh_ghosts_zk(Hp, mesh, nzl, sharded[0], K)
             sums = []
             for i in range(mesh.size):
+                # the result lands in scratch, its ghost planes unspecified:
+                # refreshed above when z is sharded, never read otherwise
                 out, s = dual_time.dual_time_stepk_padded(
                     Ht_k[i], Hp[i], K, **kw, z_bounds=zb[i], scratch=scratch[i],
                     partials=parts[i])
-                if out is scratch[i]:
-                    Hp[i], scratch[i] = scratch[i], Hp[i]
+                Hp[i], scratch[i] = out, Hp[i]
                 sums.append(s)
             return sums
 
@@ -285,15 +286,18 @@ def build_step(cfg: DiffusionConfig, mesh: Mesh, dtype=torch.float32):
 
 
 def solve_distributed(cfg: DiffusionConfig = DiffusionConfig(), mesh: Mesh | None = None,
-                      dtype=torch.float32, verbose: bool = False, *,
+                      axis: str = "z", dtype=torch.float32, verbose: bool = False, *,
                       device="cuda") -> DistDiffusionResult:
     """The distributed solve with the reference's 3-step warm-up
-    (dist_diffusion.solve_distributed, part1_kernel_programming.jl:166-204).
+    (dist_diffusion.solve_distributed, part1_kernel_programming.jl:166-204,
+    with its positional order).
 
     cfg.nx, ny, nz are each shard's local size.  mesh: None is one shard on
-    ``device``; a given mesh carries its own devices.  The PALLAS tiers on
-    a CUDA mesh take float32 (their kernel does).
+    ``device``; a given mesh carries its own devices.  axis: ignored, as in
+    JAX (the mesh's axis names place the shards).  The PALLAS tiers on a
+    CUDA mesh take float32 (their kernel does).
     """
+    del axis
     mesh = make_mesh(device=device) if mesh is None else mesh
     if dtype not in _NP:
         raise ValueError(f"dtype must be torch.float32 or torch.float64, got {dtype}")

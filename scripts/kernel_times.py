@@ -9,9 +9,13 @@ ROOT is the root of a checkout (``.`` for this one, or an unpacked
 kernels into ROOT's build directory, runs the environment, build and
 kernel-check phases, and prints as its last line one JSON object
 ``{"root": ROOT, "kernels": {name: {"device_us", "ms", "plain_ms",
-"bound_ms"}}}``.  Run it once per tree in a fresh process, in turns
-(parent, change, change, parent), since two packages of one name cannot
-share a process.
+"bound_ms"}}, "small": {...}}``.  ``small`` holds part 1's K-sweep call
+at 128^3, K=3, the call of phase 8's check_every=3 solve (device µs over
+every kernel whose name starts with ``dual_time``, whichever kernel the
+tree runs it with, and call ms), and that solve's timed window in
+seconds.  Run it once per tree in a fresh process, in turns (parent,
+change, change, parent), since two packages of one name cannot share a
+process.
 """
 
 import json
@@ -37,8 +41,35 @@ def main() -> int:
     out = {name: {"device_us": row["device_us"], "ms": row["ms"], "plain_ms": row["plain_ms"],
                   "bound_ms": kc.bound(name)[0]}
            for name, row in kc.rows.items()}
-    print(json.dumps({"root": root, "kernels": out}))
+    print(json.dumps({"root": root, "kernels": out, "small": small_field(chip_smoke)}))
     return 0
+
+
+def small_field(chip_smoke) -> dict:
+    """The K-sweep call at 128^3, K=3, through the public wrapper, and the
+    128^3 check_every=3 solve of phase 8 (its timed window)."""
+    import numpy as np
+    import torch
+
+    from fpr_tpu_torch.core.config import DiffusionConfig, ExecutionPolicy
+    from fpr_tpu_torch.models import diffusion3d
+    from fpr_tpu_torch.ops import dual_time
+
+    shape, K = (128, 128, 128), 3
+    cells = int(np.prod(shape))
+    rng = np.random.default_rng(2)
+    Ht, Hs = (torch.tensor(rng.random(shape, dtype=np.float32), device="cuda") for _ in range(2))
+    kw = chip_smoke.diffusion_kw(shape)
+    call = lambda: dual_time.dual_time_stepk(Ht, Hs, K, **kw)  # noqa: E731
+    cfg = DiffusionConfig(nx=128, ny=128, nz=128, ttot=2.0, tol=1e-6,
+                          policy=ExecutionPolicy.PALLAS, check_every=K)
+    diffusion3d.solve(cfg, device="cuda")  # warm-up
+    run = diffusion3d.solve(cfg, device="cuda")
+    return {"dual_timek_128": {"device_us": chip_smoke.device_us(call, ["dual_time"]),
+                               "ms": chip_smoke.time_ms(call),
+                               "bound_ms": chip_smoke.bound_of(12 * cells, K * 27 * cells)[0]},
+            "solve_128_k3": {"iters_total": run.iters_total,
+                             "timed_window_s": run.bench.delta_t}}
 
 
 if __name__ == "__main__":

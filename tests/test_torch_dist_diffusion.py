@@ -218,3 +218,27 @@ def test_refusals():
     with pytest.raises(ValueError, match="CUDA tensor"):
         H = torch.zeros((8, 5, 5))
         dual_time._dual_time_stepk_padded_cuda(H[:6], H, 2, dual_time.coeffs(**ARGS), (1, 2))
+
+
+@pytest.mark.parametrize("K", [2, 3, 5])
+@pytest.mark.parametrize("edge", ["whole", "first", "last"])
+def test_stepk_padded_ignores_unread_ghosts(rng, K, edge):
+    """#9's ghost planes on a global face are never read (its box starts K+1
+    planes in), and scratch's ghost planes are not part of the result: with
+    both set to NaN, the owned planes and the norm are bitwise those of
+    finite ghosts."""
+    nzl, ny, nx = 7, 8, 9
+    zb = {"whole": (1, nzl - 2), "first": (1, nzl - 1 + K), "last": (-K, nzl - 2)}[edge]
+    Ht_k = torch.tensor(rng.random((nzl + 2 * K - 2, ny, nx)))
+    Hp = torch.tensor(rng.random((nzl + 2 * K, ny, nx)))
+    want, s_want = dual_time.dual_time_stepk_padded(Ht_k, Hp.clone(), K, **ARGS, z_bounds=zb)
+    Hp_nan, scratch = Hp.clone(), torch.zeros_like(Hp)
+    scratch[:K] = scratch[-K:] = float("nan")
+    if zb[0] == 1:  # a global face below: its ghosts are unread
+        Hp_nan[:K] = float("nan")
+    if zb[1] == nzl - 2:
+        Hp_nan[-K:] = float("nan")
+    got, s_got = dual_time.dual_time_stepk_padded(Ht_k, Hp_nan, K, **ARGS, z_bounds=zb,
+                                                  scratch=scratch)
+    torch.testing.assert_close(got[K:K + nzl], want[K:K + nzl], rtol=0, atol=0)
+    assert float(s_got) == float(s_want)

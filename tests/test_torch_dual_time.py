@@ -21,6 +21,7 @@ import torch
 
 from fpr_tpu.ops import pallas3d
 from fpr_tpu.ops import stencil3d as jst
+from fpr_tpu_torch import kernels
 from fpr_tpu_torch.ops import dual_time, stencil3d
 
 ARGS = dict(dt=0.2, dtau=1e-3, dx=0.1, dy=0.11, dz=0.12, D=1.0)
@@ -71,7 +72,7 @@ def test_stepk_matches_stacked(rng, K, dtype):
     for _ in range(2):
         state, s_j = pallas3d.dual_time_stepk_stacked(state, shape, K=K, block_z=4, **ARGS)
         out, s_t = dual_time.dual_time_stepk(Ht, Htau, K, **ARGS, scratch=scratch)
-        assert out is (scratch if K % 2 else Htau)
+        assert out is scratch  # the buffer contract: the result in scratch
         Htau, scratch = out, (Htau if out is scratch else scratch)
         Ht_j, Htau_j = dual_time.state_from_jax(np.asarray(state), shape, "stacked", K)
         torch.testing.assert_close(Ht_j, Ht, rtol=0, atol=0)  # Ht planes persist
@@ -146,3 +147,102 @@ def test_wrappers_refuse_bad_buffers():
         dual_time._dual_time_cuda(H, Hs, dual_time.coeffs(**ARGS))
     with pytest.raises(ValueError, match="CUDA tensor"):
         dual_time._dual_timek_cuda(H, Hs, 2, dual_time.coeffs(**ARGS))
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        dual_time._dual_time_stepk_padded_cuda(torch.zeros((7, 6, 7)), torch.zeros((9, 6, 7)),
+                                               2, dual_time.coeffs(**ARGS), (1, 3))
+
+
+@pytest.mark.parametrize("K", [1, 2, 3, 4, 5])
+def test_stepk_buffer_contract(rng, K):
+    """The K-call writes its result into scratch and leaves Htau bitwise
+    unwritten, and the result is K single steps."""
+    Ht, Htau = (torch.tensor(a) for a in _fields(rng, (9, 10, 11), np.float32))
+    Htau0, scratch = Htau.clone(), torch.full_like(Htau, float("nan"))
+    want, s = Htau, None
+    for _ in range(K):
+        want, s = dual_time.dual_time_step(Ht, want, **ARGS)
+    out, sk = dual_time.dual_time_stepk(Ht, Htau, K, **ARGS, scratch=scratch)
+    assert out is scratch
+    torch.testing.assert_close(Htau, Htau0, rtol=0, atol=0)
+    torch.testing.assert_close(out, want, rtol=0, atol=0)
+    assert float(sk) == float(s)
+
+
+@pytest.mark.parametrize("K", range(1, 14))
+def test_split_passes(K):
+    ks = dual_time.split_passes(K)
+    assert sum(ks) == K and max(ks) <= kernels.K_MAX
+    assert len(ks) == -(-K // kernels.K_MAX) and max(ks) - min(ks) <= 1
+    assert ks == sorted(ks, reverse=True)
+
+
+@pytest.fixture
+def launch_plain(monkeypatch):
+    """The CUDA wrappers' Python side on CPU tensors: ``_launch_k`` does the
+    kernel's function in plain PyTorch (each sweep updates its box over
+    every plane and copies the rest; the planes of the last sweep into out;
+    the norm into partials[0]).  Returns the launches' records
+    (sweeps, planes, norm taken)."""
+    calls = []
+
+    def launch_k(Ht, src, cf, out, partials, zboxes, planes, ht_shift):
+        nz, ny, nx = src.shape
+        cur = src
+        for z0, z1 in zboxes:
+            nxt = torch.empty_like(cur)
+            dh = dual_time.dual_time_box_plain(Ht, cur, cf, (z0, z1, 1, ny - 2, 1, nx - 2),
+                                               (0, nz - 1), nxt, None, ht_shift)
+            cur = nxt
+        out[planes[0]:planes[1] + 1] = cur[planes[0]:planes[1] + 1]
+        if partials is not None:
+            partials.zero_()
+            partials[0] = torch.sum(dh * dh)
+        calls.append((len(zboxes), planes, partials is not None))
+
+    monkeypatch.setattr(dual_time, "_launch_k", launch_k)
+    monkeypatch.setattr(kernels, "require_cuda_f32", lambda *tensors: None)
+    return calls
+
+
+@pytest.mark.parametrize("K", range(1, 10))
+def test_fused_passes_stepk(rng, launch_plain, K):
+    """#10's wrapper on the card: split_passes(K) launches, the norm from
+    the last, the result in scratch, Htau unwritten, equal to the plain
+    version bitwise (fields and norm)."""
+    Ht, Htau = (torch.tensor(a) for a in _fields(rng, (10, 9, 11), np.float64))
+    Htau0, scratch = Htau.clone(), torch.full_like(Htau, float("nan"))
+    out, s = dual_time._dual_timek_cuda(Ht, Htau, K, dual_time.coeffs(**ARGS), scratch)
+    want, sw = dual_time.dual_time_stepk_plain(Ht, Htau.clone(), K, dual_time.coeffs(**ARGS))
+    assert out is scratch
+    torch.testing.assert_close(Htau, Htau0, rtol=0, atol=0)
+    torch.testing.assert_close(out, want, rtol=0, atol=0)
+    assert float(s) == float(sw)
+    ks = dual_time.split_passes(K)
+    assert launch_plain == [(k, (0, 9), m == len(ks) - 1) for m, k in enumerate(ks)]
+
+
+@pytest.mark.parametrize("K", range(1, 8))
+@pytest.mark.parametrize("edge", ["whole", "first", "interior", "last"])
+def test_fused_passes_stepk_padded(rng, launch_plain, K, edge):
+    """#9's wrapper on the card: a pass ending at sweep j writes the window
+    (j, nz-1-j), the last one the owned planes, which equal the plain
+    version's bitwise; the norm (summed in another order) within 1e-12."""
+    nzl, ny, nx = 9, 8, 10
+    nz = nzl + 2 * K
+    Ht_k = torch.tensor(rng.random((nz - 2, ny, nx)))
+    Hp = torch.tensor(rng.random((nz, ny, nx)))
+    zb = {"whole": (1, nzl - 2), "first": (1, nzl - 1 + K), "interior": (-K, nzl - 1 + K),
+          "last": (-K, nzl - 2)}[edge]
+    cf = dual_time.coeffs(**ARGS)
+    Hp0, scratch = Hp.clone(), torch.full_like(Hp, float("nan"))
+    out, s = dual_time._dual_time_stepk_padded_cuda(Ht_k, Hp, K, cf, zb, scratch,
+                                                    torch.zeros(nzl, dtype=Hp.dtype))
+    want, sw = dual_time.dual_time_stepk_padded_plain(Ht_k, Hp.clone(), K, cf, zb)
+    assert out is scratch
+    torch.testing.assert_close(Hp, Hp0, rtol=0, atol=0)
+    torch.testing.assert_close(out[K:K + nzl], want[K:K + nzl], rtol=0, atol=0)
+    assert abs(float(s) - float(sw)) <= 1e-12 * abs(float(sw))
+    ks = dual_time.split_passes(K)
+    ends = np.cumsum(ks)
+    assert launch_plain == [(k, (int(e), nz - 1 - int(e)), m == len(ks) - 1)
+                            for m, (k, e) in enumerate(zip(ks, ends))]
