@@ -75,20 +75,26 @@ Phases, in order; the first failure stops the run with a non-zero exit:
     beta=0.5, against the single device (tests/test_distributed.py's
     bounds).
 
-Phase 3 also holds the host-loop tiers' kernels against their plain
-versions: the stencil pass (#5) in every mode in float32 at 2049x513 and
-4097^2 and in float64 at 2049^2 (fields bitwise, sums within REL_SUM or
-1e-12), and the legs #6/#7 at 2049x513 with ns 2 and 5, with and without
-elim.  And the sharded tiers' shard windows: #9 against its plain version
+Phase 3 holds the legs K2/K3 (one launch of the leg kernel a call) bitwise
+at the MG row's levels with ns=5, timed at 2049x513 ns=3 and at 4097^2
+ns=5 (the rows smooth_down_4097, corr_up_4097), and with ns 1-6, elim and
+c != 0, from u and from a zero iterate, at 2049x513 and at the ragged
+67x45, 130x257 and 67x113. It also holds the host-loop tiers' kernels
+against their plain versions: the stencil pass (#5) in every mode in
+float32 at 2049x513 and 4097^2 and in float64 at 2049^2 (fields bitwise,
+sums within REL_SUM or 1e-12), and the legs #6/#7 at 2049x513 with ns 1-6,
+with and without elim, each entry point launching the leg kernel once a
+call. And the sharded tiers' shard windows: #9 against its plain version
 and, on the owned planes, against the global #10 (first, interior and last
 shard of 4, K 2 and 3, at phase 14's 512^3, the ghost planes of the result
-buffer set to NaN before the call), #8 with the update boxes of
-phase 14's shards, and K1, #6, #7 and K4 with the row hooks against their
-plain versions and against the rows of their call on the whole 2049x513
-grid, K1, #6 and #7 with the row and column hooks on the four windows of a
-2x2 split of 2049^2 against their plain versions and the whole grid's
-cells, and K4's with_helm_defect mode (the ``ns_fused_helm`` row) against
-its plain version and against the rhs pass and two K1 passes, all bitwise.
+buffer set to NaN before the call), #8 with the update boxes of phase 14's
+shards, and K1, #6 (ns 1-6), #7 (ns 1-6) and K4 with the row hooks against
+their plain versions and against the rows of their call on the whole
+2049x513 grid, K1, #6 and #7 (ns 1-6) with the row and column hooks on the
+four windows of a 2x2 split of 2049^2 against their plain versions and the
+whole grid's cells, and K4's with_helm_defect mode (the ``ns_fused_helm``
+row) against its plain version and against the rhs pass and two K1 passes,
+all bitwise.
 Each kernel's launches are counted over the one path run that uses it
 (phase 5 for the NS kernels, 7 for dual_timek, 8 for dual_time, 9 for
 ds3d, 11's PALLAS ``mg_solve`` for the stencil pass, 13's beta=0.5 run for
@@ -172,6 +178,20 @@ def device_us(fn, names, reps: int = 20):
     total = sum(getattr(ev, "device_time_total", None) or getattr(ev, "cuda_time_total", 0.0)
                 for ev in prof.key_averages() if any(n in ev.key for n in names))
     return total / reps if total > 0 else None
+
+
+def kernel_launches(fn, name) -> int:
+    """Launches of the CUDA kernels whose names contain name in one call of
+    fn, from torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(ev.count for ev in prof.key_averages() if name in ev.key)
 
 
 def tensors(*xs):
@@ -357,27 +377,34 @@ def phase_kernels(kc: KernelCheck):
              lambda: ds.defect_pass_plain(*args, velocity_max=True), args, (ny, nx),
              ["defect_kernel"], flops=120 * ny * nx)
 
-    # K2 and K3, the legs: NS (ns=3, 513x2049, elim for the T solve) and the
-    # MG row (ns=5 on 4097^2, 2049^2, 1025^2)
-    leg_cases = [((513, 2049), 3, False, 0.0), ((513, 2049), 3, True, cT),
-                 ((513, 2049), 3, False, cT * 100.0), ((4097, 4097), 5, False, 0.0),
-                 ((2049, 2049), 5, False, 0.0), ((1025, 1025), 5, False, 0.0)]
+    # K2 and K3, the legs: the MG row (ns=5 on 4097^2, 2049^2, 1025^2), and
+    # ns 1-6 with and without elim and c != 0 at NS's 513x2049 (ns=3 on the
+    # path, elim for the T solve) and on ragged shapes (at 67x113 a tile of
+    # the leg kernel begins at the last column), from u and from a zero
+    # iterate
+    leg_cases = [((4097, 4097), 5, False, 0.0), ((2049, 2049), 5, False, 0.0),
+                 ((1025, 1025), 5, False, 0.0)]
+    for shape in ((513, 2049), (67, 45), (130, 257), (67, 113)):
+        for ns in range(1, 7):
+            leg_cases += [(shape, ns, False, 0.0), (shape, ns, True, cT),
+                          (shape, ns, False, cT * 100.0)]
     for (ny, nx), ns, elim, c in leg_cases:
         h = 1.0 / (min(ny, nx) - 1)
         f2, u2 = rand(ny, nx), rand(ny, nx)
         ct = stencil2d.as_scalar(c, f2)
-        tag = f"{ny}x{nx} ns={ns} elim={elim}"
+        tag = f"{ny}x{nx} ns={ns} elim={elim} c={float(c)}"
         for uu in (None, u2):
             got = vcycle_legs._smooth_down_cuda(uu, f2, h, ct, 0.8, ns, elim)
             want = vcycle_legs.smooth_down_plain(uu, f2, h, ct, 0.8, ns, elim)
             kc.fields("smooth_down", got, want, f"{tag} zero_u={uu is None}")
-        coarse = rand((ny - 1) // 2 + 1, (nx - 1) // 2 + 1, scale=1e-2)
+        coarse = rand(ny // 2 + 1, (nx - 1) // 2 + 1, scale=1e-2)
         corrx = transfer.x_interleave_coarse(coarse, apply_bcs=elim)
         got = vcycle_legs._corr_up_cuda(u2, f2, corrx, h, ct, 0.8, ns, elim, True)
         want = vcycle_legs.corr_up_plain(u2, f2, corrx, h, ct, 0.8, ns, elim, True)
         kc.fields("corr_up", got[:1], want[:1], tag)
         kc.sums("corr_up", got[1:], want[1:], f"{tag} norm")
-        if (ny, nx) == (513, 2049) and not elim and c == 0.0:
+        timed = {(513, 2049, 3): "", (4097, 4097, 5): "_4097"}.get((ny, nx, ns))
+        if timed is not None and not elim and c == 0.0:
             # about 10 flops a cell per sweep and per residual pass, 2 for the norm
             for name, k_fn, p_fn, a, flops in (
                 ("smooth_down", vcycle_legs._smooth_down_cuda,
@@ -386,8 +413,26 @@ def phase_kernels(kc: KernelCheck):
                 ("corr_up", vcycle_legs._corr_up_cuda, vcycle_legs.corr_up_plain,
                  (u2, f2, corrx, h, ct, 0.8, ns, elim, True), (ns * 10 + 2) * ny * nx),
             ):
-                kc.timed(name, lambda: k_fn(*a), lambda: p_fn(*a), a, (ny, nx),
-                         ["sweep_kernel", "residual_kernel"], flops)
+                kc.timed(name + timed, lambda: k_fn(*a), lambda: p_fn(*a), a, (ny, nx),
+                         ["leg_kernel"], flops)
+                require(kernel_launches(lambda: k_fn(*a), "leg_kernel") == 1,
+                        f"{name} {tag}: not one launch of the leg kernel a call")
+
+    # the legs at 4097^2 by ns: the slope is the sweeps' cost, the rest the
+    # pass that loads and stores
+    n = 4097
+    h = 1.0 / (n - 1)
+    f2, u2 = rand(n, n), rand(n, n)
+    corrx = transfer.x_interleave_coarse(rand(n // 2 + 1, n // 2 + 1, scale=1e-2))
+    c0 = stencil2d.as_scalar(0.0, f2)
+    by_ns = {}
+    for ns in range(1, 7):
+        by_ns[ns] = [device_us(fn, ["leg_kernel"]) for fn in (
+            lambda: vcycle_legs._smooth_down_cuda(None, f2, h, c0, 0.8, ns, False),
+            lambda: vcycle_legs._corr_up_cuda(u2, f2, corrx, h, c0, 0.8, ns, False, True))]
+    log(f"legs at {n}^2, device us by ns (down from a zero iterate, up with its norm): "
+        f"{by_ns}")
+    del f2, u2, corrx
 
     # K4, the NS operator: explicit + defect, rhs at beta 0.5 and 1
     ny, nx = 513, 2049
@@ -547,7 +592,9 @@ def phase_kernels_shards(kc: KernelCheck, dev=None, n=512):
             owned("defect", got[1], whole[1], d, f"K1 {tag} r")
     f2, u2 = rand(ny, nx), rand(ny, nx)
     coarse = rand((ny - 1) // 2 + 1, (nx - 1) // 2 + 1, scale=1e-2)
-    for ns, elim, c in ((3, False, torch.zeros((), device=dev)), (3, True, cT)):
+    leg_cases = [(ns, elim, c) for ns in range(1, 7)
+                 for elim, c in ((False, torch.zeros((), device=dev)), (True, cT))]
+    for ns, elim, c in leg_cases:
         whole_dn = vcycle_legs._smooth2r_split_cuda(u2, f2, h, c, 0.8, ns, elim)
         whole_dn0 = vcycle_legs._smooth2r_split_cuda(None, f2, h, c, 0.8, ns, elim)
         corrx = transfer.x_interleave_coarse(coarse, apply_bcs=elim)
@@ -654,7 +701,7 @@ def phase_kernels_cols(kc: KernelCheck, dev=None, n=2049):
     del u, f, e
     f2, u2 = rand(n, n), rand(n, n)
     c = torch.zeros((), device=dev)
-    for ns in (1, 3, 6):
+    for ns in range(1, 7):
         for uu in (None, u2):
             whole = vcycle_legs._smooth2r_split_cuda(uu, f2, h, c, 0.8, ns, False)
             for dy, dx in split:
@@ -671,7 +718,7 @@ def phase_kernels_cols(kc: KernelCheck, dev=None, n=2049):
     coarse = rand((n - 1) // 2 + 1, (n - 1) // 2 + 1, scale=1e-2)
     corrx = transfer.x_interleave_coarse(coarse)
     padded = torch.nn.functional.pad(corrx, (GX, 2 * nx_l + GX - n, G // 2, ny_l + G))
-    for ns in (2, 5):
+    for ns in range(1, 7):
         whole, rr = vcycle_legs._corr_smooth2_cuda(u2, f2, corrx, h, c, 0.8, ns, False, True)
         sums = []
         for dy, dx in split:
@@ -894,7 +941,7 @@ def phase_kernels_host(kc: KernelCheck):
     coarse = torch.tensor(rng.standard_normal(((ny - 1) // 2 + 1, (nx - 1) // 2 + 1)) * 1e-2,
                           dtype=torch.float32, device=dev)
     cT = torch.tensor(41.25, dtype=torch.float32, device=dev)
-    for ns in (2, 5):
+    for ns in range(1, 7):
         for elim, c in ((False, stencil2d.as_scalar(0.0, f2)), (True, cT)):
             tag = f"{ny}x{nx} ns={ns} elim={elim}"
             for uu in (None, u2):
@@ -912,11 +959,24 @@ def phase_kernels_host(kc: KernelCheck):
     a_down = (u2, f2, h, c, 0.8, ns, False)
     kc.timed("smooth2r_split", lambda: vcycle_legs._smooth2r_split_cuda(*a_down),
              lambda: vcycle_legs.smooth_down_plain(*a_down), a_down, (ny, nx),
-             ["sweep_kernel", "residual_kernel"], flops=(ns + 1) * 10 * ny * nx)
+             ["leg_kernel"], flops=(ns + 1) * 10 * ny * nx)
     a_up = (u2, f2, corrx, h, c, 0.8, ns, False, True)
     kc.timed("corr_smooth2", lambda: vcycle_legs._corr_smooth2_cuda(*a_up),
              lambda: vcycle_legs.corr_up_plain(*a_up), a_up, (ny, nx),
-             ["sweep_kernel"], flops=(ns * 10 + 2) * ny * nx)
+             ["leg_kernel"], flops=(ns * 10 + 2) * ny * nx)
+    # one launch of the leg kernel a call, the public entry points too
+    for name, fn in (
+            ("smooth2r_split", lambda: vcycle_legs.smooth2r_split(u2, f2, h, c, 0.8, ns=ns)),
+            ("corr_smooth2", lambda: vcycle_legs.corr_smooth2(u2, f2, coarse, h, c, 0.8,
+                                                              with_norm=True, ns=ns)),
+            ("corr_smooth2_raw", lambda: vcycle_legs.corr_smooth2_raw(
+                u2, f2, transfer.x_interleave_coarse(coarse), h, c, 0.8, with_norm=True,
+                ns=ns)),
+            ("smooth_down", lambda: vcycle_legs.smooth_down(None, f2, h, c, 0.8, ns=ns)),
+            ("corr_up", lambda: vcycle_legs.corr_up(u2, f2, corrx, h, c, 0.8, ns=ns,
+                                                    with_norm=True))):
+        n = kernel_launches(fn, "leg_kernel")
+        require(n == 1, f"{name}: {n} launches of the leg kernel in one call")
     torch.cuda.synchronize()
 
 

@@ -88,16 +88,6 @@ __device__ __forceinline__ float cell(const Params& p, float c, float xp, float 
     return c - p.dtau * dh;
 }
 
-// a block sum over NT threads in a fixed order; valid in thread 0
-__device__ __forceinline__ float block_sum(float v, float* sh, int tid) {
-    v = fpr::warp_sum(v);
-    __syncthreads();
-    if ((tid & 31) == 0) sh[tid >> 5] = v;
-    __syncthreads();
-    if (tid < 32) v = fpr::warp_sum(tid < NT / 32 ? sh[tid] : 0.0f);
-    return v;
-}
-
 // two blocks an SM up to K = 3; K = 4 needs more than half the registers
 template <int K>
 __global__ void __launch_bounds__(NT, K < 4 ? 512 / NT : 1)
@@ -211,7 +201,7 @@ dual_timek_kernel(const Params p) {
     }
 
     if (p.partials != nullptr) {  // the same for every block of the launch
-        dsq = block_sum(dsq, red, tid);
+        dsq = fpr::block_sum_n<NT>(dsq, red, tid);
         if (tid == 0) p.partials[fpr::block_id()] = dsq;
     }
 }

@@ -101,6 +101,18 @@ __device__ __forceinline__ float block_sum(float v, float* sh) {
     return v;
 }
 
+// block_sum for a block of NT threads numbered tid (a multiple of 32, at
+// most 1024), in the same fixed order; valid in thread 0.
+template <int NT>
+__device__ __forceinline__ float block_sum_n(float v, float* sh, int tid) {
+    v = warp_sum(v);
+    __syncthreads();
+    if ((tid & 31) == 0) sh[tid >> 5] = v;
+    __syncthreads();
+    if (tid < 32) v = warp_sum(tid < NT / 32 ? sh[tid] : 0.0f);
+    return v;
+}
+
 // Maximum of non-negative values.
 __device__ __forceinline__ float block_max(float v, float* sh) {
     v = warp_max(v);

@@ -25,9 +25,10 @@ count calls of the K-sweep wrappers (#10 and #9), each of which launches
 the fused K-sweep kernel once per pass of at most ``K_MAX`` sweeps, and
 ``stencil`` calls of its wrappers (``smooth2`` launches the kernel twice).
 ``smooth2r_split`` and ``corr_smooth2`` count the separate-buffer V-cycle
-legs of the row-padded V-cycle, which launch the CUDA code of
-``smooth_down`` and ``corr_up``.  ``ns_fused_helm`` counts the NS operator
-kernel's launches in its Helmholtz-defect mode, ``ns_fused`` the others.
+legs of the row-padded V-cycle, which launch the leg kernel of
+``smooth_down`` and ``corr_up`` (one launch a call, all four).
+``ns_fused_helm`` counts the NS operator kernel's launches in its
+Helmholtz-defect mode, ``ns_fused`` the others.
 """
 
 from __future__ import annotations
@@ -75,8 +76,8 @@ _P, _I, _F, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_double
 _SIGNATURES = {
     "fpr_num_blocks": [_I, _I],
     "fpr_defect": [*[_P] * 6, _F, _F, _F, *[_I] * 11, _P, _P, _P, _P, _P],
-    "fpr_sweep": [_P, _P, _P, _P, _F, _F, _F, *[_I] * 12, _P, _P, _P],
-    "fpr_residual": [_P, _P, _P, _F, _F, *[_I] * 6, _P, _P],
+    "fpr_leg": [_P, _P, _P, _P, _F, _F, _F, *[_I] * 13, _P, _P, _P, _I, _P],
+    "fpr_leg_blocks": [_I, _I, _I, _I, ctypes.POINTER(_I)],
     "fpr_ns_fused": [*[_P] * 6, *[_F] * 7, *[_I] * 7, *[_P] * 6],
     "fpr_dual_time": [_P, _P, _P, _P, _I, *[_F] * 6, *[_I] * 11, _P],
     "fpr_dual_timek": [_P, _P, _P, _P, _I, *[_F] * 6, *[_I] * 7, _P, *[_I] * 4, _P],

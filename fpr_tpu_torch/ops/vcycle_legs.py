@@ -36,15 +36,21 @@ mean of two.
 
 The port's arrays are physical (ny, nx) tensors.  The residual of
 ``smooth_down`` is plain, not parity-split; ``transfer.restrict`` of it
-gives the values ``transfer.restrict_ps`` gives on the TPU.  Every sweep
-writes a buffer other than the one it reads (the TPU legs alias their
-output onto the level state instead).
+gives the values ``transfer.restrict_ps`` gives on the TPU.
 
-The plain versions are dtype-generic (float32 and float64); the CUDA
-kernels (csrc/vcycle_legs.cu) take float32.
+The plain versions are dtype-generic (float32 and float64).  On the card
+each call of the four entry points is one launch of the leg kernel
+(csrc/vcycle_legs.cu: all ``ns`` sweeps on a tile in shared memory), in
+float32, bitwise equal to the plain version; its output is never an input
+(the TPU legs alias theirs onto the level state instead), and the up leg's
+norm comes from one partial sum per block, the grid's size from
+``leg_blocks``.
 """
 
 from __future__ import annotations
+
+import ctypes
+import functools
 
 import torch
 
@@ -54,7 +60,7 @@ from fpr_tpu_torch.ops import transfer
 from fpr_tpu_torch.ops.rows import Cols, Rows
 from fpr_tpu_torch.ops.stencil2d import as_scalar
 
-_SRC_ARRAY, _SRC_ZERO, _SRC_CORR = 0, 1, 2
+_DOWN, _DOWN_ZERO, _UP = 0, 1, 2  # fpr_leg's modes
 
 
 def _consts(c, h, like):
@@ -170,31 +176,39 @@ def _hooks(f, rows, cols):
             + (Cols.whole(nx) if cols is None else cols).args())
 
 
+@functools.lru_cache(maxsize=None)
+def leg_blocks(up: bool, ns: int, ny: int, nx: int) -> int:
+    """The blocks of a launch of the leg kernel over (ny, nx) with ns sweeps
+    on this process's card: the length of the up leg's partials.  The grid
+    is chosen in C (fpr_leg_blocks); the answer is kept per shape."""
+    n = ctypes.c_int(0)
+    kernels.check(kernels.lib().fpr_leg_blocks(int(up), ns, ny, nx, ctypes.byref(n)),
+                  "fpr_leg_blocks")
+    return n.value
+
+
+def _launch_leg(mode, u, f, corrx, c, h, alpha, ns, elim, hooks, out, res, partials):
+    """One launch of the leg kernel (csrc/vcycle_legs.cu): the down leg
+    (mode _DOWN from u, _DOWN_ZERO from a zero iterate) into out and res,
+    or the up leg (_UP) into out and partials (or None)."""
+    ny, nx = f.shape
+    h2 = float(h) * float(h)
+    err = kernels.lib().fpr_leg(
+        kernels.ptr(u), f.data_ptr(), kernels.ptr(corrx), c.data_ptr(), h2, 1.0 / h2,
+        float(alpha), ny, nx, ns, mode, int(elim), *hooks, out.data_ptr(), kernels.ptr(res),
+        kernels.ptr(partials), 0 if partials is None else partials.numel(), kernels.stream(f))
+    kernels.check(err, "fpr_leg")
+
+
 def _down_cuda(name, u, f, h, c, alpha, ns, elim, rows=None, cols=None):
-    """The down leg on the card (csrc/vcycle_legs.cu), counted as ``name``."""
+    """The down leg on the card, one launch, counted as ``name``."""
     c = as_scalar(c, f)
     kernels.require_cuda_f32(name, u, f, c)
-    lib = kernels.lib()
-    ny, nx = f.shape
-    hooks = _hooks(f, rows, cols)
-    h2, inv_h2 = float(h) * float(h), 1.0 / (float(h) * float(h))
-    st = kernels.stream(f)
-    bufs = (torch.empty_like(f), torch.empty_like(f))
-    src = u
-    for s in range(ns):
-        mode = _SRC_ZERO if (s == 0 and u is None) else _SRC_ARRAY
-        dst = bufs[s % 2]
-        err = lib.fpr_sweep(kernels.ptr(src), f.data_ptr(), None, c.data_ptr(), h2,
-                            inv_h2, float(alpha), ny, nx, mode, int(elim), *hooks,
-                            dst.data_ptr(), None, st)
-        kernels.check(err, "fpr_sweep")
-        src = dst
-    res = torch.empty_like(f)
-    err = lib.fpr_residual(src.data_ptr(), f.data_ptr(), c.data_ptr(), h2, inv_h2,
-                           ny, nx, *hooks[:2], *hooks[4:6], res.data_ptr(), st)
-    kernels.check(err, "fpr_residual")
+    out, res = torch.empty_like(f), torch.empty_like(f)
+    _launch_leg(_DOWN_ZERO if u is None else _DOWN, u, f, None, c, h, alpha, ns, elim,
+                _hooks(f, rows, cols), out, res, None)
     kernels.launches[name] += 1
-    return src, res
+    return out, res
 
 
 def _smooth_down_cuda(u, f, h, c, alpha=0.8, ns=2, elim=False):
@@ -209,36 +223,22 @@ def _smooth2r_split_cuda(u, f, h, c, alpha=0.8, ns=2, elim=False, rows=None, col
 
 def _up_cuda(name, u, f, corrx, h, c, alpha, ns, elim, with_norm, out, rows=None,
              cols=None):
-    """The up leg on the card (csrc/vcycle_legs.cu), counted as ``name``."""
+    """The up leg on the card, one launch, counted as ``name``."""
     c = as_scalar(c, f)
     kernels.require_cuda_f32(name, u, f, corrx, c, out)
-    lib = kernels.lib()
-    ny, nx = f.shape
-    hooks = _hooks(f, rows, cols)
-    h2, inv_h2 = float(h) * float(h), 1.0 / (float(h) * float(h))
-    st = kernels.stream(f)
     if out is None:
         out = torch.empty_like(f)
-    bufs = (torch.empty_like(f), torch.empty_like(f))
-    partials = None
-    src = u
-    for s in range(ns):
-        last = s == ns - 1
-        dst = out if last else bufs[s % 2]
-        if last and with_norm:
-            partials = torch.empty(kernels.num_blocks(ny, nx), dtype=torch.float32,
-                                   device=f.device)
-        err = lib.fpr_sweep(src.data_ptr(), f.data_ptr(), corrx.data_ptr(),
-                            c.data_ptr(), h2, inv_h2, float(alpha), ny, nx,
-                            _SRC_CORR if s == 0 else _SRC_ARRAY, int(elim), *hooks,
-                            dst.data_ptr(), kernels.ptr(partials), st)
-        kernels.check(err, "fpr_sweep")
-        src = dst
+    elif out.data_ptr() == u.data_ptr():
+        raise ValueError(f"{name}: out must not alias u")
+    ny, nx = f.shape
+    partials = (torch.empty(leg_blocks(True, ns, ny, nx), dtype=torch.float32, device=f.device)
+                if with_norm else None)
+    hooks = _hooks(f, rows, cols)
+    _launch_leg(_UP, u, f, corrx, c, h, alpha, ns, elim, hooks, out, None, partials)
     kernels.launches[name] += 1
     if not with_norm:
         return out, None
-    n = partials.new_full((), float(hooks[5] * hooks[1]))
-    return out, torch.sqrt(partials.sum() / n)
+    return out, torch.sqrt(partials.sum() / float(hooks[5] * hooks[1]))
 
 
 def _corr_up_cuda(u, f, corrx, h, c, alpha=0.8, ns=2, elim=False,

@@ -9,11 +9,15 @@ ROOT is the root of a checkout (``.`` for this one, or an unpacked
 kernels into ROOT's build directory, runs the environment, build and
 kernel-check phases, and prints as its last line one JSON object
 ``{"root": ROOT, "kernels": {name: {"device_us", "ms", "plain_ms",
-"bound_ms"}}, "small": {...}}``.  ``small`` holds part 1's K-sweep call
-at 128^3, K=3, the call of phase 8's check_every=3 solve (device µs over
-every kernel whose name starts with ``dual_time``, whichever kernel the
-tree runs it with, and call ms), and that solve's timed window in
-seconds.  Run it once per tree in a fresh process, in turns (parent,
+"bound_ms"}}, "small": {...}, "legs_4097": {...}}``.  ``small`` holds
+part 1's K-sweep call at 128^3, K=3, the call of phase 8's check_every=3
+solve (device µs over every kernel whose name starts with ``dual_time``,
+whichever kernel the tree runs it with, and call ms), and that solve's
+timed window in seconds.  ``legs_4097`` holds the V-cycle legs at the MG
+row's finest level, 4097^2 with ns=5: the down leg from a zero iterate
+and the up leg with its norm, device µs over the legs' kernels of either
+tree (the per-sweep kernels or the one-launch leg kernel), call ms and
+the bound.  Run it once per tree in a fresh process, in turns (parent,
 change, change, parent), since two packages of one name cannot share a
 process.
 """
@@ -41,7 +45,8 @@ def main() -> int:
     out = {name: {"device_us": row["device_us"], "ms": row["ms"], "plain_ms": row["plain_ms"],
                   "bound_ms": kc.bound(name)[0]}
            for name, row in kc.rows.items()}
-    print(json.dumps({"root": root, "kernels": out, "small": small_field(chip_smoke)}))
+    print(json.dumps({"root": root, "kernels": out, "small": small_field(chip_smoke),
+                      "legs_4097": legs_4097(chip_smoke)}))
     return 0
 
 
@@ -70,6 +75,33 @@ def small_field(chip_smoke) -> dict:
                                "bound_ms": chip_smoke.bound_of(12 * cells, K * 27 * cells)[0]},
             "solve_128_k3": {"iters_total": run.iters_total,
                              "timed_window_s": run.bench.delta_t}}
+
+
+def legs_4097(chip_smoke, n=4097, ns=5) -> dict:
+    """K2 from a zero iterate and K3 with its norm at n^2, ns sweeps, through
+    the CUDA wrappers that both trees have."""
+    import numpy as np
+    import torch
+
+    from fpr_tpu_torch.ops import transfer, vcycle_legs
+
+    rng = np.random.default_rng(5)
+    f, u = (torch.tensor(rng.standard_normal((n, n)), dtype=torch.float32, device="cuda")
+            for _ in range(2))
+    coarse = torch.tensor(rng.standard_normal(((n + 1) // 2, (n + 1) // 2)) * 1e-2,
+                          dtype=torch.float32, device="cuda")
+    corrx = transfer.x_interleave_coarse(coarse)
+    c = torch.zeros((), device="cuda")
+    h = 1.0 / (n - 1)
+    names = ["sweep_kernel", "residual_kernel", "leg_kernel"]
+    calls = {"smooth_down": (lambda: vcycle_legs._smooth_down_cuda(None, f, h, c, 0.8, ns),
+                             3 * 4 * n * n),
+             "corr_up": (lambda: vcycle_legs._corr_up_cuda(u, f, corrx, h, c, 0.8, ns, False,
+                                                           True),
+                         3 * 4 * n * n + 4 * corrx.numel())}
+    return {name: {"device_us": chip_smoke.device_us(fn, names), "ms": chip_smoke.time_ms(fn),
+                   "bound_ms": chip_smoke.bound_of(nbytes, 0)[0]}
+            for name, (fn, nbytes) in calls.items()}
 
 
 if __name__ == "__main__":

@@ -23,13 +23,22 @@ launch counts of the port's CUDA wrappers, and the top device kernels and
 copies.
 
 Run from the repo root on a GPU machine:  python scripts/torch_profile.py
+[ROOT] [--only TEXT ...].  ROOT (default: this checkout) is the root of the
+checkout whose ``fpr_tpu_torch`` is profiled, such as an unpacked ``git
+archive`` of another commit; --only keeps the windows whose labels
+begin with one of the texts, e.g. ``--only "MG 4097^2" "NS explicit"``.
 """
 
+import argparse
 import os
 import sys
 import time
 
-sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
+ARGS = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+ARGS.add_argument("root", nargs="?", default=os.path.join(os.path.dirname(__file__), ".."))
+ARGS.add_argument("--only", nargs="*", default=None)
+OPTS = ARGS.parse_args(sys.argv[1:] if __name__ == "__main__" else [])
+sys.path.insert(0, os.path.abspath(OPTS.root))
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
@@ -53,6 +62,8 @@ from fpr_tpu_torch.solvers.multigrid import mg_solve_ds, mg_solve_mixed  # noqa:
 
 
 def window(label, fn, top=12):
+    if OPTS.only is not None and not any(label.startswith(t) for t in OPTS.only):
+        return
     fn()
     torch.cuda.synchronize()
     kernels.reset_launches()
