@@ -124,6 +124,10 @@ PEAK_F32_FLOPS_S = 67e12
 PEAK_F64_FLOPS_S = 34e12
 # the device of phases 10-13 (a rehearsal on the CPU sets "cpu")
 DEVICE = "cuda"
+# ragged shapes of phase 3: tiles of a leg or of K1/K4 that begin at the last
+# column (67x113), and a last tile of one column whose last strip has one row
+# (65x97)
+RAGGED = ((67, 45), (130, 257), (67, 113), (65, 97))
 
 
 T0 = time.perf_counter()
@@ -192,6 +196,44 @@ def kernel_launches(fn, name) -> int:
         fn()
         torch.cuda.synchronize()
     return sum(ev.count for ev in prof.key_averages() if name in ev.key)
+
+
+def one_launch(name, what, call, calls=3, tries=5) -> None:
+    """Fail unless each of ``calls`` calls launches exactly one CUDA kernel:
+    every kernel in the profiler's window counts.  The profiler sometimes
+    loses events (a window with fewer, never more), so a window may be taken
+    again, up to ``tries`` times, until one holds exactly ``calls``; a
+    window with more, or with a second kernel, fails at once."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    call()
+    torch.cuda.synchronize()
+    seen = []
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                call()
+            torch.cuda.synchronize()
+        evs = [(ev.key, ev.count) for ev in prof.key_averages()
+               if ev.device_type.name == "CUDA"]
+        n = sum(c for _, c in evs)
+        require(n <= calls and len(evs) <= 1,
+                f"{name} {what}: {n} kernel launches in {calls} calls ({evs})")
+        if n == calls:
+            return
+        seen.append(n)
+    require(False, f"{name} {what}: the profiler saw {seen} of {calls} launches in "
+                   f"{tries} windows")
+
+
+def same_bits(name, what, call) -> None:
+    """Fail unless two identical calls give the same bits, sums included."""
+    import torch
+
+    a, b = tensors(call()), tensors(call())
+    require(len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b)),
+            f"{name} {what}: a rerun gives other bits")
 
 
 def tensors(*xs):
@@ -343,27 +385,39 @@ def phase_kernels(kc: KernelCheck):
         hi = u64.float()
         return torch.stack([hi, (u64 - hi.double()).float()])
 
-    # K1, the defect pass: the flag sets of the S, T and W solves and the MG row
+    # K1, the defect pass: the flag sets of the S, T and W solves and the MG
+    # row, at NS's 513x2049 and on ragged shapes (at 65x97 the last tile has
+    # one column and the last strip one row), C given and derived in the
+    # kernel, f one plane and two
+    cT = torch.tensor(41.25, dtype=torch.float32, device=dev)
+    cases = [
+        ("S", 0.0, dict(velocity_max=True)),
+        ("T", cT, dict(apply_bcs=True)),
+        ("W", cT * 100.0, dict()),
+        ("sumsq", 0.0, dict(field_sumsq=True, velocity_max=True)),
+        ("c float", 3.5, dict(field_sumsq=True, velocity_max=True, apply_bcs=True)),
+    ]
+    for ny, nx in ((513, 2049),) + RAGGED:
+        h = 1.0 / 512
+        u, e = ds_pair(ny, nx), rand(ny, nx, scale=1e-3)
+        f2 = torch.stack([rand(ny, nx), rand(ny, nx, scale=1e-8)])
+        for tag, c, kw in cases:
+            C = ds.defect_scalars(c, h, dev)
+            c_zero = not isinstance(c, torch.Tensor) and c == 0.0
+            for ff in (f2[:1], f2):
+                for ee, scale in ((None, 0.0), (e, 1.0)):
+                    args = (u, ff, ee, scale, h)
+                    want = ds.defect_pass_plain(*args, C, c_zero, **kw)
+                    what = f"{ny}x{nx} {tag} f{ff.shape[0]} scale={scale}"
+                    for CC in (C, ds.c_source(c, h)):
+                        uk, rk, sk = ds._defect_cuda(*args, CC, c_zero, **kw)
+                        kc.fields("defect", (uk, rk), want[:2], what)
+                        kc.sums("defect", (sk[0], sk[3], sk[4]), (want[2][0], want[2][3],
+                                                                  want[2][4]), f"{what} sums")
+                        kc.sums("defect", sk[1:3], want[2][1:3], f"{what} maxima", exact=True)
     ny, nx = 513, 2049
     h = 1.0 / 512
     u, f, e = ds_pair(ny, nx), rand(1, ny, nx), rand(ny, nx, scale=1e-3)
-    cT = torch.tensor(41.25, dtype=torch.float32, device=dev)
-    cases = [
-        ("S", 0.0, dict(velocity_max=True), (0.0, 1.0)),
-        ("T", cT, dict(apply_bcs=True), (0.0, 1.0)),
-        ("W", cT * 100.0, dict(), (0.0, 1.0)),
-        ("sumsq", 0.0, dict(field_sumsq=True, velocity_max=True), (1.0,)),
-    ]
-    for tag, c, kw, scales in cases:
-        C = ds.defect_scalars(c, h, dev)
-        c_zero = not isinstance(c, torch.Tensor)
-        for scale in scales:
-            args = (u, f, None if scale == 0.0 else e, scale, h, C, c_zero)
-            uk, rk, sk = ds._defect_cuda(*args, **kw)
-            up, rp, sp = ds.defect_pass_plain(*args, **kw)
-            kc.fields("defect", (uk, rk), (up, rp), f"{tag} scale={scale}")
-            kc.sums("defect", (sk[0], sk[3]), (sp[0], sp[3]), f"{tag} sums")
-            kc.sums("defect", sk[1:3], sp[1:3], f"{tag} maxima", exact=True)
     n = 4097
     f4 = rand(1, n, n)
     u4 = torch.zeros((2, n, n), dtype=torch.float32, device=dev)
@@ -376,6 +430,20 @@ def phase_kernels(kc: KernelCheck):
     kc.timed("defect", lambda: ds._defect_cuda(*args, velocity_max=True),
              lambda: ds.defect_pass_plain(*args, velocity_max=True), args, (ny, nx),
              ["defect_kernel"], flops=120 * ny * nx)
+    # the MG row's defect pass (mg_solve_ds at 4097^2: c = 0, f one plane)
+    kc.timed("defect_4097", lambda: ds._defect_cuda(*args4),
+             lambda: ds.defect_pass_plain(*args4), args4, (n, n), ["defect_kernel"],
+             flops=120 * n * n)
+    # one launch a public call, and the same bits from a rerun
+    for what, call in (
+        ("S solve", lambda: ds.defect_pass(u, f, e, 1.0, h, 0.0, velocity_max=True)),
+        ("MG row", lambda: ds.defect_pass(u4, f4, e4, 1.0, 1.0 / (n - 1), 0.0, C=C0)),
+        ("T solve, raw", lambda: ds.defect_pass(u, f, None, 0.0, h, cT, apply_bcs=True,
+                                                raw_sumsq=True)),
+    ):
+        one_launch("defect_pass", what, call)
+        same_bits("defect_pass", what, call)
+    del u4, f4, e4, args4
 
     # K2 and K3, the legs: the MG row (ns=5 on 4097^2, 2049^2, 1025^2), and
     # ns 1-6 with and without elim and c != 0 at NS's 513x2049 (ns=3 on the
@@ -434,26 +502,54 @@ def phase_kernels(kc: KernelCheck):
         f"{by_ns}")
     del f2, u2, corrx
 
-    # K4, the NS operator: explicit + defect, rhs at beta 0.5 and 1
+    # K4, the NS operator: explicit with and without the defect, rhs at beta
+    # 0.5 and 1 and with the Helmholtz defects, at NS's 513x2049 and on the
+    # ragged shapes
+    dt = torch.tensor(1.9e-6, dtype=torch.float32, device=dev)
+    cTs = torch.tensor(1.0, dtype=torch.float32, device=dev) / (0.5 * dt)
+    cWs = cTs / torch.tensor(0.01, dtype=torch.float32, device=dev)
+    ns_cases = [("explicit", 0.0, True, False), ("explicit", 0.0, False, False),
+                ("rhs", 0.5, False, False), ("rhs", 1.0, False, False),
+                ("rhs", 0.5, False, True)]
+    for ny, nx in ((513, 2049),) + RAGGED:
+        h = 1.0 / (ny - 1)
+        TW = torch.stack([rand(ny, nx, scale=0.3) + 0.5, rand(ny, nx, scale=10.0)])
+        S = torch.stack([rand(ny, nx, scale=0.1), rand(ny, nx, scale=1e-9)])
+        for mode, beta, wd, helm in ns_cases:
+            scal = (dt, cTs, cWs) if mode == "rhs" else (dt, None, None)
+            a = (TW, S if wd else S[0], scal, h, 0.01, 1e6, 1.0, beta, mode, wd, None, helm)
+            name = "ns_fused_helm" if helm else "ns_fused"
+            what = f"{ny}x{nx} {mode} beta={beta} defect={wd}"
+            ok, rk, sk = ns_fused._ns_fused_cuda(*a)
+            op, rp, sp = ns_fused.ns_fused_plain(*a)
+            kc.fields(name, (ok, rk), (op, rp), what)
+            kc.sums(name, sk[[0, 1, 2, 5, 6, 7]], sp[[0, 1, 2, 5, 6, 7]], f"{what} sums")
+            kc.sums(name, sk[3:5], sp[3:5], f"{what} maxima", exact=True)
     ny, nx = 513, 2049
     h = 1.0 / 512
     TW = torch.stack([rand(ny, nx, scale=0.3) + 0.5, rand(ny, nx, scale=10.0)])
     S = torch.stack([rand(ny, nx, scale=0.1), rand(ny, nx, scale=1e-9)])
-    dt = torch.tensor(1.9e-6, dtype=torch.float32, device=dev)
-    scal = torch.stack([dt, cT, cT * 100.0])
-    ns_cases = [("explicit", 0.0, True, S), ("rhs", 0.5, False, S[0]),
-                ("rhs", 1.0, False, S[0]), ("explicit", 0.0, False, S[0])]
-    for mode, beta, wd, SS in ns_cases:
-        a = (TW, SS, scal, h, 0.01, 1e6, 1.0, beta, mode, wd)
-        ok, rk, sk = ns_fused._ns_fused_cuda(*a)
-        op, rp, sp = ns_fused.ns_fused_plain(*a)
-        kc.fields("ns_fused", (ok, rk), (op, rp), f"{mode} beta={beta}")
-        kc.sums("ns_fused", sk[:3], sp[:3], f"{mode} beta={beta} sums")
-        kc.sums("ns_fused", sk[3:], sp[3:], f"{mode} beta={beta} maxima", exact=True)
-    a = (TW, S, scal, h, 0.01, 1e6, 1.0, 0.0, "explicit", True)
+    a = (TW, S, (dt, None, None), h, 0.01, 1e6, 1.0, 0.0, "explicit", True)
     kc.timed("ns_fused", lambda: ns_fused._ns_fused_cuda(*a),
              lambda: ns_fused.ns_fused_plain(*a), a, (ny, nx), ["ns_kernel"],
              flops=80 * ny * nx)
+    # the semi-implicit path's pass: rhs at beta 0.5 with the sums of squares
+    ar = (TW, S[0], (dt, cTs, cWs), h, 0.01, 1e6, 1.0, 0.5, "rhs", False)
+    kc.timed("ns_fused_rhs", lambda: ns_fused._ns_fused_cuda(*ar),
+             lambda: ns_fused.ns_fused_plain(*ar), ar, (ny, nx), ["ns_kernel"],
+             flops=80 * ny * nx, result=lambda o: (o[0], o[2][:2]))
+    for what, call in (
+        ("explicit with_defect", lambda: ns_fused.ns_fused_rp(
+            TW, S, dt, h, 0.01, 1e6, mode="explicit", with_defect=True)),
+        ("rhs with_sumsq", lambda: ns_fused.ns_fused_rp(
+            TW, S[0], dt, h, 0.01, 1e6, beta=0.5, mode="rhs", cT=cTs, cW=cWs,
+            with_sumsq=True)),
+        ("rhs with_helm_defect", lambda: ns_fused.ns_fused_rp(
+            TW, S[0], dt, h, 0.01, 1e6, beta=0.5, mode="rhs", cT=cTs, cW=cWs,
+            with_helm_defect=True)),
+    ):
+        one_launch("ns_fused_rp", what, call)
+        same_bits("ns_fused_rp", what, call)
     phase_kernels_3d(kc)
     phase_kernels_host(kc)
     phase_kernels_shards(kc)
@@ -618,8 +714,8 @@ def phase_kernels_shards(kc: KernelCheck, dev=None, n=512):
     TW = torch.stack([rand(ny, nx, scale=0.3) + 0.5, rand(ny, nx, scale=10.0)])
     S = rand(ny, nx, scale=0.1)
     dt = torch.tensor(1.9e-6, dtype=torch.float32, device=dev)
-    scal = torch.stack([dt, cT, cT * 100.0])
     for mode, beta in (("explicit", 0.0), ("rhs", 0.5)):
+        scal = (dt, cT, cT * 100.0) if mode == "rhs" else (dt, None, None)
         whole, _, _ = ns_fused._ns_fused_cuda(TW, S, scal, h, 0.01, 1e6, 1.0, beta, mode, False)
         for d in range(nd):
             a = (window(TW, d), window(S, d), scal, h, 0.01, 1e6, 1.0, beta, mode, False,
@@ -761,13 +857,11 @@ def phase_kernels_helm(kc: KernelCheck, dev=None, ny=513, nx=2049):
     dt = torch.tensor(1.9e-6, dtype=torch.float32, device=dev)
     cT = torch.tensor(1.0, dtype=torch.float32, device=dev) / (0.5 * dt)
     cW = cT / torch.tensor(0.01, dtype=torch.float32, device=dev)
-    scal = torch.stack([dt, cT, cW])
-    cpairs = torch.cat([ds.defect_scalars(cT, h, dev), ds.defect_scalars(cW, h, dev)])
-    a = (TW, S, scal, h, 0.01, 1e6, 1.0, 0.5, "rhs", False, None, cpairs)
+    a = (TW, S, (dt, cT, cW), h, 0.01, 1e6, 1.0, 0.5, "rhs", False, None, True)
     ok, rk, sk = ns_fused._ns_fused_cuda(*a)
     op, rp, sp = ns_fused.ns_fused_plain(*a)
     kc.fields("ns_fused_helm", (ok, rk), (op, rp), "rhs beta=0.5")
-    kc.sums("ns_fused_helm", sk[:4], sp[:4], "rhs beta=0.5 sums")
+    kc.sums("ns_fused_helm", sk[[0, 1, 2, 5, 6, 7]], sp[[0, 1, 2, 5, 6, 7]], "rhs beta=0.5 sums")
     # the separate passes: the rhs, then K1 on (T, 0) with the BCs and on (W, 0)
     out = ns_fused.ns_fused_rp(TW, S, dt, h, 0.01, 1e6, beta=0.5, mode="rhs", cT=cT, cW=cW)
     zl = torch.zeros_like(TW[0])

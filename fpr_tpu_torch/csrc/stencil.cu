@@ -111,7 +111,8 @@ extern "C" {
 // 3 matvec_dot.  f: the rhs (modes 0, 1; null otherwise).  c: the shift, one
 // element on the device.  h2, inv_h2, alpha: h*h, 1/(h*h) and the damping,
 // rounded to the type on the host.  out: (ny, nx), null for matvec_dot.
-// partials: null, or (fpr_num_blocks,) of the type for the per-block sums.
+// partials: null, or (kernels.num_blocks_3d(1, ny, nx),) of the type for the
+// per-block sums.
 int fpr_stencil_f32(const float* u, const float* f, const float* c, float h2, float inv_h2,
                     float alpha, int ny, int nx, int mode, float* out, float* partials,
                     cudaStream_t stream) {

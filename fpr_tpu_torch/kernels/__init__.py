@@ -34,6 +34,7 @@ Helmholtz-defect mode, ``ns_fused`` the others.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -51,6 +52,10 @@ launches = dict.fromkeys(KERNELS, 0)
 # the block shape of csrc/fpr_common.cuh (FPR_BX, FPR_BY); the 3D entry
 # points check the partials length they are given against their grid
 BX, BY = 32, 8
+# the tile of the single-pass 2D kernels K1 and K4 (fpr::TILE_* of
+# csrc/fpr_common.cuh): TILE_X columns x TILE_WARPS * S rows, S <=
+# TILE_S_MAX rows a thread, chosen per launch by tile_plan
+TILE_X, TILE_WARPS, TILE_S_MAX = 32, 8, 4
 # the sweeps of one launch of csrc/dual_timek.cu (KMAX), which refuses more;
 # its grid and partials length come from fpr_dual_timek_blocks
 K_MAX = 4
@@ -74,11 +79,12 @@ NVCC_FLAGS = (
 
 _P, _I, _F, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_double
 _SIGNATURES = {
-    "fpr_num_blocks": [_I, _I],
-    "fpr_defect": [*[_P] * 6, _F, _F, _F, *[_I] * 11, _P, _P, _P, _P, _P],
+    "fpr_defect": [*[_P] * 6, _I, *[_F] * 7, *[_I] * 13, *[_P] * 7],
+    "fpr_defect_fill": [_I, ctypes.POINTER(_I), ctypes.POINTER(_I)],
     "fpr_leg": [_P, _P, _P, _P, _F, _F, _F, *[_I] * 13, _P, _P, _P, _I, _P],
     "fpr_leg_blocks": [_I, _I, _I, _I, ctypes.POINTER(_I)],
-    "fpr_ns_fused": [*[_P] * 6, *[_F] * 7, *[_I] * 7, *[_P] * 6],
+    "fpr_ns_fused": [*[_P] * 7, *[_F] * 9, *[_I] * 9, *[_P] * 8],
+    "fpr_ns_fill": [_I, ctypes.POINTER(_I), ctypes.POINTER(_I)],
     "fpr_dual_time": [_P, _P, _P, _P, _I, *[_F] * 6, *[_I] * 11, _P],
     "fpr_dual_timek": [_P, _P, _P, _P, _I, *[_F] * 6, *[_I] * 7, _P, *[_I] * 4, _P],
     "fpr_dual_timek_blocks": [_I, _I, _I, _I, ctypes.POINTER(_I)],
@@ -187,8 +193,52 @@ def stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def num_blocks(ny: int, nx: int) -> int:
-    return lib().fpr_num_blocks(ny, nx)
+@functools.lru_cache(maxsize=None)
+def card_fill(fill: str, variant: int, device_index: int) -> tuple[int, int]:
+    """(SMs, resident blocks an SM) of a kernel on a card, from the C entry
+    point ``fill`` (fpr_defect_fill, fpr_ns_fill) for the kernel's template
+    ``variant``; read once per card."""
+    sms, per_sm = ctypes.c_int(0), ctypes.c_int(0)
+    with torch.cuda.device(device_index):
+        check(getattr(lib(), fill)(variant, ctypes.byref(sms), ctypes.byref(per_sm)), fill)
+    return sms.value, per_sm.value
+
+
+def tile_plan(ny: int, nx: int, sms: int, per_sm: int,
+              s_max: int = TILE_S_MAX) -> tuple[int, int]:
+    """(S, blocks) of a K1 or K4 launch over (ny, nx) on a card of ``sms``
+    SMs that hold ``per_sm`` blocks each: S rows a thread, the largest S up
+    to ``s_max`` that still gives every block the card holds at once a tile
+    (S = 1 where none does), and as many blocks as the card holds at once,
+    at most one a tile, which take the tiles in turn.  On an H100 the
+    largest such S was the fastest at 513 x 2049 and 4097^2 in K4, and in
+    K1 up to 3 (PERF.md §6)."""
+    slots = sms * per_sm
+    S = max([s for s in range(1, s_max + 1) if n_tiles(ny, nx, s) >= slots], default=1)
+    return S, min(n_tiles(ny, nx, S), slots)
+
+
+def n_tiles(ny: int, nx: int, S: int) -> int:
+    """Tiles of a K1 or K4 launch over (ny, nx) with S rows a thread."""
+    return -(-nx // TILE_X) * -(-ny // (TILE_WARPS * S))
+
+
+_counters: dict = {}
+
+
+def launch_counter(t: torch.Tensor) -> torch.Tensor:
+    """The ticket word of K1's and K4's in-launch sums for launches on t's
+    device and current stream: one int32, 0 between launches (the last block
+    of each launch re-arms it).  One word per (device, stream) is safe because
+    launches on one stream run one after another, and the port launches K1
+    and K4 on the current stream only (``parallel/mesh.py`` makes no
+    streams: every shard of a virtual mesh launches on its device's current
+    stream, one after another)."""
+    key = (t.device.index, stream(t))
+    word = _counters.get(key)
+    if word is None:
+        word = _counters[key] = torch.zeros(1, dtype=torch.int32, device=t.device)
+    return word
 
 
 def num_blocks_3d(nz: int, ny: int, nx: int) -> int:

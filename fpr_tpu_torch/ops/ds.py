@@ -125,10 +125,30 @@ def defect_scalars(c, h: float, device) -> torch.Tensor:
     return torch.stack(quick_two_sum(s, se + pe))
 
 
+def c_source(c, h):
+    """What the defect pass takes for C = 4 + c h^2 when the caller has no
+    pair: a Python c split in float64 on the host, as a (hi, lo) pair of
+    floats; a float32 tensor c as itself (0-dim), from which the pass
+    derives the pair as ``defect_scalars`` does."""
+    if isinstance(c, torch.Tensor):
+        return c.reshape(())
+    return f32_pair(4.0 + float(c) * float(h) * float(h))
+
+
+def _c_pair(C, h, device):
+    """The (2,) float32 C pair from any form the defect pass takes: the
+    pair itself, or a ``c_source``."""
+    if isinstance(C, tuple):
+        return torch.tensor(C, dtype=torch.float32, device=device)
+    return defect_scalars(C, h, device) if C.dim() == 0 else C
+
+
 def defect_pass_plain(u_ds, f_ds, e, scale, h, C, c_zero, apply_bcs=False,
                       velocity_max=False, field_sumsq=False, r_out=None, rows=None,
                       cols=None):
-    """Plain PyTorch version of K1; see ``defect_pass``."""
+    """Plain PyTorch version of K1; see ``defect_pass``.  C: the (2,) C
+    pair or a ``c_source``, unused (None) when c_zero.  Returns (u', r,
+    [sum r^2, max|du/dy|, max|du/dx|, sum u^2, r_rms])."""
     uh, ul = u_ds[0], u_ds[1]
     n_loc, m_loc = uh.shape
     rows = Rows.whole(n_loc) if rows is None else rows
@@ -154,6 +174,7 @@ def defect_pass_plain(u_ds, f_ds, e, scale, h, C, c_zero, apply_bcs=False,
     if c_zero:
         cuh, cul = uh[I] * 4.0, ul[I] * 4.0
     else:
+        C = _c_pair(C, h, uh.device)
         cuh, cul = ds_mul_ds(uh[I], ul[I], C[0], C[1])
     th, tl = ds_add(sh_, sl_, -cuh, -cul)
     th, tl = th * inv_h2, tl * inv_h2
@@ -167,7 +188,7 @@ def defect_pass_plain(u_ds, f_ds, e, scale, h, C, c_zero, apply_bcs=False,
     r_int = torch.where(interior, r_int, r_int.new_zeros(()))
     r = torch.zeros_like(uh) if r_out is None else r_out.zero_()
     r[I] = r_int
-    sums = r.new_zeros(4)
+    sums = r.new_zeros(5)
     own = (slice(*rows.own), slice(*cols.own))
     sums[0] = torch.sum((r * r)[own])
     if velocity_max:
@@ -179,37 +200,69 @@ def defect_pass_plain(u_ds, f_ds, e, scale, h, C, c_zero, apply_bcs=False,
         sums[2] = torch.amax(torch.where(m, torch.abs((uh[rt] - uh[lf]) * inv2h), zero))
     if field_sumsq:
         sums[3] = torch.sum((uh * uh)[rows.owned_physical(n_loc), cols.owned_physical(m_loc)])
+    sums[4] = torch.sqrt(sums[0] / sums.new_full((), float(n_loc * m_loc)))
     return torch.stack([uh, ul]), r, sums
+
+
+_APPLY_BCS, _C_ZERO, _F_SINGLE, _VELOCITY_MAX, _FIELD_SUMSQ = 1, 2, 4, 8, 16
+_C_VALUE, _C_PAIR, _C_SCALAR = 0, 1, 2
+
+
+def _plan(t: torch.Tensor, ny: int, nx: int, cols: bool) -> tuple[int, int]:
+    """(S, blocks) of a defect-kernel launch over (ny, nx) on t's card
+    (``kernels.tile_plan``; S up to 3, which on an H100 was as fast as 4 at
+    513 x 2049 and faster at 4097^2, PERF.md §6)."""
+    return kernels.tile_plan(ny, nx, *kernels.card_fill("fpr_defect_fill", int(cols),
+                                                          t.device.index), s_max=3)
+
+
+def _launch_defect(u_ds, f_ds, e, C, scale, h, flags, hooks, u_out, r, out, plan):
+    """One launch of the defect kernel (csrc/defect.cu) with plan = (S rows
+    a thread, blocks): u' into u_out, r into r, and [sum r^2, max|du/dy|,
+    max|du/dx|, sum u^2, r_rms] into out.  C: None (c = 0, the x4 path), a
+    (2,) device C pair, a 0-dim device float32 c, or a (hi, lo) pair of
+    Python floats.  hooks: (row_off, ny_g, own0, own1, col_off, nx_g, ownc0,
+    ownc1)."""
+    _, ny, nx = u_ds.shape
+    if C is None or isinstance(C, tuple):
+        kind, c_ptr, (c_hi, c_lo) = _C_VALUE, None, C or (0.0, 0.0)
+    else:
+        kind, c_ptr, c_hi, c_lo = (_C_PAIR if C.dim() else _C_SCALAR), C.data_ptr(), 0.0, 0.0
+    S, blocks = plan
+    partials = torch.empty(4 * blocks, dtype=torch.float32, device=u_ds.device)
+    hh = float(h) * float(h)
+    err = kernels.lib().fpr_defect(
+        u_ds[0].data_ptr(), u_ds[1].data_ptr(), f_ds[0].data_ptr(),
+        f_ds[1].data_ptr() if f_ds.shape[0] == 2 else None, kernels.ptr(e), c_ptr, kind,
+        c_hi, c_lo, hh, float(scale), 1.0 / hh, 0.5 / float(h), float(nx * ny), ny, nx,
+        flags, S, blocks, *hooks, u_out[0].data_ptr(), u_out[1].data_ptr(), r.data_ptr(),
+        partials.data_ptr(), kernels.launch_counter(u_ds).data_ptr(), out.data_ptr(),
+        kernels.stream(u_ds))
+    kernels.check(err, "fpr_defect")
 
 
 def _defect_cuda(u_ds, f_ds, e, scale, h, C, c_zero, apply_bcs=False,
                  velocity_max=False, field_sumsq=False, r_out=None, rows=None, cols=None):
-    """K1 on the card (csrc/defect.cu); see ``defect_pass``."""
-    kernels.require_cuda_f32("defect_pass", u_ds, f_ds, e, C, r_out)
+    """K1 on the card (csrc/defect.cu), one launch and nothing else; see
+    ``defect_pass`` and ``defect_pass_plain``.  C: the (2,) device C pair or
+    a ``c_source`` (a (hi, lo) pair of floats, or a 0-dim device c from
+    which the kernel derives the pair); unused when c_zero."""
+    C = None if c_zero else C
+    kernels.require_cuda_f32("defect_pass", u_ds, f_ds, e, r_out,
+                             C if isinstance(C, torch.Tensor) else None)
     _, ny, nx = u_ds.shape
     rows = Rows.whole(ny) if rows is None else rows
     cols = Cols.whole(nx) if cols is None else cols
-    lib = kernels.lib()
     u_out = torch.empty_like(u_ds)
     r = torch.empty_like(u_ds[0]) if r_out is None else r_out
-    partials = torch.zeros((4, kernels.num_blocks(ny, nx)), dtype=torch.float32,
-                           device=u_ds.device)
-    flags = ((1 if apply_bcs else 0) | (2 if c_zero else 0)
-             | (4 if f_ds.shape[0] == 1 else 0) | (8 if velocity_max else 0)
-             | (16 if field_sumsq else 0))
-    err = lib.fpr_defect(
-        u_ds[0].data_ptr(), u_ds[1].data_ptr(), f_ds[0].data_ptr(),
-        f_ds[1].data_ptr() if f_ds.shape[0] == 2 else None, kernels.ptr(e),
-        C.data_ptr(), float(scale), 1.0 / (float(h) * float(h)), 0.5 / float(h),
-        ny, nx, flags, *rows.args(), *cols.args(), u_out[0].data_ptr(), u_out[1].data_ptr(),
-        r.data_ptr(),
-        partials.data_ptr(), kernels.stream(u_ds),
-    )
-    kernels.check(err, "fpr_defect")
+    out = u_ds.new_empty(5)
+    flags = ((_APPLY_BCS if apply_bcs else 0) | (_C_ZERO if c_zero else 0)
+             | (_F_SINGLE if f_ds.shape[0] == 1 else 0)
+             | (_VELOCITY_MAX if velocity_max else 0) | (_FIELD_SUMSQ if field_sumsq else 0))
+    _launch_defect(u_ds, f_ds, e, C, scale, h, flags, rows.args() + cols.args(), u_out, r,
+                   out, _plan(u_ds, ny, nx, not cols.is_whole(nx)))
     kernels.launches["defect"] += 1
-    sums = torch.stack([partials[0].sum(), partials[1].amax(), partials[2].amax(),
-                        partials[3].sum()])
-    return u_out, r, sums
+    return u_out, r, out
 
 
 def _pass(u_ds, f_ds, e, scale, h, c, C, r_out, apply_bcs, velocity_max, field_sumsq,
@@ -224,14 +277,13 @@ def _pass(u_ds, f_ds, e, scale, h, c, C, r_out, apply_bcs, velocity_max, field_s
         rowhooks.check("defect_pass", rows, u_ds.shape[1])
     rowhooks.check_cols("defect_pass", cols, u_ds.shape[2], apply_bcs=apply_bcs)
     c_zero = not isinstance(c, torch.Tensor) and float(c) == 0.0
-    if C is None:
-        C = defect_scalars(c, h, u_ds.device)
+    if C is None and not c_zero:
+        C = c_source(c, h)
     fn = defect_pass_plain if u_ds.device.type == "cpu" else _defect_cuda
     u_out, r, sums = fn(u_ds, f_ds, e, scale, h, C, c_zero, apply_bcs=apply_bcs,
                         velocity_max=velocity_max, field_sumsq=field_sumsq, r_out=r_out,
                         rows=rows, cols=cols)
-    _, ny, nx = u_ds.shape
-    r_rms = sums[0] if raw_sumsq else torch.sqrt(sums[0] / sums.new_full((), float(nx * ny)))
+    r_rms = sums[0] if raw_sumsq else sums[4]
     extras = (sums[1], sums[2], sums[3]) if velocity_max or field_sumsq else None
     return u_out, r, r_rms, extras
 

@@ -47,9 +47,13 @@ def _use_dif(beta: float) -> bool:
 
 
 def ns_fused_plain(TW, S, scal, h, Pr, Ra, k, beta, mode, with_defect, rows=None,
-                   cpairs=None):
-    """Plain PyTorch version of K4; see ``ns_fused_rp``.  cpairs: the
-    (4,) [CT_hi, CT_lo, CW_hi, CW_lo] of the Helmholtz defects, or None."""
+                   helm=False):
+    """Plain PyTorch version of K4; see ``ns_fused_rp``.  scal: (dt, cT, cW),
+    0-dim tensors (cT and cW None in explicit mode); helm: the Helmholtz
+    defects.  Returns (out, r, sums) with r the defect, the (2, ny, nx)
+    [rT | rW], or None, and sums the 8 values [sum T'^2, sum W'^2, sum r^2
+    (rT^2), max|dS/dy|, max|dS/dx|, sum rW^2, rms of sums[2], rms of
+    sums[5]] (0 where the mode has none), the rms over the global cells."""
     dt = scal[0]
     n_loc = TW.shape[1]
     rows = Rows.whole(n_loc) if rows is None else rows
@@ -95,7 +99,7 @@ def ns_fused_plain(TW, S, scal, h, Pr, Ra, k, beta, mode, with_defect, rows=None
     out = torch.where(phys, torch.stack([T_out, W_out]), zero)
     own = slice(*rows.own)
     sums = torch.stack([torch.sum((out[0] * out[0])[own]), torch.sum((out[1] * out[1])[own]),
-                        zero, zero, zero])
+                        zero, zero, zero, zero, zero, zero])
     r = None
     if with_defect:
         Sl = S[1]
@@ -113,45 +117,69 @@ def ns_fused_plain(TW, S, scal, h, Pr, Ra, k, beta, mode, with_defect, rows=None
         sums[2] = torch.sum((r * r)[own])
         sums[3] = torch.amax(torch.where(mo, torch.abs(vx), zero))
         sums[4] = torch.amax(torch.where(mo, torch.abs(vy), zero))
-    if cpairs is not None:
-        # K1's arithmetic on the warm starts (T, 0) with the BCs and (W, 0)
+    if helm:
+        # K1's arithmetic on the warm starts (T, 0) with the BCs and (W, 0),
+        # the C = 4 + c h^2 pairs in the EFT order of pallas_ns.py:473-485
+        # (ds._defect_scalars' float32 branch)
         zl = torch.zeros_like(W)
         _, rT, sT = defect_pass_plain(torch.stack([TW[0], zl]), out[0:1], None, 0.0, h,
-                                      cpairs[0:2], False, apply_bcs=True, rows=rows)
+                                      defect_scalars(scal[1], h, TW.device), False,
+                                      apply_bcs=True, rows=rows)
         _, rW, sW = defect_pass_plain(torch.stack([W, zl]), out[1:2], None, 0.0, h,
-                                      cpairs[2:4], False, rows=rows)
+                                      defect_scalars(scal[2], h, TW.device), False, rows=rows)
         r = torch.stack([rT, rW])
-        sums[2], sums[3] = sT[0], sW[0]
+        sums[2], sums[5] = sT[0], sW[0]
+    n_cells = sums.new_full((), float(TW.shape[2] * rows.ny))
+    sums[6], sums[7] = torch.sqrt(sums[2] / n_cells), torch.sqrt(sums[5] / n_cells)
     return out, r, sums
 
 
+def _plan(t: torch.Tensor, ny: int, nx: int, helm: bool) -> tuple[int, int]:
+    """(S, blocks) of an NS-kernel launch over (ny, nx) on t's card
+    (``kernels.tile_plan``)."""
+    return kernels.tile_plan(ny, nx, *kernels.card_fill("fpr_ns_fill", int(helm),
+                                                          t.device.index))
+
+
+def _launch_ns(TW, Sh, Sl, scal, h, Pr, Ra, k, beta, flags, hooks, out, r, rw, sums, plan):
+    """One launch of the NS kernel (csrc/ns_fused.cu) with plan = (S rows a
+    thread, blocks): [T' | W'] into out, r (the defect, or rT) into r, rW
+    into rw, and the 8 values of ``ns_fused_plain``'s sums into sums.  Sl:
+    S's lo plane with the defect flag, else None; scal: (dt, cT, cW) (cT, cW
+    None in explicit mode); hooks: (row_off, ny_g, own0, own1)."""
+    _, ny, nx = TW.shape
+    S, blocks = plan
+    partials = torch.empty(6 * blocks, dtype=torch.float32, device=TW.device)
+    dt, cT, cW = scal
+    err = kernels.lib().fpr_ns_fused(
+        TW[0].data_ptr(), TW[1].data_ptr(), Sh.data_ptr(), kernels.ptr(Sl), dt.data_ptr(),
+        kernels.ptr(cT), kernels.ptr(cW), 0.5 / h, 1.0 / h, 1.0 / (h * h), h * h, Pr, Ra, k,
+        1.0 - beta, float(nx * hooks[1]), ny, nx, flags, S, blocks, *hooks, out[0].data_ptr(),
+        out[1].data_ptr(), kernels.ptr(r), kernels.ptr(rw), partials.data_ptr(),
+        kernels.launch_counter(TW).data_ptr(), sums.data_ptr(), kernels.stream(TW))
+    kernels.check(err, "fpr_ns_fused")
+
+
 def _ns_fused_cuda(TW, S, scal, h, Pr, Ra, k, beta, mode, with_defect, rows=None,
-                   cpairs=None):
-    """K4 on the card (csrc/ns_fused.cu); see ``ns_fused_rp``.  The
-    Helmholtz-defect launches (cpairs given) count as ``ns_fused_helm``."""
-    kernels.require_cuda_f32("ns_fused_rp", TW, S, scal, cpairs)
-    lib = kernels.lib()
+                   helm=False):
+    """K4 on the card (csrc/ns_fused.cu), one launch and nothing else; see
+    ``ns_fused_rp`` and ``ns_fused_plain``.  The Helmholtz-defect launches count as
+    ``ns_fused_helm``."""
+    rhs = mode == "rhs"
+    dt, cT, cW = scal
+    kernels.require_cuda_f32("ns_fused_rp", TW, S, dt, *((cT, cW) if rhs else ()))
     _, ny, nx = TW.shape
     rows = Rows.whole(ny) if rows is None else rows
-    helm = cpairs is not None
     out = torch.empty_like(TW)
     r = torch.empty_like(TW) if helm else (torch.empty_like(TW[0]) if with_defect else None)
-    partials = torch.zeros((5, kernels.num_blocks(ny, nx)), dtype=torch.float32,
-                           device=TW.device)
-    flags = ((_MODE_RHS if mode == "rhs" else 0) | (_WITH_DEFECT if with_defect else 0)
+    sums = TW.new_empty(8)
+    flags = ((_MODE_RHS if rhs else 0) | (_WITH_DEFECT if with_defect else 0)
              | (_USE_DIF if _use_dif(beta) else 0) | (_HELM_DEFECT if helm else 0))
-    Sh = S[0] if with_defect else S
-    err = lib.fpr_ns_fused(
-        TW[0].data_ptr(), TW[1].data_ptr(), Sh.data_ptr(),
-        S[1].data_ptr() if with_defect else None, scal.data_ptr(), kernels.ptr(cpairs),
-        0.5 / h, 1.0 / h, 1.0 / (h * h), Pr, Ra, k, 1.0 - beta, ny, nx, flags, *rows.args(),
-        out[0].data_ptr(), out[1].data_ptr(), kernels.ptr(r[0] if helm else r),
-        r[1].data_ptr() if helm else None, partials.data_ptr(), kernels.stream(TW),
-    )
-    kernels.check(err, "fpr_ns_fused")
+    _launch_ns(TW, S[0] if with_defect else S, S[1] if with_defect else None,
+               (dt, cT, cW) if rhs else (dt, None, None), h, Pr, Ra, k, beta, flags,
+               rows.args(), out, r[0] if helm else r, r[1] if helm else None, sums,
+               _plan(TW, ny, nx, helm))
     kernels.launches["ns_fused_helm" if helm else "ns_fused"] += 1
-    sums = (partials[:4].sum(dim=1) if helm else
-            torch.cat([partials[:3].sum(dim=1), partials[3:].amax(dim=1)]))
     return out, r, sums
 
 
@@ -181,29 +209,18 @@ def ns_fused_rp(TW, S, dt, h, Pr, Ra, k=1.0, beta=0.0, mode="explicit", cT=None,
         raise ValueError("with_helm_defect is rhs-only and excludes with_defect")
     if mode == "rhs" and (cT is None or cW is None):
         raise ValueError("rhs mode needs cT and cW")
-    zero = TW.new_zeros(())
-    scal = torch.stack([dt.reshape(()).to(TW.dtype),
-                        zero if cT is None else cT.reshape(()).to(TW.dtype),
-                        zero if cW is None else cW.reshape(()).to(TW.dtype)])
+    scal = tuple(None if c is None else c.reshape(()).to(TW.dtype)
+                 for c in (dt, *((cT, cW) if mode == "rhs" else (None, None))))
     if rows is not None:
         rowhooks.check("ns_fused_rp", rows, TW.shape[1])
-    cpairs = None
-    if with_helm_defect:
-        # the C = 4 + c h^2 pairs on the device, in the EFT order of
-        # pallas_ns.py:473-485 (ds._defect_scalars' float32 branch)
-        cpairs = torch.cat([defect_scalars(scal[1], h, TW.device),
-                            defect_scalars(scal[2], h, TW.device)])
     fn = ns_fused_plain if TW.device.type == "cpu" else _ns_fused_cuda
     out, r, sums = fn(TW, S, scal, float(h), float(Pr), float(Ra), float(k),
-                      float(beta), mode, with_defect, rows, cpairs)
-    _, ny, nx = TW.shape
-    n_cells = sums.new_full((), float(nx * (ny if rows is None else rows.ny)))
+                      float(beta), mode, with_defect, rows, with_helm_defect)
     if with_helm_defect:
-        return (out, (sums[0], sums[1]), (r[0], torch.sqrt(sums[2] / n_cells)),
-                (r[1], torch.sqrt(sums[3] / n_cells)))
+        return out, (sums[0], sums[1]), (r[0], sums[6]), (r[1], sums[7])
     if with_defect:
-        r_rms = torch.sqrt(sums[2] / n_cells)
-        return out, (sums[0], sums[1]), (r, r_rms), (sums[3], sums[4], zero)
+        # sums[5], the rW^2 of the Helmholtz mode, is 0 here
+        return out, (sums[0], sums[1]), (r, sums[6]), (sums[3], sums[4], sums[5])
     if with_sumsq:
         return out, (sums[0], sums[1])
     return out

@@ -17,9 +17,14 @@ timed window in seconds.  ``legs_4097`` holds the V-cycle legs at the MG
 row's finest level, 4097^2 with ns=5: the down leg from a zero iterate
 and the up leg with its norm, device µs over the legs' kernels of either
 tree (the per-sweep kernels or the one-launch leg kernel), call ms and
-the bound.  Run it once per tree in a fresh process, in turns (parent,
-change, change, parent), since two packages of one name cannot share a
-process.
+the bound.  ``calls`` holds one public call of K1 (``defect_pass``: the NS
+S solve's flags at 513x2049, and the MG row's at 4097^2) and of K4
+(``ns_fused_rp`` at 513x2049: explicit with_defect, rhs at beta 0.5 with
+with_sumsq, rhs with_helm_defect): the device µs of every kernel the call
+launches (``all_us``) and of the K1/K4 kernel alone (``kernel_us``), the
+launches a call, and the call's µs from CUDA events.  Run it once per tree
+in a fresh process, in turns (parent, change, change, parent), since two
+packages of one name cannot share a process.
 """
 
 import json
@@ -46,7 +51,7 @@ def main() -> int:
                   "bound_ms": kc.bound(name)[0]}
            for name, row in kc.rows.items()}
     print(json.dumps({"root": root, "kernels": out, "small": small_field(chip_smoke),
-                      "legs_4097": legs_4097(chip_smoke)}))
+                      "legs_4097": legs_4097(chip_smoke), "calls": calls(chip_smoke)}))
     return 0
 
 
@@ -102,6 +107,64 @@ def legs_4097(chip_smoke, n=4097, ns=5) -> dict:
     return {name: {"device_us": chip_smoke.device_us(fn, names), "ms": chip_smoke.time_ms(fn),
                    "bound_ms": chip_smoke.bound_of(nbytes, 0)[0]}
             for name, (fn, nbytes) in calls.items()}
+
+
+def calls(chip_smoke, reps=20) -> dict:
+    """Public K1 and K4 calls: every kernel of a call from torch.profiler,
+    through the entry points that both trees have."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from fpr_tpu_torch.ops import ds, ns_fused
+
+    dev = torch.device("cuda", 0)
+    rng = np.random.default_rng(6)
+
+    def rand(*shape, scale=1.0):
+        return torch.tensor(rng.standard_normal(shape) * scale, dtype=torch.float32, device=dev)
+
+    def measure(fn):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        evs = [ev for ev in prof.key_averages() if ev.device_type.name == "CUDA"]
+        mine = [ev for ev in evs if "defect_kernel" in ev.key or "ns_kernel" in ev.key]
+        return {"all_us": sum(ev.device_time_total for ev in evs) / reps,
+                "kernel_us": (sum(ev.device_time_total for ev in mine)
+                              / max(sum(ev.count for ev in mine), 1)),
+                "launches": sum(ev.count for ev in evs) / reps,
+                "call_us": chip_smoke.time_ms(fn) * 1e3}
+
+    ny, nx, n = 513, 2049, 4097
+    h, h4 = 1.0 / (ny - 1), 1.0 / (n - 1)
+    u64 = torch.tensor(rng.standard_normal((ny, nx)), dtype=torch.float64, device=dev)
+    u = torch.stack([u64.float(), (u64 - u64.float().double()).float()])
+    f, e = rand(1, ny, nx), rand(ny, nx, scale=1e-3)
+    C = ds.defect_scalars(0.0, h, dev)
+    u4 = torch.zeros((2, n, n), dtype=torch.float32, device=dev)
+    f4, e4 = rand(1, n, n), rand(n, n, scale=1e-3)
+    C4 = ds.defect_scalars(0.0, h4, dev)
+    TW = torch.stack([rand(ny, nx, scale=0.3) + 0.5, rand(ny, nx, scale=10.0)])
+    S = torch.stack([rand(ny, nx, scale=0.1), rand(ny, nx, scale=1e-9)])
+    dt = torch.tensor(1.9e-6, dtype=torch.float32, device=dev)
+    cT = torch.tensor(1.0, dtype=torch.float32, device=dev) / (0.5 * dt)
+    cW = cT / torch.tensor(0.01, dtype=torch.float32, device=dev)
+    rhs = dict(beta=0.5, mode="rhs", cT=cT, cW=cW)
+    return {
+        "defect_pass": measure(lambda: ds.defect_pass(u, f, e, 1.0, h, 0.0, C=C,
+                                                      velocity_max=True)),
+        "defect_pass_4097": measure(lambda: ds.defect_pass(u4, f4, e4, 1.0, h4, 0.0, C=C4)),
+        "ns_fused_rp_explicit": measure(lambda: ns_fused.ns_fused_rp(
+            TW, S, dt, h, 0.01, 1e6, mode="explicit", with_defect=True)),
+        "ns_fused_rp_rhs": measure(lambda: ns_fused.ns_fused_rp(
+            TW, S[0], dt, h, 0.01, 1e6, with_sumsq=True, **rhs)),
+        "ns_fused_rp_helm": measure(lambda: ns_fused.ns_fused_rp(
+            TW, S[0], dt, h, 0.01, 1e6, with_helm_defect=True, **rhs)),
+    }
 
 
 if __name__ == "__main__":

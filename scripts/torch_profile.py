@@ -18,8 +18,9 @@ at 2049x513 on 4 row shards, one ``mg_solve_sharded`` (the GSPMD tier) at
 ``simulate(mesh=)`` at 2049x513 float64 on 4 row shards; each window
 after a warm-up run.  It prints per window the wall time, the summed device time
 (kernels and memory copies), the device busy share, the device time of the
-copy kernels (the halo exchange's face copies, and casts), the kernel
-launch counts of the port's CUDA wrappers, and the top device kernels and
+copy kernels (the halo exchange's face copies, and casts), the device
+launches (every kernel and copy the profiler saw), the kernel launch
+counts of the port's CUDA wrappers, and the top device kernels and
 copies.
 
 Run from the repo root on a GPU machine:  python scripts/torch_profile.py
@@ -77,7 +78,8 @@ def window(label, fn, top=12):
     busy = sum(e.device_time_total for e in evs) / 1e6
     copies = sum(e.device_time_total for e in evs if "copy" in e.key.lower()) / 1e6
     print(f"[{label}] wall {wall:.4f} s  device time (kernels + copies) {busy:.4f} s  "
-          f"busy {busy / wall:.3f}  copy kernels {copies:.4f} s  launches "
+          f"busy {busy / wall:.3f}  copy kernels {copies:.4f} s  device launches "
+          f"{sum(e.count for e in evs)}  wrapper launches "
           f"{ {k: v for k, v in kernels.launches.items() if v} }")
     for e in sorted(evs, key=lambda e: -e.device_time_total)[:top]:
         print(f"   {e.device_time_total / 1e3:10.2f} ms  n={e.count:6d}  {e.key[:90]}")
