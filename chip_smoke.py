@@ -74,6 +74,26 @@ Phases, in order; the first failure stops the run with a non-zero exit:
     within 1e-12), and 3 steps of ``simulate(mesh=)`` at 2049x513, direct,
     beta=0.5, against the single device (tests/test_distributed.py's
     bounds).
+19. the port's bench (``fpr_tpu_torch.bench``) rows in-process at full
+    size: diffusion 512^3 K=3, 300 iterations (T_eff printed beside the
+    card's name and power limit); MG 4097^2, 4 outers at a true float64
+    residual within 1e-6; NS semi-implicit (37 timed steps) and implicit
+    (within IMPLICIT_BAND) at 2049x513 with one rep each; then ``python -m
+    fpr_tpu_torch bench --quick`` in a subprocess, its last line parsed and
+    naming the card.
+20. checkpoints through ``fpr_tpu_torch.cli.main``: ``ns --fast`` at
+    2049x513 saved at 200 steps and resumed to 400, bitwise equal to a
+    straight 400 (T, W, S_hi, S_lo, w_sumsq, t_hi, t_lo, step); a host-loop
+    (float64, PALLAS policy) save of 3 steps, resumed for 3 more and
+    bitwise equal to ``simulate`` from the saved T and W;
+    ``utils.profiling.trace`` around 5 fast steps, with device events.
+21. the six sweeps of ``fpr_tpu_torch.experiments`` into a temporary
+    directory at their smallest settings that launch their kernels
+    (diffusion at 16^3 and 32^3 on 2 z-shards, ``multigrid_bench`` at
+    1025^2 with and without ``--workprec``, ``ns_timestepping`` fast at
+    2049x513 for at most 60 steps, ``dist_mg_large --k 13 --devices 4``):
+    the rows' counts, backend and card name, and the kernels each ran;
+    ``ns_timestepping --s-tol-factor 0`` refused.
 
 Phase 3 holds the legs K2/K3 (one launch of the leg kernel a call) bitwise
 at the MG row's levels with ns=5, timed at 2049x513 ns=3 and at 4097^2
@@ -102,8 +122,9 @@ ds3d, 11's PALLAS ``mg_solve`` for the stencil pass, 13's beta=0.5 run for
 Helmholtz warm start after phase 6: one semi-implicit step's T and W
 solves fed through that mode, against the separate passes; no solver path
 launches it, as none of the JAX package does), with the counts set to 0
-just before it; phases 14-18 print and check their own counts as well.  The second-to-last line is the kernel table as JSON; the
-last line is ``{"ok": true, "device": {...}}``.
+just before it; phases 14-21 print and check their own counts as well.
+The second-to-last line is the kernel table as JSON; the last line is
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -149,10 +170,6 @@ def require(cond, msg: str) -> None:
         raise Failed(msg)
 
 
-def run(cmd: list[str]) -> str:
-    return subprocess.run(cmd, capture_output=True, text=True, check=True).stdout.strip()
-
-
 def time_ms(fn, reps: int = 20) -> float:
     import torch
 
@@ -184,39 +201,43 @@ def device_us(fn, names, reps: int = 20):
     return total / reps if total > 0 else None
 
 
-def kernel_launches(fn, name) -> int:
-    """Launches of the CUDA kernels whose names contain name in one call of
-    fn, from torch.profiler."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return sum(ev.count for ev in prof.key_averages() if name in ev.key)
-
-
-def one_launch(name, what, call, calls=3, tries=5) -> None:
-    """Fail unless each of ``calls`` calls launches exactly one CUDA kernel:
-    every kernel in the profiler's window counts.  The profiler sometimes
-    loses events (a window with fewer, never more), so a window may be taken
-    again, up to ``tries`` times, until one holds exactly ``calls``; a
-    window with more, or with a second kernel, fails at once."""
+def launch_windows(call, calls=1, tries=5):
+    """The CUDA kernels, as (name, launches), of up to ``tries`` profiler
+    windows of ``calls`` calls each, after one call outside them.  The
+    profiler sometimes loses events (a window with fewer, never more), so
+    the caller takes windows until one holds what it expects."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     call()
     torch.cuda.synchronize()
-    seen = []
     for _ in range(tries):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(calls):
                 call()
             torch.cuda.synchronize()
-        evs = [(ev.key, ev.count) for ev in prof.key_averages()
+        yield [(ev.key, ev.count) for ev in prof.key_averages()
                if ev.device_type.name == "CUDA"]
+
+
+def kernel_launches(fn, name, expect=1) -> int:
+    """Launches of the CUDA kernels whose names contain name in one call of
+    fn: the count of the first window with at least ``expect``, else of the
+    last one taken."""
+    for evs in launch_windows(fn):
+        n = sum(c for k, c in evs if name in k)
+        if n >= expect:
+            break
+    return n
+
+
+def one_launch(name, what, call, calls=3) -> None:
+    """Fail unless each of ``calls`` calls launches exactly one CUDA kernel:
+    every kernel in the profiler's window counts.  Windows are taken until
+    one holds exactly ``calls``; a window with more, or with a second
+    kernel, fails at once."""
+    seen = []
+    for evs in launch_windows(call, calls):
         n = sum(c for _, c in evs)
         require(n <= calls and len(evs) <= 1,
                 f"{name} {what}: {n} kernel launches in {calls} calls ({evs})")
@@ -224,7 +245,7 @@ def one_launch(name, what, call, calls=3, tries=5) -> None:
             return
         seen.append(n)
     require(False, f"{name} {what}: the profiler saw {seen} of {calls} launches in "
-                   f"{tries} windows")
+                   f"{len(seen)} windows")
 
 
 def same_bits(name, what, call) -> None:
@@ -344,16 +365,16 @@ def bound_of(nbytes, flops, peak_flops=PEAK_F32_FLOPS_S):
 def phase_env():
     import torch
 
-    log("== phase 1: environment")
-    smi = run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"])
-    log(smi.splitlines()[0])
-    from fpr_tpu_torch import kernels
+    from fpr_tpu_torch.utils import device
 
-    log(f"torch {torch.__version__}  cuda {torch.version.cuda}  "
-        f"device {torch.cuda.get_device_name(0)}")
-    log(run([kernels._nvcc(), "--version"]).splitlines()[-1])
+    log("== phase 1: environment")
+    info = device.card_info(DEVICE)
+    require(info["nvidia_smi"] and info["nvcc"], f"no nvidia-smi line or no nvcc: {info}")
+    log(info["nvidia_smi"])
+    log(f"torch {info['torch']}  cuda {info['torch_cuda']}  device {info['device']}")
+    log(info["nvcc"])
     require(torch.backends.cuda.matmul.allow_tf32 is False, "TF32 matmuls are on")
-    return smi.splitlines()[0]
+    return info["nvidia_smi"]
 
 
 def phase_build():
@@ -1839,6 +1860,220 @@ SOURCES = {
     "ns_fused_helm": ("fpr_tpu_torch/csrc/ns_fused.cu", "fpr_tpu/ops/pallas_ns.py:58"),
 }
 
+# the implicit (beta=1) row's timed steps at 2049x513, Pr 0.01: every tier of
+# the JAX sweep reads 37 (benchmark-results/ns_fullscale.csv); the W seed moves
+# the semi- and fully implicit counts by about one step
+# (benchmark-results/ns_step_seed_distribution.csv: 365-368 at Pr 0.1)
+IMPLICIT_BAND = (36, 38)
+
+
+def phase_bench(smi):
+    """The port's bench rows in-process at their full sizes (semi and implicit
+    with one rep), then ``python -m fpr_tpu_torch bench --quick`` in a
+    subprocess, its last line parsed."""
+    import math
+
+    from fpr_tpu_torch import bench
+
+    log("== phase 19: the bench rows (fpr_tpu_torch.bench) and bench --quick")
+    n_diff, cap, n_mg = 512, 300, 4097
+    diff, secs, counts = counted(lambda: bench.bench_diffusion(n_diff, cap, device=DEVICE))
+    log(f"diffusion {diff['grid']} K=3: {diff['iterations']} iterations, "
+        f"{diff['ms_per_iter']:.4f} ms/iter (iqr {diff['iqr_s']:.2e} s), T_eff "
+        f"{diff['teff_gbs']:.1f} GB/s (counted 6+1 model), {diff['gflops']:.1f} GFLOP/s  "
+        f"[{smi}]  launches dual_timek {counts['dual_timek']}")
+    require(diff["iterations"] == cap and math.isfinite(diff["teff_gbs"]),
+            f"diffusion row: {diff}")
+    require(counts["dual_timek"] > 0, "the diffusion row never launched dual_timek")
+    mg, secs, counts = counted(lambda: bench.bench_mg(n_mg, device=DEVICE))
+    log(f"MG {mg['grid']}: {mg['outer_iterations']} outers, median {mg['seconds_to_tol']:.4f} s "
+        f"of {mg['reps']} (iqr {mg['iqr_s']:.2e}), true f64 r_rms/f_rms "
+        f"{mg['true_f64_rel_residual']:.3e}, device time of one solve "
+        f"{mg['profiler_device_seconds_one_solve']}")
+    require(mg["outer_iterations"] == 4, f"MG row: {mg['outer_iterations']} outers, not 4")
+    require(mg["true_f64_rel_residual"] <= 1e-6,
+            f"MG row: true f64 residual {mg['true_f64_rel_residual']:.3e} > 1e-6")
+    for k in ("defect", "smooth_down", "corr_up"):
+        require(counts[k] > 0, f"the MG row never launched {k}")
+    for beta, what in ((0.5, "semi-implicit"), (1.0, "implicit")):
+        row, secs, counts = counted(lambda: bench.bench_ns_row(beta, reps=1, device=DEVICE))
+        log(f"NS {what} (beta={beta}): {row['timed_steps']} timed steps of {row['steps']} in "
+            f"{row['seconds']:.3f} s  launches {({k: counts[k] for k in NS_KERNELS})}")
+        require(math.isfinite(row["seconds"]), f"{what}: time {row['seconds']}")
+        for k in NS_KERNELS:
+            require(counts[k] > 0, f"the NS {what} row never launched {k}")
+        if beta == 0.5:
+            require(row["timed_steps"] == 37, f"semi-implicit: {row['timed_steps']} timed steps")
+        else:
+            lo, hi = IMPLICIT_BAND
+            require(lo <= row["timed_steps"] <= hi,
+                    f"implicit: {row['timed_steps']} timed steps outside {IMPLICIT_BAND}")
+    here = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    p = subprocess.run([sys.executable, "-m", "fpr_tpu_torch", "bench", "--quick", "--device",
+                        DEVICE], cwd=here, capture_output=True, text=True, timeout=600)
+    lines = p.stdout.strip().splitlines()
+    require(p.returncode == 0 and lines, f"bench --quick: exit {p.returncode}\n"
+                                         f"{(p.stdout + p.stderr)[-2000:]}")
+    line = json.loads(lines[-1])
+    name = line["extras"]["device"]
+    log(f"bench --quick in {time.perf_counter() - t0:.1f} s: {lines[-1]}")
+    require(name == card_name() and name in line["metric"],
+            f"bench --quick names {name!r}, not the card {card_name()!r}")
+    require(line["extras"]["mg_outer_iterations"] >= 1 and line["value"] > 0,
+            "bench --quick: no MG count or no T_eff")
+
+
+def card_name():
+    from fpr_tpu_torch.utils import device
+
+    return device.name(DEVICE)
+
+
+def phase_checkpoints():
+    """``ns --save/--resume`` through fpr_tpu_torch.cli.main on the card: the
+    fast loop saved at 200 steps and resumed to 400 against a straight 400
+    (T, W, S_hi, S_lo, w_sumsq, t_hi, t_lo bitwise, the same step); a host-loop
+    save of 3 steps, resumed for 3 more and held bitwise against ``simulate``
+    from the saved T and W; profiling.trace around 5 fast steps."""
+    import dataclasses
+    import tempfile
+    from pathlib import Path
+
+    import numpy as np
+    import torch
+
+    from fpr_tpu_torch import cli
+    from fpr_tpu_torch.core.config import ExecutionPolicy, MGConfig
+    from fpr_tpu_torch.models.navier_stokes import simulate, simulate_fast
+    from fpr_tpu_torch.utils import checkpoint, profiling
+
+    log("== phase 20: checkpoints on the card (ns --save/--resume), profiling.trace")
+    nx, ny, n_save = 2049, 513, 200
+    ns = ["ns", "--device", DEVICE, "--nx", str(nx), "--ny", str(ny), "--Pr", "0.01", "--tol",
+          "1e-7", "--ttot", "0.005"]
+    with tempfile.TemporaryDirectory() as d:
+        d = Path(d)
+        _, secs, counts = counted(lambda: cli.main(
+            ns + ["--fast", "--max-steps", str(n_save), "--save", str(d / "s200.npz")]))
+        for k in NS_KERNELS:
+            require(counts[k] > 0, f"ns --fast never launched {k}")
+        cli.main(ns + ["--fast", "--resume", str(d / "s200.npz"), "--max-steps",
+                       str(2 * n_save), "--save", str(d / "r400.npz")])
+        cli.main(ns + ["--fast", "--max-steps", str(2 * n_save), "--save",
+                       str(d / "s400.npz")])
+        a, b = checkpoint.load(d / "r400.npz"), checkpoint.load(d / "s400.npz")
+        differ = [k for k in b if not np.array_equal(a[k], b[k])]
+        log(f"{n_save} + {n_save} steps against {2 * n_save}: step {int(a['step'])}/"
+            f"{int(b['step'])}, keys differing {differ or 'none'} (sim_time "
+            f"{float(a['t_hi']) + float(a['t_lo'])!r})")
+        require(sorted(a) == sorted(b) and int(b["step"]) == 2 * n_save and not differ,
+                f"the resumed run is not bitwise the straight one: {differ}")
+        host = ns + ["--f64", "--policy", "pallas", "--max-steps", "3"]
+        _, secs, counts = counted(lambda: cli.main(host + ["--save", str(d / "h.npz")]))
+        h = checkpoint.load(d / "h.npz")
+        require(sorted(h) == ["S", "T", "W", "t"] and h["T"].shape == (ny, nx)
+                and all(np.isfinite(h[k]).all() for k in h), "host-loop checkpoint")
+        require(counts["stencil"] > 0, "the host loop with --policy pallas never launched "
+                                       "the stencil pass")
+        cli.main(host + ["--resume", str(d / "h.npz"), "--save", str(d / "h2.npz")])
+        r = checkpoint.load(d / "h2.npz")
+        cfg = dataclasses.replace(ns_cfg(0.0), nx=nx, ny=ny,
+                                  mg=MGConfig(policy=ExecutionPolicy.PALLAS))
+        want = simulate(cfg, T0=h["T"], W0=h["W"], max_steps=3, dtype=torch.float64,
+                        device=DEVICE)
+        differ = [k for k in ("T", "W", "S") if not np.array_equal(r[k], getattr(want, k))]
+        log(f"host loop: 3 steps saved (t {float(h['t'])!r}, {secs:.2f} s), resumed for 3 more "
+            f"(t {float(r['t'])!r}): against simulate from the saved T and W, fields "
+            f"differing {differ or 'none'}")
+        require(not differ and float(r["t"]) == want.sim_time,
+                f"the resumed host loop is not simulate from the saved T and W: {differ}")
+        require(not np.array_equal(r["T"], h["T"]), "the resumed host loop did not advance T")
+        with profiling.trace(d / "trace", device=DEVICE) as prof:
+            simulate_fast(dataclasses.replace(ns_cfg(0.0), nx=nx, ny=ny), seed=0, max_steps=5,
+                          device=DEVICE)
+        n_dev = profiling.device_events(prof)
+        size = (d / "trace" / "trace.json").stat().st_size
+        log(f"profiling.trace of 5 fast steps: {n_dev} device events, trace.json {size} bytes")
+        require(n_dev > 0 and size > 0, "the trace recorded no device event")
+
+
+def csv_rows(path):
+    import csv
+
+    with open(path) as f:
+        return list(csv.DictReader(f))
+
+
+def phase_experiments():
+    """Each experiment at its smallest setting that runs its kernels, into a
+    temporary directory: rows checked, the kernels of each counted."""
+    import tempfile
+    from pathlib import Path
+
+    from fpr_tpu_torch.experiments import (dist_mg_large, multigrid_bench, ns_timestepping,
+                                           part1_benchmark, part1_error_experiments,
+                                           part1_scaling)
+
+    log("== phase 21: the experiments (fpr_tpu_torch.experiments) on the card")
+    k_mg, k_dist = 10, 13
+    name = card_name()
+    dev = ["--device", DEVICE]
+    with tempfile.TemporaryDirectory() as d:
+        d = Path(d)
+
+        def run(what, main, argv, out, kernels_needed, n_rows):
+            t0 = time.perf_counter()
+            _, _, counts = counted(lambda: main(argv + dev + ["--out", str(d / out)]))
+            rows = csv_rows(d / out)
+            log(f"{what}: {len(rows)} rows in {time.perf_counter() - t0:.1f} s, launches "
+                f"{ {k: v for k, v in counts.items() if v} }")
+            require(len(rows) == n_rows, f"{what}: {len(rows)} rows, expected {n_rows}")
+            require(all(r["device"] == name and r["backend"].startswith(DEVICE) for r in rows),
+                    f"{what}: a row without backend {DEVICE} and the card's name")
+            for k in kernels_needed:
+                require(counts[k] > 0, f"{what} never launched {k}")
+            return rows
+
+        rows = run("part1_benchmark n=16", part1_benchmark.main,
+                   ["--max-e", "4", "--ttot", "0.4", "--reps", "1"], "bench_diffusion.csv",
+                   ("dual_time", "dual_timek"), 3)
+        require(all(int(r["iters"]) > 0 for r in rows), "part1_benchmark: no iterations")
+        rows = run("part1_error_experiments grid n=16", part1_error_experiments.main,
+                   ["--mode", "grid", "--max-e", "4"], "error_grid.csv", ("dual_time",), 1)
+        rows = run("part1_error_experiments tol n=16", part1_error_experiments.main,
+                   ["--mode", "tol", "--n", "16"], "error_tol.csv", ("ds3d",), 8)
+        vals = [float(r["val"]) for r in rows]
+        require(all(v == v for v in vals) and abs(vals[-1] - vals[-2]) < 1e-6,
+                f"part1_error_experiments tol: probes {vals}")
+        run("part1_scaling weak n=32 on 2 z-shards", part1_scaling.main,
+            ["--mode", "weak", "--n", "32", "--devices", "2", "--ttot", "0.4"],
+            "scaling.csv", ("dual_time",), 1)
+        rows = run(f"multigrid_bench k={k_mg}", multigrid_bench.main,
+                   ["--min-k", str(k_mg), "--max-k", str(k_mg), "--max-l", "2"], "mg.csv",
+                   ("defect", "smooth_down", "corr_up", "smooth2r_split", "corr_smooth2"), 6)
+        require(all(1 <= int(r["iters"]) <= 30 for r in rows), "multigrid_bench: counts")
+        rows = run(f"multigrid_bench --workprec k={k_mg}", multigrid_bench.main,
+                   ["--workprec", "--min-k", str(k_mg), "--max-k", str(k_mg)], "wp.csv",
+                   ("defect", "smooth_down", "corr_up", "smooth2r_split", "corr_smooth2"), 6)
+        rows = run("ns_timestepping fast, 60 steps at most", ns_timestepping.main,
+                   ["--solver", "fast", "--Pr", "0.01", "--betas", "0.0,0.5", "--max-steps",
+                    "60", "--reps", "1"], "ns.csv",
+                   NS_KERNELS, 2)
+        require([int(r["steps"]) for r in rows] == [60, 40],
+                f"ns_timestepping steps {[r['steps'] for r in rows]}, expected [60, 40]")
+        try:
+            ns_timestepping.main(["--solver", "fast", "--s-tol-factor", "0"] + dev)
+            require(False, "ns_timestepping --s-tol-factor 0 ran")
+        except SystemExit as exc:
+            require(exc.code not in (None, 0), "ns_timestepping --s-tol-factor 0 exited 0")
+        rows = run(f"dist_mg_large k={k_dist} on 4 row shards", dist_mg_large.main,
+                   ["--k", str(k_dist), "--devices", "4"], "dist.csv",
+                   ("defect", "smooth2r_split", "corr_smooth2"), 1)
+        r = rows[0]
+        require(r["backend"] == f"{DEVICE}-virtual" and float(r["true_rel_residual"]) <= 2e-6
+                and float(r["device_peak_gb"]) > 0, f"dist_mg_large: {r}")
+
 
 def main() -> int:
     # the run uses one card: make it the only one visible, so that the device
@@ -1856,7 +2091,7 @@ def main() -> int:
         log(f"chip_smoke: the fpr_tpu_torch package is missing ({exc})")
         return 3
     try:
-        phase_env()
+        smi = phase_env()
         phase_build()
         kc = KernelCheck()
         phase_kernels(kc)
@@ -1883,10 +2118,13 @@ def main() -> int:
         phase_dist_ns(semi)
         phase_dist_mg_2d(mg_it, mg_u)
         phase_gspmd()
+        phase_bench(smi)
+        phase_checkpoints()
+        phase_experiments()
     except Failed as exc:
         log(f"chip_smoke FAILED: {exc}")
         return 1
-    log(f"chip_smoke: 18 phases passed in {time.perf_counter() - T0:.0f} s")
+    log(f"chip_smoke: 21 phases passed in {time.perf_counter() - T0:.0f} s")
     table = []
     for k, (source, replaces) in SOURCES.items():
         row = kc.rows[k]

@@ -28,6 +28,10 @@ diffusion, and their sharded tiers:
   ``parallel.dryrun``;
 - ``ops``: the plain PyTorch operators and the hand-written CUDA kernels
   of those paths (``csrc/``, built by ``kernels``).
+- the harness: ``bench`` (``python -m fpr_tpu_torch bench``, the headline
+  rows on the card), ``experiments`` (the six sweeps), ``cli``, and
+  ``utils`` (repeated timings, the Fortran field format and locked CSV
+  rows, checkpoints, profiler traces, the device and its record).
 
 Arrays are physical ``(ny, nx)`` or ``(nz, ny, nx)`` tensors.  Every entry
 point takes an explicit device or defaults to ``cuda``; the CPU runs the

@@ -1,18 +1,35 @@
 """Command-line interface of the port (fpr_tpu/cli.py: the ``diffusion3d``,
-``ns`` and ``mg`` subcommands):
+``ns``, ``mg`` and ``bench`` subcommands):
 
     python -m fpr_tpu_torch diffusion3d --n 512 --policy pallas --check-every 3 --ttot 0.8 --bench
+    python -m fpr_tpu_torch diffusion3d --n 64 --devices 4 --scale-physical-size
     python -m fpr_tpu_torch ns --nx 2049 --ny 513 --Pr 0.01 --tol 1e-7 --ttot 0.005 --fast
+    python -m fpr_tpu_torch ns --nx 2049 --ny 513 --Pr 0.01 --tol 1e-7 --ttot 0.005 --fast \
+        --max-steps 200 --save s200.npz
+    python -m fpr_tpu_torch ns --nx 2049 --ny 513 --Pr 0.01 --tol 1e-7 --ttot 0.005 --fast \
+        --resume s200.npz --max-steps 400
     python -m fpr_tpu_torch ns --nx 1025 --ny 257 --beta 0.5 --Pr 0.1 --tol 1e-7 --f64
     python -m fpr_tpu_torch mg --k 12 --l 9 --coarse dst --smooths 5 --solver ds
     python -m fpr_tpu_torch mg --k 12 --l 2 --coarse jacobi --solver mixed
-    python -m fpr_tpu_torch mg --k 12 --l 9 --coarse dst --smooths 5 --solver ds --devices 4 --mesh 2x2
+    python -m fpr_tpu_torch mg --k 12 --l 9 --coarse dst --smooths 5 --solver ds --devices 4 \
+        --mesh 2x2
+    python -m fpr_tpu_torch bench [--quick]
 
-``--device`` defaults to ``cuda``; ``--device cpu`` runs the plain PyTorch
-versions of the kernels.  ``--devices N`` runs the sharded tier over a
-virtual mesh of N shards, all on ``--device`` (``diffusion3d``: N z-shards
-of n^3 cells each; ``ns --fast`` and ``mg --solver ds``: N row shards, or
-with ``mg --mesh YxX`` a Y x X (y, x) mesh).
+``--device`` defaults to ``cuda``, and without a card every subcommand
+exits with a message; ``--device cpu`` runs the plain PyTorch versions of
+the kernels.  ``--devices N`` runs the sharded tier over a virtual mesh of
+N shards, all on ``--device`` (``diffusion3d``: N z-shards of n^3 cells
+each, whose domain ``--scale-physical-size`` scales with the shard grid;
+``ns --fast`` and ``mg --solver ds``: N row shards, or with ``mg --mesh
+YxX`` a Y x X (y, x) mesh).
+
+``ns --save PATH`` writes a checkpoint (``utils.checkpoint``): the fast
+loops' exact-resume payload (T, W, S_hi, S_lo, w_sumsq, t_hi, t_lo, step,
+the JAX package's keys), or the host loop's T, W, S, t.  ``--resume PATH``
+continues a fast payload bitwise (``--max-steps`` is the total step
+budget) or starts the host loop from a checkpoint's T and W; a fast
+payload without ``--fast`` is refused.  Either package's checkpoints load
+in the other.  ``--snapshot-every N`` keeps the fields every N steps.
 """
 
 from __future__ import annotations
@@ -24,6 +41,8 @@ import time
 import numpy as np
 import torch
 
+from fpr_tpu_torch.utils.device import resolve
+
 
 def cmd_diffusion3d(args):
     from fpr_tpu_torch.core.config import DiffusionConfig, ExecutionPolicy
@@ -32,7 +51,8 @@ def cmd_diffusion3d(args):
 
     policy = ExecutionPolicy(args.policy)
     cfg = DiffusionConfig(nx=args.n, ny=args.n, nz=args.n, ttot=args.ttot, tol=args.tol,
-                          policy=policy, check_every=args.check_every)
+                          policy=policy, check_every=args.check_every,
+                          scale_physical_size=args.scale_physical_size)
     dtype = torch.float64 if args.f64 else torch.float32
     if args.devices > 1:
         from fpr_tpu_torch.parallel import dist_diffusion
@@ -56,10 +76,9 @@ def cmd_diffusion3d(args):
 
 
 def cmd_ns(args):
-    from fpr_tpu_torch.core.config import NSConfig
+    from fpr_tpu_torch.core.config import ExecutionPolicy, MGConfig, NSConfig
     from fpr_tpu_torch.models import navier_stokes as ns
-
-    from fpr_tpu_torch.core.config import ExecutionPolicy, MGConfig
+    from fpr_tpu_torch.utils import checkpoint
 
     # --fast ignores --policy and keeps the default MGConfig, which
     # fast_mg_default may upgrade to the DST-257 V(3,3) ladder
@@ -71,27 +90,38 @@ def cmd_ns(args):
     )
     if args.devices > 1 and not args.fast:
         raise SystemExit("--devices > 1 runs the sharded fast loop: add --fast")
+    state0 = checkpoint.load(args.resume) if args.resume else None
     if args.fast:
         if args.f64:
             raise SystemExit("--fast is float32-only; drop --f64 or drop --fast")
+        kw = dict(verbose=args.verbose, max_steps=args.max_steps,
+                  snapshot_steps=args.snapshot_every, state0=state0)
         if args.devices > 1:
             from fpr_tpu_torch.models import dist_ns
             from fpr_tpu_torch.parallel.mesh import make_mesh
 
             mesh = make_mesh((args.devices,), ("y",), device=args.device)
-            out = dist_ns.simulate_fast_sharded(cfg, mesh, verbose=args.verbose,
-                                                max_steps=args.max_steps)
+            out = dist_ns.simulate_fast_sharded(cfg, mesh, **kw)
         else:
-            out = ns.simulate_fast(cfg, verbose=args.verbose, max_steps=args.max_steps,
-                                   device=args.device)
+            out = ns.simulate_fast(cfg, **kw, device=args.device)
     else:
+        if state0 is not None and "t_hi" in state0:
+            raise SystemExit("this checkpoint holds fast-path state; resume with --fast")
         out = ns.simulate(cfg, verbose=args.verbose, max_steps=args.max_steps,
+                          snapshot_every=args.snapshot_every,
                           dtype=torch.float64 if args.f64 else torch.float32,
-                          device=args.device)
+                          T0=state0.get("T") if state0 else None,
+                          W0=state0.get("W") if state0 else None, device=args.device)
     print(
         f"steps: {out.steps}  sim_time: {out.sim_time:.6f}  "
         f"timed: {out.t_elapsed:.3f}s  T in [{out.T.min():.3f}, {out.T.max():.3f}]"
     )
+    if args.save:
+        if args.fast:
+            checkpoint.save(args.save, **out.state)  # resumes bitwise with --resume
+        else:
+            checkpoint.save(args.save, T=out.T, W=out.W, S=out.S, t=out.sim_time)
+        print(f"saved fields to {args.save}")
 
 
 def cmd_mg(args):
@@ -158,6 +188,14 @@ def cmd_mg(args):
           f"true f64 r_rms/f_rms = {rel:.2e}")
 
 
+def cmd_bench(args):
+    from fpr_tpu_torch import bench
+
+    rc = bench.run(args)
+    if rc:
+        raise SystemExit(rc)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(prog="fpr_tpu_torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
@@ -175,6 +213,8 @@ def main(argv=None):
     p.add_argument("--f64", action="store_true", help="float64 (the jnp tier, or the CPU)")
     p.add_argument("--devices", type=int, default=1,
                    help="shards of a virtual z mesh on --device, each n^3 cells")
+    p.add_argument("--scale-physical-size", action="store_true",
+                   help="--devices: scale the domain with the shard grid (weak scaling)")
     p.add_argument("--bench", action="store_true",
                    help="print the counted performance model as one JSON line")
     p.add_argument("--verbose", action="store_true")
@@ -200,6 +240,14 @@ def main(argv=None):
                    help="keep the default MG ladder instead of DST-257, V(3,3)")
     p.add_argument("--devices", type=int, default=1,
                    help="--fast: row shards of a virtual mesh on --device")
+    p.add_argument("--snapshot-every", type=int, default=0,
+                   help="keep the fields every N steps (the fast loops: and at the end)")
+    p.add_argument("--save", default=None,
+                   help="write a checkpoint: the fast loops' exact-resume payload, or the "
+                        "host loop's T, W, S, t")
+    p.add_argument("--resume", default=None,
+                   help="checkpoint to resume from (fast payloads resume bitwise; host-loop "
+                        "ones restore T and W)")
     p.add_argument("--verbose", action="store_true")
     p.set_defaults(fn=cmd_ns)
 
@@ -220,7 +268,14 @@ def main(argv=None):
                    help="--solver ds: a YxX (y, x) mesh of the --devices shards instead")
     p.set_defaults(fn=cmd_mg)
 
+    from fpr_tpu_torch import bench
+
+    p = sub.add_parser("bench", help="the headline benchmark (one JSON line)")
+    bench.add_arguments(p)
+    p.set_defaults(fn=cmd_bench)
+
     args = ap.parse_args(argv)
+    resolve(args.device)
     args.fn(args)
 
 

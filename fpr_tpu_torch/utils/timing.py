@@ -1,6 +1,11 @@
-"""The counted-operation performance model of part 1
-(fpr_tpu/utils/timing.py: BenchResults, MEMORY_MODEL_WORDS, FLOPS_PER_CELL,
-diffusion_bench_results).
+"""Repeated timings and the counted-operation performance model of part 1
+(fpr_tpu/utils/timing.py: TimingStats, timed_stats, BenchResults,
+MEMORY_MODEL_WORDS, FLOPS_PER_CELL, diffusion_bench_results).
+
+``timed_stats`` times a function on the host clock: the function must end
+in ``torch.cuda.synchronize()`` or a scalar read, or the clock measures
+only the enqueue of the card's work.  Every headline figure is a median
+over repetitions with the iqr as its spread.
 
 Work and memory traffic are counted from the stencil, not measured, so
 the effective throughput T_eff = memory / time compares across machines:
@@ -13,6 +18,42 @@ kernel, (6+1) for its shared-memory kernel and (3+1) for a fused kernel
 from __future__ import annotations
 
 import dataclasses
+import time
+
+import numpy as np
+
+
+@dataclasses.dataclass(frozen=True)
+class TimingStats:
+    """Median, iqr and minimum of repeated timings, and their count."""
+
+    median_s: float
+    iqr_s: float
+    min_s: float
+    reps: int
+
+    def row(self) -> dict:
+        return dataclasses.asdict(self)
+
+
+def stats_of(times) -> TimingStats:
+    """TimingStats of measured seconds."""
+    t = np.asarray(times, dtype=np.float64)
+    return TimingStats(median_s=float(np.median(t)),
+                       iqr_s=float(np.percentile(t, 75) - np.percentile(t, 25)),
+                       min_s=float(t.min()), reps=len(t))
+
+
+def timed_stats(fn, reps: int = 3) -> TimingStats:
+    """Time ``fn()`` ``reps`` times (at least once) on the host clock.  fn
+    must end in ``torch.cuda.synchronize()`` or a scalar read; the caller
+    warms up (builds the kernels) before calling this."""
+    times = []
+    for _ in range(max(1, reps)):
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+    return stats_of(times)
 
 
 @dataclasses.dataclass(frozen=True)

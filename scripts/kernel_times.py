@@ -12,7 +12,8 @@ kernel-check phases, and prints as its last line one JSON object
 "bound_ms"}}, "small": {...}, "legs_4097": {...}}``.  ``small`` holds
 part 1's K-sweep call at 128^3, K=3, the call of phase 8's check_every=3
 solve (device µs over every kernel whose name starts with ``dual_time``,
-whichever kernel the tree runs it with, and call ms), and that solve's
+whichever kernel the tree runs it with, call ms and the plain version's
+call ms), and that solve's
 timed window in seconds.  ``legs_4097`` holds the V-cycle legs at the MG
 row's finest level, 4097^2 with ns=5: the down leg from a zero iterate
 and the up leg with its norm, device µs over the legs' kernels of either
@@ -71,12 +72,14 @@ def small_field(chip_smoke) -> dict:
     Ht, Hs = (torch.tensor(rng.random(shape, dtype=np.float32), device="cuda") for _ in range(2))
     kw = chip_smoke.diffusion_kw(shape)
     call = lambda: dual_time.dual_time_stepk(Ht, Hs, K, **kw)  # noqa: E731
+    plain = lambda: dual_time.dual_time_stepk_plain(Ht, Hs, K, dual_time.coeffs(**kw))  # noqa
     cfg = DiffusionConfig(nx=128, ny=128, nz=128, ttot=2.0, tol=1e-6,
                           policy=ExecutionPolicy.PALLAS, check_every=K)
     diffusion3d.solve(cfg, device="cuda")  # warm-up
     run = diffusion3d.solve(cfg, device="cuda")
     return {"dual_timek_128": {"device_us": chip_smoke.device_us(call, ["dual_time"]),
                                "ms": chip_smoke.time_ms(call),
+                               "plain_ms": chip_smoke.time_ms(plain),
                                "bound_ms": chip_smoke.bound_of(12 * cells, K * 27 * cells)[0]},
             "solve_128_k3": {"iters_total": run.iters_total,
                              "timed_window_s": run.bench.delta_t}}
