@@ -94,6 +94,21 @@ Phases, in order; the first failure stops the run with a non-zero exit:
     2049x513 for at most 60 steps, ``dist_mg_large --k 13 --devices 4``):
     the rows' counts, backend and card name, and the kernels each ran;
     ``ns_timestepping --s-tol-factor 0`` refused.
+22. device loops: every loop ported to a CUDA graph with WHILE nodes
+    (``core/loops.py``) against the host loops (``loops.host_loops()``),
+    bitwise with equal counts: NS explicit to its end (phase 5's run, 8736
+    timed steps) and for 20 steps, again with chunk_steps=1000 (one graph
+    launch a chunk, host syncs counted: warm-up + chunks + end), NS semi
+    to its end (phase 6's run, 37), MG ds 4097^2 (4 outers, one graph
+    launch a call) and ``mg_pcg_ds`` 4097^2, diffusion 128^3 K=1 (18980),
+    K=3 and ds (41148); the same through the plain versions on both sides
+    (NS 20 and 5 steps, diffusion 50 iterations a step); the device
+    launches of K1, K4 and the legs in 20 NS steps as the graphs count
+    them, equal to the host loops' and to the profiler's count on the host
+    loops or one more (the profiler loses an event now and then; it sees
+    no kernel inside a conditional node);
+    a host read in a captured body raises; each row's wall time beside
+    PR 9's.
 
 Phase 3 holds the legs K2/K3 (one launch of the leg kernel a call) bitwise
 at the MG row's levels with ns=5, timed at 2049x513 ns=3 and at 4097^2
@@ -115,6 +130,8 @@ four windows of a 2x2 split of 2049^2 against their plain versions and the
 whole grid's cells, and K4's with_helm_defect mode (the ``ns_fused_helm``
 row) against its plain version and against the rhs pass and two K1 passes,
 all bitwise.
+Launch counts are device launches: a kernel inside a CUDA graph counts
+once for each time the graph runs it (``kernels.sync_launches``).
 Each kernel's launches are counted over the one path run that uses it
 (phase 5 for the NS kernels, 7 for dual_timek, 8 for dual_time, 9 for
 ds3d, 11's PALLAS ``mg_solve`` for the stencil pass, 13's beta=0.5 run for
@@ -1119,7 +1136,7 @@ def phase_mg():
     (uh, ul), r, it = mg_solve_ds(None, b, h, 0.0, tol, 30, cfg=cfg, return_pair=True)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
-    counts = dict(kernels.launches)
+    counts = kernels.sync_launches()
     b64 = b.double()
     rel = float(stencil2d.rms(stencil2d.residual(uh.double() + ul.double(), b64, h, 0.0))
                 / stencil2d.rms(b64))
@@ -1164,7 +1181,7 @@ def phase_ns_explicit():
     cfg = ns_cfg(0.0)
     kernels.reset_launches()
     out = simulate_fast(cfg, seed=0, device="cuda")
-    counts = dict(kernels.launches)
+    counts = kernels.sync_launches()
     log(f"timed_iters {out.timed_iters}  steps {out.steps}  sim_time {out.sim_time!r}  "
         f"timed {out.t_elapsed:.3f} s  launches {counts}")
     require(out.timed_iters == 8736, f"timed_iters {out.timed_iters} != 8736")
@@ -1208,12 +1225,12 @@ def diffusion_run(cfg, what):
     t0 = time.perf_counter()
     out = diffusion3d.solve(cfg, device="cuda")
     secs = time.perf_counter() - t0
-    counts = {k: v for k, v in kernels.launches.items() if v}
+    counts = {k: v for k, v in kernels.sync_launches().items() if v}
     log(f"{what}: iters_total {out.iters_total}  timed_iters {out.timed_iters}  "
         f"converged {out.converged}  solve {secs:.3f} s (timed window "
         f"{out.bench.delta_t:.4f} s)  launches {counts}")
     require(out.H.shape == (cfg.nz, cfg.ny, cfg.nx), f"{what}: H shape {out.H.shape}")
-    return out, dict(kernels.launches)
+    return out, kernels.sync_launches()
 
 
 def compare_diffusion(cfg, what, k=None):
@@ -1359,7 +1376,7 @@ def counted(fn):
     t0 = time.perf_counter()
     out = fn()
     sync()
-    return out, time.perf_counter() - t0, dict(kernels.launches)
+    return out, time.perf_counter() - t0, kernels.sync_launches()
 
 
 def phase_mg_mixed(n=4097):
@@ -2075,6 +2092,237 @@ def phase_experiments():
                 and float(r["device_peak_gb"]) > 0, f"dist_mg_large: {r}")
 
 
+# PR 9's rows (PERF.md §6, ``python -m fpr_tpu_torch bench`` on an NVIDIA
+# H100 80GB HBM3 at 700.00 W, host loops), beside phase 22's wall times
+PR9_SECONDS = {"NS explicit 8736 steps": 36.463, "NS semi 37 steps": 0.9614,
+               "MG ds 4097^2": 0.010114}
+# the profiler's names of the NS kernels (K2 and K3 are one leg kernel)
+PROFILED = {"defect": "::defect_kernel", "ns_fused": "::ns_kernel", "legs": "::leg_kernel"}
+
+
+@contextlib.contextmanager
+def count_host_syncs():
+    """Count what makes the host wait for the card: torch.cuda.synchronize
+    and every read of a CUDA tensor's values (bool, float, int, item, cpu,
+    numpy, tolist)."""
+    import torch
+
+    n = [0]
+    names = ("__bool__", "__float__", "__int__", "item", "cpu", "numpy", "tolist")
+    saved = {k: getattr(torch.Tensor, k) for k in names}
+    sync = torch.cuda.synchronize
+
+    def counting(orig):
+        def read(self, *a, **k):
+            n[0] += self.is_cuda
+            return orig(self, *a, **k)
+        return read
+
+    def synchronize(*a, **k):
+        n[0] += 1
+        return sync(*a, **k)
+
+    try:
+        for k in names:
+            setattr(torch.Tensor, k, counting(saved[k]))
+        torch.cuda.synchronize = synchronize
+        yield n
+    finally:
+        for k in names:
+            setattr(torch.Tensor, k, saved[k])
+        torch.cuda.synchronize = sync
+
+
+def median_seconds(fn, reps=5):
+    """fn's result and the median of reps host-clock times to a sync."""
+    ts = []
+    for _ in range(reps):
+        sync()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        ts.append(time.perf_counter() - t0)
+    return out, sorted(ts)[reps // 2]
+
+
+def phase_device_loops(explicit, semi):
+    """Phase 22: every ported loop as one graph launch a call against the
+    host loops (``loops.host_loops()``), bitwise, through the kernels and
+    through their plain versions."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from fpr_tpu_torch import kernels
+    from fpr_tpu_torch.core import loops
+    from fpr_tpu_torch.core.config import CoarseSolver, DiffusionConfig, ExecutionPolicy, MGConfig
+    from fpr_tpu_torch.models import diffusion3d
+    from fpr_tpu_torch.models.navier_stokes import simulate_fast
+    from fpr_tpu_torch.solvers.krylov import mg_pcg_ds
+    from fpr_tpu_torch.solvers.multigrid import mg_solve_ds
+
+    log("== phase 22: device loops (CUDA graphs, WHILE nodes) against the host loops")
+    walls = []
+
+    def same_ns(a, b, what):
+        require((a.steps, a.timed_iters, a.sim_time) == (b.steps, b.timed_iters, b.sim_time),
+                f"{what}: steps {a.steps}/{a.timed_iters} t {a.sim_time!r} vs host loop "
+                f"{b.steps}/{b.timed_iters} t {b.sim_time!r}")
+        for k in ("T", "W", "S"):
+            require(np.array_equal(getattr(a, k), getattr(b, k)), f"{what}: {k} differs")
+        for k in ("T", "W", "S_hi", "S_lo", "w_sumsq", "t_hi", "t_lo"):
+            require(torch.equal(a.state[k], b.state[k]), f"{what}: state {k} differs")
+
+    def both(run, what, compare, plain=False):
+        """run() as graphs, then as host loops; compare(graph, host)."""
+        with plain_kernels() if plain else contextlib.nullcontext():
+            g = run()
+            with loops.host_loops():
+                h = run()
+        compare(g, h, what + (" (plain versions)" if plain else ""))
+        return g, h
+
+    # NS explicit: phase 5's graph run against the host loop, the full run
+    cfg = ns_cfg(0.0)
+    with loops.host_loops():
+        host = simulate_fast(cfg, seed=0, device="cuda")
+    same_ns(explicit, host, "NS explicit, the full run")
+    require(explicit.timed_iters == 8736, f"NS explicit timed_iters {explicit.timed_iters}")
+    walls.append(("NS explicit 8736 steps", explicit.t_elapsed, host.t_elapsed))
+    log(f"NS explicit: {explicit.timed_iters} timed steps, bitwise equal to the host loop")
+    # chunks of 1000 steps: the same bits, one graph launch and one host read a chunk
+    simulate_fast(cfg, seed=0, max_steps=4, device="cuda")  # the graph is built here
+    launched = loops.stats["launches"]
+    with count_host_syncs() as n:
+        chunked = simulate_fast(cfg, seed=0, chunk_steps=1000, device="cuda")
+    chunks = -(-(chunked.steps - 3) // 1000)
+    launched = loops.stats["launches"] - launched
+    same_ns(chunked, explicit, "NS explicit, chunk_steps=1000")
+    log(f"chunk_steps=1000: {chunks} chunks, {launched} graph launches, {n[0]} host syncs "
+        f"(warm-up + chunks + end = {1 + chunks + 1}), timed {chunked.t_elapsed:.3f} s")
+    require(launched == 1 + chunks,
+            f"{launched} graph launches for the warm-up and {chunks} chunks")
+    require(n[0] == 1 + chunks + 1, f"{n[0]} host syncs, expected {1 + chunks + 1}")
+    for plain in (False, True):
+        both(lambda: simulate_fast(cfg, seed=0, max_steps=20, device="cuda"),
+             "NS explicit, 20 steps", same_ns, plain)
+
+    # NS semi-implicit to its end: phase 6's graph run against the host loop
+    with loops.host_loops():
+        host = simulate_fast(ns_cfg(0.5), seed=0, device="cuda")
+    same_ns(semi, host, "NS semi-implicit, the full run")
+    require(semi.timed_iters == 37, f"NS semi timed_iters {semi.timed_iters}")
+    walls.append(("NS semi 37 steps", semi.t_elapsed, host.t_elapsed))
+    both(lambda: simulate_fast(ns_cfg(0.5), seed=0, max_steps=5, device="cuda"),
+         "NS semi-implicit, 5 steps", same_ns, plain=True)
+
+    # MG 4097^2 and mg_pcg_ds 4097^2
+    n, tol = 4097, 1e-6
+    h = 1.0 / (n - 1)
+    mg_cfg = MGConfig(coarse_size=513, coarse_solver=CoarseSolver.DST, pre_smooth=5,
+                      post_smooth=5)
+    b = poisson_rhs(n, "float32")
+
+    def same_solve(want_it):
+        def compare(g, hh, what):
+            (gh, gl), gr, git = g
+            (hh_, hl), hr, hit = hh
+            rel = true_rel(gh.double() + gl.double(), b, h)
+            require(git == hit == want_it and torch.equal(gh, hh_) and torch.equal(gl, hl)
+                    and torch.equal(gr, hr),
+                    f"{what}: {git} vs host loop {hit} (expected {want_it}), or fields differ")
+            require(rel <= tol, f"{what}: true f64 residual {rel:.3e} > {tol}")
+            log(f"{what}: {git} iterations, bitwise equal to the host loop, true f64 "
+                f"r_rms/f_rms {rel:.4e}")
+        return compare
+
+    for name, solve, want_it in (
+            ("MG ds 4097^2", lambda: mg_solve_ds(None, b, h, 0.0, tol, 30, cfg=mg_cfg,
+                                                return_pair=True), 4),
+            ("mg_pcg_ds 4097^2", lambda: mg_pcg_ds(b, h, 0.0, tol, 30, cfg=mg_cfg,
+                                                  return_pair=True), None)):
+        solve()
+        launched = loops.stats["launches"]
+        g, tg = median_seconds(solve)
+        require(loops.stats["launches"] - launched == 5, f"{name}: not one graph launch a call")
+        with loops.host_loops():
+            hh, th = median_seconds(solve)
+        same_solve(want_it or hh[2])(g, hh, name)
+        walls.append((name, tg, th))
+        both(solve, name, same_solve(want_it or hh[2]), plain=True)
+
+    # diffusion 128^3: K=1 and K=3 to tol 1e-6, ds to 1e-10; plain at 50 a step
+    def same_h(g, hh, what):
+        require((g.iters_total, g.timed_iters, g.converged) ==
+                (hh.iters_total, hh.timed_iters, hh.converged) and np.array_equal(g.H, hh.H),
+                f"{what}: {g.iters_total} iterations vs host loop {hh.iters_total}, or H differs")
+        log(f"{what}: {g.iters_total} iterations, H bitwise equal to the host loop")
+
+    pallas = ExecutionPolicy.PALLAS
+    for name, dcfg, want in (
+            ("diffusion 128^3 K=1", DiffusionConfig(ttot=2.0, tol=1e-6, policy=pallas), 18980),
+            ("diffusion 128^3 K=3", DiffusionConfig(ttot=2.0, tol=1e-6, policy=pallas,
+                                                    check_every=3), K3_ITERS_UNFUSED),
+            ("diffusion 128^3 ds", DiffusionConfig(ttot=2.0, tol=1e-10,
+                                                   policy=ExecutionPolicy.PALLAS_DS), 41148)):
+        g, hh = both(lambda: diffusion3d.solve(dcfg, device="cuda"), name, same_h)
+        require(g.iters_total == want or name.endswith("K=3"),
+                f"{name}: {g.iters_total} iterations, expected {want}")
+        walls.append((name, g.bench.delta_t, hh.bench.delta_t))
+        both(lambda: diffusion3d.solve(dataclasses.replace(dcfg, iter_max=50), device="cuda"),
+             name + ", 50 a step", same_h, plain=True)
+
+    # device launches: the graphs' counts (kernels.sync_launches) against the
+    # same run as host loops, whose wrappers each launch once a call, and
+    # against the profiler's count of that run (it loses an event now and
+    # then, never adds one, and sees no kernel inside a conditional node;
+    # in PR 10's runs it saw all or all but one K1 launch)
+    from torch.profiler import ProfilerActivity, profile
+
+    def by_kernel(counts):
+        return {"defect": counts["defect"], "ns_fused": counts["ns_fused"],
+                "legs": counts["smooth_down"] + counts["corr_up"]}
+
+    def profiled(host):
+        with loops.host_loops() if host else contextlib.nullcontext(), \
+                profile(activities=[ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+        return {k: sum(e.count for e in prof.key_averages() if name in e.key)
+                for k, name in PROFILED.items()}
+
+    run = lambda: simulate_fast(cfg, seed=0, max_steps=20, device="cuda")  # noqa: E731
+    run()  # a graph built anew (the cache keeps CACHE_SIZE) launches its warm-up pass too
+    kernels.reset_launches()
+    run()
+    graphs = by_kernel(kernels.sync_launches())
+    with loops.host_loops():
+        kernels.reset_launches()
+        run()
+        host = by_kernel(kernels.sync_launches())
+    seen = [profiled(True) for _ in range(3)]
+    best = {k: max(w[k] for w in seen) for k in graphs}
+    log(f"NS explicit 20 steps, device launches: graphs {graphs}, host loops {host}, the "
+        f"profiler on the host loops {best} (windows {seen}); on the graphs it saw "
+        f"{profiled(False)}")
+    require(graphs == host, f"device launches {graphs} vs the host loops' {host}")
+    require(all(host[k] - 1 <= best[k] <= host[k] for k in host),
+            f"the profiler's counts {best} are not those of the host loops {host} or one fewer")
+
+    # a body that reads the host fails its capture and raises
+    try:
+        loops.device_call(lambda c: c + float(c.sum()), torch.zeros(3, device="cuda"))
+        require(False, "a host read in a captured body did not raise")
+    except RuntimeError as exc:
+        log(f"a host read in a captured body raises: {str(exc).splitlines()[0][:80]}")
+    require(float(torch.ones(3, device="cuda").sum()) == 3.0, "the card fails after it")
+    for what, tg, th in walls:
+        pr9 = f"{PR9_SECONDS[what]:.4f} s" if what in PR9_SECONDS else "not measured"
+        log(f"wall {what}: graphs {tg:.4f} s, host loops {th:.4f} s, PR 9 {pr9}")
+    log(f"graph launches {loops.stats['launches']}, captures {loops.stats['captures']}")
+
+
 def main() -> int:
     # the run uses one card: make it the only one visible, so that the device
     # count in the last line is the number of cards the run used
@@ -2096,7 +2344,7 @@ def main() -> int:
         kc = KernelCheck()
         phase_kernels(kc)
         mg_it, mg_u = phase_mg()
-        ns_counts, _ = phase_ns_explicit()
+        ns_counts, explicit = phase_ns_explicit()
         semi = phase_ns_semi()
         launches = {k: ns_counts[k] for k in NS_KERNELS}
         launches["ns_fused_helm"] = phase_helm_warm_start(semi)["ns_fused_helm"]
@@ -2121,10 +2369,11 @@ def main() -> int:
         phase_bench(smi)
         phase_checkpoints()
         phase_experiments()
+        phase_device_loops(explicit, semi)
     except Failed as exc:
         log(f"chip_smoke FAILED: {exc}")
         return 1
-    log(f"chip_smoke: 21 phases passed in {time.perf_counter() - T0:.0f} s")
+    log(f"chip_smoke: 22 phases passed in {time.perf_counter() - T0:.0f} s")
     table = []
     for k, (source, replaces) in SOURCES.items():
         row = kc.rows[k]

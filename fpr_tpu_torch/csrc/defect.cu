@@ -85,6 +85,7 @@ struct Params {
     int c_kind;
     float C_hi, C_lo, h2;
     float scale, inv_h2, inv2h, n_cells;
+    const float* scale_dev;              // the scale on the device, or null for scale
     int ny, nx, flags, S;
     int row_off, ny_g, own0, own1, col_off, nx_g, ownc0, ownc1;
     float *uh_out, *ul_out, *r_out;
@@ -107,7 +108,7 @@ __device__ __forceinline__ void updated(const Params& p, bool bcs, int y, int gy
     }
     const int i = y * p.nx + x;
     float ph, pe;
-    fpr::two_prod(p.e ? p.e[i] : 0.0f, p.scale, ph, pe);
+    fpr::two_prod(p.e ? p.e[i] : 0.0f, p.scale_dev ? *p.scale_dev : p.scale, ph, pe);
     fpr::ds_add(p.uh[i], p.ul[i], -ph, -pe, h, l);
 }
 
@@ -249,7 +250,8 @@ int fpr_defect_fill(int cols, int* sms, int* per_sm) {
 // rows a thread, on `blocks` blocks (1 .. the tiles) that take the tiles in
 // turn.  fl may be null when F_SINGLE, e null for a zero correction.  C:
 // c_kind C_VALUE takes (C_hi, C_lo), C_PAIR the device pair c, C_SCALAR
-// derives it from the device c and h2.  row_off, ny_g, own0, own1: the row
+// derives it from the device c and h2.  scale_dev: the scale as a device
+// float (a CG step length computed on the device), or null for scale.  row_off, ny_g, own0, own1: the row
 // hooks; col_off, nx_g, ownc0, ownc1: the column hooks.  partials: 4 x
 // blocks f32, scratch; counter: a device word that is 0 and used by no
 // other launch in flight (0 again after this one); out: 5 f32, [sum r^2,
@@ -258,8 +260,8 @@ int fpr_defect_fill(int cols, int* sms, int* per_sm) {
 // cudaError_t.
 int fpr_defect(const float* uh, const float* ul, const float* fh, const float* fl,
                const float* e, const float* c, int c_kind, float C_hi, float C_lo, float h2,
-               float scale, float inv_h2, float inv2h, float n_cells, int ny, int nx,
-               int flags, int S, int blocks, int row_off, int ny_g, int own0, int own1,
+               float scale, const float* scale_dev, float inv_h2, float inv2h,
+               float n_cells, int ny, int nx, int flags, int S, int blocks, int row_off, int ny_g, int own0, int own1,
                int col_off, int nx_g, int ownc0, int ownc1, float* uh_out, float* ul_out,
                float* r_out, float* partials, unsigned* counter, float* out,
                cudaStream_t stream) {
@@ -270,7 +272,7 @@ int fpr_defect(const float* uh, const float* ul, const float* fh, const float* f
         return static_cast<int>(cudaErrorInvalidValue);
     }
     const Params p{uh, ul, fh, fl, e, c, c_kind, C_hi, C_lo, h2, scale, inv_h2, inv2h,
-                   n_cells, ny, nx, flags, S, row_off, ny_g, own0, own1, col_off, nx_g,
+                   n_cells, scale_dev, ny, nx, flags, S, row_off, ny_g, own0, own1, col_off, nx_g,
                    ownc0, ownc1, uh_out, ul_out, r_out, partials, counter, out};
     const bool cols = !(col_off == 0 && nx_g == nx && ownc0 == 0 && ownc1 == nx);
     auto kernel = cols ? defect_kernel<true> : defect_kernel<false>;

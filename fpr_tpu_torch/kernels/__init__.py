@@ -29,6 +29,15 @@ legs of the row-padded V-cycle, which launch the leg kernel of
 ``smooth_down`` and ``corr_up`` (one launch a call, all four).
 ``ns_fused_helm`` counts the NS operator kernel's launches in its
 Helmholtz-defect mode, ``ns_fused`` the others.
+
+A wrapper called while ``core/loops.py`` captures a CUDA graph launches
+nothing: the graph launches its kernel each time it runs, as often as its
+loops go round.  ``core/loops.py`` takes such calls out of ``launches``
+and adds them back per run of the graph, the ones inside a loop's body
+times the passes a device counter saw, which ``sync_launches`` reads (one
+host sync); ``reset_launches`` reads them first, so that a count set to 0
+stays 0 until the next launch.  ``csrc/graph_loop.cu`` (the graphs'
+conditional nodes) is built into the same library.
 """
 
 from __future__ import annotations
@@ -79,7 +88,7 @@ NVCC_FLAGS = (
 
 _P, _I, _F, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_double
 _SIGNATURES = {
-    "fpr_defect": [*[_P] * 6, _I, *[_F] * 7, *[_I] * 13, *[_P] * 7],
+    "fpr_defect": [*[_P] * 6, _I, *[_F] * 4, _P, *[_F] * 3, *[_I] * 13, *[_P] * 7],
     "fpr_defect_fill": [_I, ctypes.POINTER(_I), ctypes.POINTER(_I)],
     "fpr_leg": [_P, _P, _P, _P, _F, _F, _F, *[_I] * 13, _P, _P, _P, _I, _P],
     "fpr_leg_blocks": [_I, _I, _I, _I, ctypes.POINTER(_I)],
@@ -91,13 +100,36 @@ _SIGNATURES = {
     "fpr_ds3d": [_P, _P, _P, _P, _I, *[_F] * 10, _I, _I, _I, _P],
     "fpr_stencil_f32": [_P, _P, _P, _F, _F, _F, _I, _I, _I, _P, _P, _P],
     "fpr_stencil_f64": [_P, _P, _P, _D, _D, _D, _I, _I, _I, _P, _P, _P],
+    "fpr_graph_create": [ctypes.POINTER(_P)],
+    "fpr_graph_destroy": [_P],
+    "fpr_graph_nodes": [_P, ctypes.POINTER(ctypes.c_size_t)],
+    "fpr_graph_add_child": [_P, _P, _P, ctypes.POINTER(_P)],
+    "fpr_graph_add_cond": [_P, _P, _I, _P, ctypes.POINTER(_P), ctypes.POINTER(_P),
+                           ctypes.POINTER(ctypes.c_ulonglong)],
+    "fpr_graph_add_set": [_P, _P, ctypes.c_ulonglong, _P, _P, ctypes.POINTER(_P)],
+    "fpr_graph_instantiate": [_P, ctypes.POINTER(_P)],
+    "fpr_graph_launch": [_P, _P],
+    "fpr_graph_exec_destroy": [_P],
 }
 
 _lib = None
 _lock = threading.Lock()
 
 
+# callables that add the launches of the graphs' past runs into `launches`
+# (core/loops.py registers its one)
+_device_counts = []
+
+
+def sync_launches() -> dict:
+    """``launches`` with every graph run so far counted in (a copy)."""
+    for fold in _device_counts:
+        fold()
+    return dict(launches)
+
+
 def reset_launches() -> None:
+    sync_launches()
     for name in KERNELS:
         launches[name] = 0
 
@@ -228,15 +260,20 @@ _counters: dict = {}
 
 def launch_counter(t: torch.Tensor) -> torch.Tensor:
     """The ticket word of K1's and K4's in-launch sums for launches on t's
-    device and current stream: one int32, 0 between launches (the last block
-    of each launch re-arms it).  One word per (device, stream) is safe because
-    launches on one stream run one after another, and the port launches K1
-    and K4 on the current stream only (``parallel/mesh.py`` makes no
-    streams: every shard of a virtual mesh launches on its device's current
-    stream, one after another)."""
-    key = (t.device.index, stream(t))
+    device: one int32, 0 between launches (the last block of each launch
+    re-arms it).  One word per device serves every stream, the side stream
+    a graph is captured on included: the port launches K1 and K4, eagerly or
+    in a graph, on the device's current stream only, one launch after
+    another (``parallel/mesh.py`` makes no streams: every shard of a virtual
+    mesh launches on its device's current stream).  The word is made
+    outside any capture (a graph's warm-up pass makes it), never in a
+    graph's memory pool."""
+    key = t.device.index
     word = _counters.get(key)
     if word is None:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("launch_counter: the first K1/K4 launch on a device is being "
+                               "captured; run the body once before capturing it")
         word = _counters[key] = torch.zeros(1, dtype=torch.int32, device=t.device)
     return word
 

@@ -12,27 +12,29 @@ then Ht <- Htau.  ``cfg.policy`` picks the tier of the iteration: JNP
 (``ops/stencil3d.py``), PALLAS (``ops/dual_time.py``, K = check_every
 iterations per call) or PALLAS_DS (``ops/ds3d.py``).
 
-The JAX ``lax.while_loop`` over iterations is a host loop here: each call
-reads one scalar, sumsq, from the device.  err = sqrt(sumsq) dt / sqrt(N)
-is formed from it in the field's dtype (float32 for the kernel tiers and
-ds) with numpy scalars and compared with tol rounded to that dtype, which
-is the comparison the JAX loop makes on the device.  Iterations advance by
-K per call; convergence is err <= tol, not the count.  The kernel tiers
-iterate on a ping-pong pair of buffers (each call writes the one it does
-not read) and one partials buffer allocated once per solve; the commit
-Ht <- Htau is a device copy.
+The loop over iterations is a ``core.loops.while_loop`` over (Htau, err,
+it), as JAX's ``lax.while_loop``: on CUDA one launch of a cached CUDA
+graph a physical step, the host reading the iteration count and err once
+per physical step, as JAX does.  err = sqrt(sumsq) dt / sqrt(N) is formed
+on the device in the field's dtype (float32 for the kernel tiers and ds)
+and compared there with tol rounded to that dtype; the float64 test of
+convergence is the host's.  Iterations advance by K per call; convergence
+is err <= tol, not the count.  The kernel tiers iterate on a ping-pong pair
+of buffers (each call writes the one it does not read, two calls a graph
+pass, so no pass copies a field); the commit Ht <- Htau is a device copy.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import time
 
 import numpy as np
 import torch
 
 from fpr_tpu_torch import kernels
-from fpr_tpu_torch.core import bc
+from fpr_tpu_torch.core import bc, loops
 from fpr_tpu_torch.core.config import DiffusionConfig, ExecutionPolicy
 from fpr_tpu_torch.core.grid import Grid3D, outer_steps, pseudo_timestep
 from fpr_tpu_torch.ops import ds3d, dual_time, stencil3d
@@ -52,13 +54,13 @@ class DiffusionResult:
 
 
 def _stepper(cfg: DiffusionConfig, kw: dict, Ht: torch.Tensor):
-    """(Htau, step, commit) for cfg.policy: the first Htau, step(Ht, Htau)
-    -> (Htau', sumsq), and commit(Ht, Htau) -> the next Ht."""
+    """(Htau, step, unroll) for cfg.policy: the first Htau (a copy of Ht),
+    step(Ht, Htau) -> (Htau', sumsq), and the unroll of the loop around it."""
     if cfg.policy is ExecutionPolicy.JNP:
         def step(Ht, Htau):
             return stencil3d.dual_time_step(Ht, Htau, **kw)
 
-        return Ht, step, lambda Ht, Htau: Htau  # out of place: Htau is never written
+        return Ht.clone(), step, 1
 
     bufs = (Ht.clone(), torch.empty_like(Ht))
     fused = cfg.policy is ExecutionPolicy.PALLAS and cfg.check_every > 1
@@ -79,7 +81,31 @@ def _stepper(cfg: DiffusionConfig, kw: dict, Ht: torch.Tensor):
         def step(Ht, Htau):
             return dual_time.dual_time_stepk(Ht, Htau, cfg.check_every, **kw,
                                              scratch=other(Htau), partials=partials)
-    return bufs[0], step, lambda Ht, Htau: Ht.copy_(Htau)
+    return bufs[0], step, 2
+
+
+def _physical_step(a: dict, cfg: DiffusionConfig, kw: dict, K: int) -> dict:
+    """One physical step on Ht = a["Ht"]: the pseudo-time while_loop, then
+    the commit (diffusion3d._step_fn's physical_step).  Returns the new Ht,
+    the last err and the iterations."""
+    Ht = a["Ht"]
+    Htau, step, unroll = _stepper(cfg, kw, Ht)
+    tol, dt, sqrt_n = (Ht.new_full((), v) for v in (cfg.tol, cfg.dt, float(np.sqrt(
+        cfg.nx * cfg.ny * cfg.nz))))
+
+    def cond(s):
+        return (s[1] > tol) & (s[2] < cfg.iter_max)
+
+    def body(s):
+        Htau, sumsq = step(Ht, s[0])
+        return Htau, torch.sqrt(sumsq) * dt / sqrt_n, s[2] + K
+
+    Htau, err, it = loops.while_loop(
+        cond, body, (Htau, Ht.new_full((), float("inf")),
+                     torch.zeros((), dtype=torch.int32, device=Ht.device)),
+        unroll=unroll, donate=True)
+    Ht = Htau if cfg.policy is ExecutionPolicy.JNP else Ht.copy_(Htau)
+    return dict(Ht=Ht, err=err, it=it)
 
 
 def _sync(device: torch.device) -> None:
@@ -116,11 +142,9 @@ def solve(cfg: DiffusionConfig = DiffusionConfig(), dtype=torch.float32,
         stencil3d.init_gaussian(grid, torch.float64 if ds_tier else dtype, device=dev))
     Ht = ds3d.to_ds(H0) if ds_tier else H0
     del H0  # the ds tier's float64 field is not kept on the device
-    Htau, step, commit = _stepper(cfg, kw, Ht)
+    physical_step = functools.partial(_physical_step, cfg=cfg, kw=kw, K=K)
+    key = ("diffusion3d", cfg, Ht.dtype)
 
-    # err in the field's dtype: float32 for the kernel tiers and ds
-    f = _NP[Ht.dtype]
-    tol, dt_f, sqrt_n = f(cfg.tol), f(cfg.dt), f(np.sqrt(grid.n))
     iters_total = timed_iters = 0
     converged = True
     tic = time.perf_counter()
@@ -129,18 +153,18 @@ def solve(cfg: DiffusionConfig = DiffusionConfig(), dtype=torch.float32,
             _sync(dev)
             tic = time.perf_counter()
             timed_iters = 0
-        err, it = f(np.inf), 0
-        while err > tol and it < cfg.iter_max:
-            Htau, sumsq = step(Ht, Htau)
-            err = f(np.sqrt(f(float(sumsq)))) * dt_f / sqrt_n
-            it += K
-        Ht = commit(Ht, Htau)
+        out = loops.device_call(physical_step, dict(Ht=Ht), key=key)
+        Ht = out["Ht"]
+        # the host's one read a physical step: err (in the field's dtype,
+        # exact in float64) and the iterations
+        err, it = torch.stack([out["err"].double(), out["it"].double()]).tolist()
+        it = int(it)
         iters_total += it
         timed_iters += it
-        if not float(err) <= cfg.tol:  # the JAX driver's test, in float64
+        if not err <= cfg.tol:  # the JAX driver's test, in float64
             converged = False
         if verbose:
-            print(f"step {it_outer}: {it} iters, err={float(err):.3e}")
+            print(f"step {it_outer}: {it} iters, err={err:.3e}")
     _sync(dev)
     delta_t = time.perf_counter() - tic
 

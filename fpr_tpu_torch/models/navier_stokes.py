@@ -32,12 +32,14 @@ fused operator pass (K4) plus the multigrid solves (K1-K3 and the DST
 coarse solve).  Simulated time accumulates in double-single float32, so
 thousands of float32 dt additions cannot drift the step count.
 
-The JAX ``lax.while_loop`` over steps is a host loop here: each step reads
-one scalar (is the time reached?) from the device.  The JAX function's
-``chunk_steps`` bounds one device call under its TPU transport's RPC
-deadline; the port takes and checks it in the same position, and it
-changes nothing here.  ``max_steps``, ``snapshot_steps`` and ``state0``
-keep their meaning, and
+The loop over steps is a ``core.loops.while_loop``, as JAX's
+``lax.while_loop``: on CUDA one launch of a cached CUDA graph runs a chunk
+of steps, each step's solves nested in it as loops of their own, with no
+host read.  ``chunk_steps`` bounds a chunk exactly as in JAX: the host
+reads the clock once after the 3 warm-up steps, once at the end of each
+chunk, once more for each snapshot and once for the final fields, and
+nowhere else.  Chunking changes no result.  ``max_steps``,
+``snapshot_steps`` and ``state0`` keep their meaning, and
 ``state_from_jax`` / ``state_to_jax`` convert the exact-resume payload
 between the two packages.
 """
@@ -45,13 +47,14 @@ between the two packages.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import time
 from typing import Optional
 
 import numpy as np
 import torch
 
-from fpr_tpu_torch.core import bc
+from fpr_tpu_torch.core import bc, loops
 from fpr_tpu_torch.core.config import CoarseSolver, InitScheme, MGConfig, NSConfig
 from fpr_tpu_torch.ops import ds as dsm
 from fpr_tpu_torch.ops import stencil2d as ops
@@ -367,33 +370,50 @@ def _fast_step(TW, S_ds, w_sumsq, cfg: NSConfig, defect=None):
     return TW, S_ds, w_sumsq, dt, (r0n[0], r0n[1], ex0n[0], ex0n[1])
 
 
-def _fast_loop(st: dict, limit: int, cfg: NSConfig) -> dict:
-    """Steps while sim_time < ttot and step < limit (navier_stokes._fast_loop).
+def _fast_loop(st: dict, cfg: NSConfig) -> dict:
+    """Steps while sim_time < ttot and step < limit (navier_stokes._fast_loop):
+    one device call, on CUDA one launch of a cached CUDA graph.
 
-    st: TW, S_ds, w_ss, th, tl (tensors) and step (int)."""
-    TW, S_ds, w_ss, th, tl, step = (st[k] for k in ("TW", "S_ds", "w_ss", "th", "tl", "step"))
+    st: TW, S_ds, w_ss, th, tl, step and limit, tensors (step and limit
+    int32); returns st after the steps."""
+    return loops.device_call(functools.partial(_fast_chunk, cfg=cfg), st, key=("ns_fast", cfg))
+
+
+def _fast_chunk(st: dict, cfg: NSConfig) -> dict:
+    """_fast_loop's body: JAX's while_loop, its cond the ds time against
+    -ttot and step < limit."""
     tt_hi, tt_lo = dsm.f32_pair(cfg.ttot)
+    th = st["th"]
     neg_hi, neg_lo, zero = _full(th, -tt_hi), _full(th, -tt_lo), _full(th, 0.0)
+    limit = st["limit"]
 
-    def running():
-        return step < limit and bool(dsm.ds_add(th, tl, neg_hi, neg_lo)[0] < 0.0)
+    def cond(c):
+        return (dsm.ds_add(c["th"], c["tl"], neg_hi, neg_lo)[0] < 0.0) & (c["step"] < limit)
 
+    def advance(c, TW, S_ds, w_ss, dt, **dfc):
+        th, tl = dsm.ds_add(c["th"], c["tl"], dt, zero)
+        return dict(TW=TW, S_ds=S_ds, w_ss=w_ss, th=th, tl=tl, step=c["step"] + 1, **dfc)
+
+    carry = {k: st[k] for k in ("TW", "S_ds", "w_ss", "th", "tl", "step")}
     if _semi_implicit(cfg.beta):
-        while running():
-            TW, S_ds, w_ss, dt = _fast_step(TW, S_ds, w_ss, cfg)
-            th, tl = dsm.ds_add(th, tl, dt, zero)
-            step += 1
+        def body(c):
+            return advance(c, *_fast_step(c["TW"], c["S_ds"], c["w_ss"], cfg))
     else:
-        # the entry pass: the initial S defect the first step's warm solve
-        # needs; every step's operator pass makes the next one
+        # the entry pass, once a chunk: the initial S defect the first step's
+        # warm solve needs; every step's operator pass makes the next one
+        # (the same arithmetic, so chunking changes no bit)
         S_ds, r32, r_rms, ex = dsm.defect_pass(
-            S_ds, TW[1:2], None, 0.0, cfg.h, 0.0, velocity_max=True)
-        dfc = (r32, r_rms, ex[0], ex[1])
-        while running():
-            TW, S_ds, w_ss, dt, dfc = _fast_step(TW, S_ds, w_ss, cfg, defect=dfc)
-            th, tl = dsm.ds_add(th, tl, dt, zero)
-            step += 1
-    return dict(TW=TW, S_ds=S_ds, w_ss=w_ss, th=th, tl=tl, step=step)
+            carry["S_ds"], carry["TW"][1:2], None, 0.0, cfg.h, 0.0, velocity_max=True)
+        carry.update(S_ds=S_ds, dfc=(r32, r_rms, ex[0], ex[1]))
+
+        def body(c):
+            TW, S_ds, w_ss, dt, dfc = _fast_step(c["TW"], c["S_ds"], c["w_ss"], cfg,
+                                                 defect=c["dfc"])
+            return advance(c, TW, S_ds, w_ss, dt, dfc=dfc)
+
+    out = loops.while_loop(cond, body, carry, donate=True)
+    out.pop("dfc", None)
+    return dict(out, limit=limit)
 
 
 def _sync(device):
@@ -420,11 +440,37 @@ def state_to_jax(state: dict) -> dict:
 
 
 def check_chunk_steps(chunk_steps) -> None:
-    """JAX's ``chunk_steps`` must be an int >= 1; the port accepts and checks
-    it, but it cannot change a result (see ``simulate_fast``)."""
+    """JAX's ``chunk_steps`` must be an int >= 1."""
     if isinstance(chunk_steps, bool) or not isinstance(chunk_steps, (int, np.integer)) \
             or chunk_steps < 1:
         raise ValueError(f"chunk_steps must be an int >= 1, got {chunk_steps!r}")
+
+
+def _clock(st: dict):
+    """(sim_time, step, limit) of st: one transfer, the host's read at a
+    chunk's end."""
+    v = torch.stack([st["th"].view(torch.int32), st["tl"].view(torch.int32), st["step"],
+                     st["limit"]]).cpu()
+    th, tl = v[:2].view(torch.float32).tolist()
+    return th + tl, int(v[2]), int(v[3])
+
+
+def _host_state(st: dict) -> dict:
+    """T, W, S_hi, S_lo, w_sumsq, t_hi, t_lo of st as float32 CPU tensors:
+    one transfer."""
+    TW, S = st["TW"], st["S_ds"]
+    n = TW.numel()
+    flat = torch.cat([TW.reshape(-1), S.reshape(-1),
+                      torch.stack([st["w_ss"], st["th"], st["tl"]])]).cpu()
+    TWh, Sh = flat[:n].view(TW.shape), flat[n:2 * n].view(S.shape)
+    return dict(T=TWh[0], W=TWh[1], S_hi=Sh[0], S_lo=Sh[1], w_sumsq=flat[2 * n],
+                t_hi=flat[2 * n + 1], t_lo=flat[2 * n + 2])
+
+
+def _fields(h: dict):
+    """(T, W, S) float64 numpy of a ``_host_state``, S = S_hi + S_lo."""
+    return (h["T"].double().numpy(), h["W"].double().numpy(),
+            h["S_hi"].double().numpy() + h["S_lo"].double().numpy())
 
 
 def simulate_fast(cfg: NSConfig = NSConfig(), W0=None, T0=None,
@@ -437,17 +483,22 @@ def simulate_fast(cfg: NSConfig = NSConfig(), W0=None, T0=None,
     device: where to run ("cuda", "cuda:0", "cpu", a torch.device).
     W0, T0: initial fields (FROM_ARRAY), else cfg's init schemes.
     Steps 1-3 are warm-up, excluded from t_elapsed and timed_iters
-    (part2.jl:182-184).  chunk_steps: an int >= 1, checked; in JAX it
-    bounds one device call of the on-device loop, but this loop reads the
-    host once per step, so it cannot change a result.  snapshot_steps > 0
-    stores (T, W, S, sim_time, step) every that many steps and at the end.
-    state0: a previous result.state (or state_from_jax of a JAX one); the
-    run continues it exactly, with max_steps the total step budget.
+    (part2.jl:182-184).  chunk_steps (an int >= 1): the most steps of one
+    device call, as in JAX; the host reads the clock at each chunk's end,
+    and the result does not depend on it.  snapshot_steps > 0 stores (T, W,
+    S, sim_time, step) every that many steps and at the end (chunks end on
+    its multiples).  state0: a previous result.state (or state_from_jax of
+    a JAX one); the run continues it exactly, with max_steps the total step
+    budget.
     """
     check_chunk_steps(chunk_steps)
     cfg = fast_mg_default(cfg)
     ny, nx = cfg.ny, cfg.nx
     dev = torch.device(device)
+
+    def int32(v):
+        return torch.full((), int(v), dtype=torch.int32, device=dev)
+
     if state0 is not None:
         if "S_hi" not in state0:
             raise ValueError("state0 is not a fast-path payload (no S_hi)")
@@ -455,7 +506,8 @@ def simulate_fast(cfg: NSConfig = NSConfig(), W0=None, T0=None,
         st = dict(TW=torch.stack([on("T"), on("W")]),
                   S_ds=torch.stack([on("S_hi"), on("S_lo")]),
                   w_ss=on("w_sumsq").reshape(()), th=on("t_hi").reshape(()),
-                  tl=on("t_lo").reshape(()), step=int(state0["step"]))
+                  tl=on("t_lo").reshape(()), step=int32(state0["step"]))
+        start_step = int(state0["step"])
     else:
         T, W = (init_field(cfg, scheme, seed, device=dev) if a is None else
                 init_field(cfg, InitScheme.FROM_ARRAY, array=a, device=dev)
@@ -463,47 +515,44 @@ def simulate_fast(cfg: NSConfig = NSConfig(), W0=None, T0=None,
         st = dict(TW=torch.stack([T, W]),
                   S_ds=torch.zeros((2, ny, nx), dtype=F32, device=dev),
                   w_ss=torch.sum(W * W), th=torch.zeros((), dtype=F32, device=dev),
-                  tl=torch.zeros((), dtype=F32, device=dev), step=0)
-    start_step = st["step"]
+                  tl=torch.zeros((), dtype=F32, device=dev), step=int32(0))
+        start_step = 0
     hard_cap = max_steps if max_steps is not None else 1_000_000
     snapshots = [] if snapshot_steps else None
 
-    def host_fields():
-        TW, S_ds = st["TW"].cpu().double().numpy(), st["S_ds"].cpu().double().numpy()
-        return TW[0], TW[1], S_ds[0] + S_ds[1]
-
     if start_step == 0:
-        st = _fast_loop(st, min(3, hard_cap), cfg)
+        st = _fast_loop(dict(st, limit=int32(min(3, hard_cap))), cfg)
         _sync(dev)
     tic = time.perf_counter()
     while True:
-        limit = hard_cap
-        if snapshot_steps:
-            limit = min(limit, (st["step"] // snapshot_steps + 1) * snapshot_steps)
-        st = _fast_loop(st, limit, cfg)
-        _sync(dev)
-        sim_time = float(st["th"]) + float(st["tl"])
         step = st["step"]
+        limit = torch.clamp_max(step + chunk_steps, hard_cap)
+        if snapshot_steps:
+            # chunks end on snapshot multiples, so the cadence holds even
+            # when snapshot_steps > chunk_steps
+            limit = torch.minimum(limit, (step // snapshot_steps + 1) * snapshot_steps)
+        st = _fast_loop(dict(st, limit=limit.to(torch.int32)), cfg)
+        sim_time, step, limit = _clock(st)  # the sync that stops the clock
         # the loop stopped short of its limit only when its ds time test
         # said done, even if the float64 sum disagrees in the last bits
         done = sim_time >= cfg.ttot or step >= hard_cap or step < limit
-        if snapshots is not None and (done or step % snapshot_steps == 0):
-            snapshots.append((*host_fields(), sim_time, step))
         if done:
             break
+        if snapshots is not None and step % snapshot_steps == 0:
+            snapshots.append((*_fields(_host_state(st)), sim_time, step))
         if verbose:
             print(f"time, steps: {sim_time} {step}")
     t_elapsed = time.perf_counter() - tic
 
-    steps = st["step"]
     if verbose:
-        print(f"time, steps: {sim_time} {steps}")
-    T, W, S = host_fields()
-    state = dict(T=st["TW"][0].cpu(), W=st["TW"][1].cpu(), S_hi=st["S_ds"][0].cpu(),
-                 S_lo=st["S_ds"][1].cpu(), w_sumsq=st["w_ss"].cpu(),
-                 t_hi=st["th"].cpu(), t_lo=st["tl"].cpu(), step=steps)
+        print(f"time, steps: {sim_time} {step}")
+    state = _host_state(st)
+    T, W, S = _fields(state)
+    if snapshots is not None:
+        snapshots.append((T, W, S, sim_time, step))
+    state["step"] = step
     return NSResult(
         T=T, W=W, S=S, t_elapsed=t_elapsed,
-        timed_iters=max(steps - start_step - (3 if start_step == 0 else 0), 0),
-        steps=steps, sim_time=sim_time, snapshots=snapshots, state=state,
+        timed_iters=max(step - start_step - (3 if start_step == 0 else 0), 0),
+        steps=step, sim_time=sim_time, snapshots=snapshots, state=state,
     )

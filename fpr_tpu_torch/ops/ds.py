@@ -114,15 +114,22 @@ def defect_scalars(c, h: float, device) -> torch.Tensor:
     float32 tensor c (a runtime Helmholtz shift) through error-free
     transforms on the device, keeping all ~48 bits of C."""
     if not isinstance(c, torch.Tensor):
-        C = torch.empty(2, dtype=torch.float32, device=device)
-        C[0], C[1] = f32_pair(4.0 + float(c) * float(h) * float(h))
-        return C
+        return _pair_tensor(f32_pair(4.0 + float(c) * float(h) * float(h)), device)
     if c.dtype != torch.float32:
         raise ValueError(f"a tensor c must be float32, got {c.dtype}")
     h2 = c.new_full((), float(h) * float(h))
     p, pe = two_prod(c, h2)
     s, se = two_sum(c.new_full((), 4.0), p)
     return torch.stack(quick_two_sum(s, se + pe))
+
+
+def _pair_tensor(pair, device) -> torch.Tensor:
+    """A (hi, lo) pair of Python floats as a (2,) float32 device tensor, by
+    fills: no host-to-device copy, which a CUDA graph's capture refuses."""
+    C = torch.empty(2, dtype=torch.float32, device=device)
+    C[0].fill_(pair[0])
+    C[1].fill_(pair[1])
+    return C
 
 
 def c_source(c, h):
@@ -139,8 +146,16 @@ def _c_pair(C, h, device):
     """The (2,) float32 C pair from any form the defect pass takes: the
     pair itself, or a ``c_source``."""
     if isinstance(C, tuple):
-        return torch.tensor(C, dtype=torch.float32, device=device)
+        return _pair_tensor(C, device)
     return defect_scalars(C, h, device) if C.dim() == 0 else C
+
+
+def _scale(scale, like):
+    """The update's scale as a 0-dim float32 tensor: a Python number, or a
+    device scalar (no host read)."""
+    if isinstance(scale, torch.Tensor):
+        return scale.reshape(()).to(like.dtype)
+    return like.new_full((), float(scale))
 
 
 def defect_pass_plain(u_ds, f_ds, e, scale, h, C, c_zero, apply_bcs=False,
@@ -155,7 +170,7 @@ def defect_pass_plain(u_ds, f_ds, e, scale, h, C, c_zero, apply_bcs=False,
     cols = Cols.whole(m_loc) if cols is None else cols
     if e is None:
         e = torch.zeros_like(uh)
-    ph, pe = two_prod(e, uh.new_full((), float(scale)))
+    ph, pe = two_prod(e, _scale(scale, uh))
     uh, ul = ds_add(uh, ul, -ph, -pe)
     if apply_bcs:
         g = rows.global_rows(n_loc, uh.device)[:, None]
@@ -231,10 +246,13 @@ def _launch_defect(u_ds, f_ds, e, C, scale, h, flags, hooks, u_out, r, out, plan
     S, blocks = plan
     partials = torch.empty(4 * blocks, dtype=torch.float32, device=u_ds.device)
     hh = float(h) * float(h)
+    on_device = isinstance(scale, torch.Tensor)
     err = kernels.lib().fpr_defect(
         u_ds[0].data_ptr(), u_ds[1].data_ptr(), f_ds[0].data_ptr(),
         f_ds[1].data_ptr() if f_ds.shape[0] == 2 else None, kernels.ptr(e), c_ptr, kind,
-        c_hi, c_lo, hh, float(scale), 1.0 / hh, 0.5 / float(h), float(nx * ny), ny, nx,
+        c_hi, c_lo, hh, 0.0 if on_device else float(scale),
+        scale.data_ptr() if on_device else None, 1.0 / hh, 0.5 / float(h), float(nx * ny),
+        ny, nx,
         flags, S, blocks, *hooks, u_out[0].data_ptr(), u_out[1].data_ptr(), r.data_ptr(),
         partials.data_ptr(), kernels.launch_counter(u_ds).data_ptr(), out.data_ptr(),
         kernels.stream(u_ds))
@@ -248,8 +266,11 @@ def _defect_cuda(u_ds, f_ds, e, scale, h, C, c_zero, apply_bcs=False,
     a ``c_source`` (a (hi, lo) pair of floats, or a 0-dim device c from
     which the kernel derives the pair); unused when c_zero."""
     C = None if c_zero else C
+    if isinstance(scale, torch.Tensor):
+        scale = scale.reshape(()).to(torch.float32).contiguous()
     kernels.require_cuda_f32("defect_pass", u_ds, f_ds, e, r_out,
-                             C if isinstance(C, torch.Tensor) else None)
+                             C if isinstance(C, torch.Tensor) else None,
+                             scale if isinstance(scale, torch.Tensor) else None)
     _, ny, nx = u_ds.shape
     rows = Rows.whole(ny) if rows is None else rows
     cols = Cols.whole(nx) if cols is None else cols
@@ -296,7 +317,9 @@ def defect_pass(u_ds, f_ds, e, scale, h, c, C=None, apply_bcs=False,
 
     u_ds: (2, ny, nx) float32 hi/lo.  f_ds: (1, ny, nx) for an exactly
     float32 rhs (f_single) or (2, ny, nx).  e: (ny, nx) float32, or None for
-    zero.  c: the Helmholtz shift, a Python number (0 takes the exact x4
+    zero.  scale: a Python number, or a 0-dim float32 tensor on u's device
+    (a step length computed there, read by the kernel: no host read).
+    c: the Helmholtz shift, a Python number (0 takes the exact x4
     path) or a float32 tensor; C: its ``defect_scalars`` pair, if the caller
     has it already.  1/h^2 must be a power of two.
 

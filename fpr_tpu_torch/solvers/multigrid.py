@@ -22,8 +22,13 @@ mg_solve_mixed, _auto_inner_cycles, mg_solve_ds_rp, mg_solve_ds).
   or ``vcycle_rp`` outside the fused legs' configuration), then one ds
   defect pass (K1), which also gives the true defect norm.
 
-The JAX solvers' ``lax.while_loop``s are host loops here: each test of a
-loop condition reads one scalar from the device.  The level state of the
+The loops of ``mg_solve_ds_rp`` / ``mg_solve_ds`` and of the coarse
+Jacobi and CG solves are ``core.loops.while_loop``s, as the JAX package's
+``lax.while_loop``s: on CUDA one CUDA graph a call, the host reading
+nothing until ``mg_solve_ds`` reads the outer count at its end.  The outer
+loops of the host tiers (``mg_solve``, ``mg_solve_rp``, ``mg_solve_mixed``)
+are host loops: each test of their condition reads one scalar from the
+device.  The level state of the
 stacked V-cycle is a (2, ny, nx) tensor L = [u | f]: the up leg writes the
 new iterate into L[0] and the defect pass writes the new rhs into L[1], in
 both cases from buffers the kernel does not write, so no kernel reads what
@@ -40,7 +45,7 @@ import dataclasses
 
 import torch
 
-from fpr_tpu_torch.core import bc
+from fpr_tpu_torch.core import bc, loops
 from fpr_tpu_torch.core.config import (CoarseSolver, ExecutionPolicy, MGConfig, Restriction,
                                        Smoother)
 from fpr_tpu_torch.core.grid import mg_levels
@@ -88,26 +93,73 @@ def _smooth_fns(cfg: MGConfig):
     return smooth, residual
 
 
-def _coarse_solve(u, f, h, c, tol, cfg: MGConfig, smooth):
+def _smoother(cfg: MGConfig, elim: bool):
+    """The smoother of ``_smooth_fns``; elim: the side columns become copies
+    of their interior neighbours after every sweep."""
+    smooth0, _ = _smooth_fns(cfg)
+    if not elim:
+        return smooth0
+
+    def smooth(u, f, h, c, with_norm):
+        u, r = smooth0(u, f, h, c, with_norm)
+        u = u.clone()
+        u[:, 0] = u[:, 1]
+        u[:, -1] = u[:, -2]
+        return u, r
+
+    return smooth
+
+
+def _c_key(c):
+    """What a cached graph bakes in of c: its value, or that it is a tensor
+    (then an input of the graph)."""
+    return "tensor" if isinstance(c, torch.Tensor) else float(c)
+
+
+def _c_arg(c):
+    return c if isinstance(c, torch.Tensor) else None
+
+
+def _coarse_solve(u, f, h, c, tol, cfg: MGConfig, elim=False):
     """The coarse solve (multigrid._coarse_solve): DST; CG from zero (the
     incoming iterate is discarded, as the reference's cg! overwrites it);
     or at most 20*coarse_size smooths until the residual rms drops below
-    tol*rms(f)."""
+    tol*rms(f), a ``while_loop``."""
     max_iters = 20 * cfg.coarse_size
     if cfg.coarse_solver is CoarseSolver.DST:
         return dst_solve(u, f, h, c)
     if cfg.coarse_solver is CoarseSolver.CG:
-        from fpr_tpu_torch.solvers.krylov import cg
+        from fpr_tpu_torch.solvers.krylov import cg_device
 
-        x, r_rms, _ = cg(f, h, h, c, tol, max_iters, policy=cfg.policy)
+        x, r_rms, _ = cg_device(f, h, h, c, tol, max_iters, policy=cfg.policy)
         return x, r_rms
-    tol_rhs = tol * stencil2d.rms(f)
-    r_rms = None
-    for _ in range(max_iters):
-        if r_rms is not None and not bool(r_rms >= tol_rhs):
-            break
-        u, r_rms = smooth(u, f, h, c, True)
-    return u, r_rms
+    smooth = _smoother(cfg, elim)
+
+    def solve(a):
+        f, cc = a["f"], c if a["c"] is None else a["c"]
+        tol_rhs = tol * stencil2d.rms(f)
+
+        def cond(s):
+            return (s[2] < max_iters) & (s[1] >= tol_rhs)
+
+        def body(s):
+            u, r_rms = smooth(s[0], f, h, cc, True)
+            return u, r_rms, s[2] + 1
+
+        u, r_rms, _ = loops.while_loop(cond, body, (a["u"], _inf(a["u"]), _int0(f)))
+        return u, r_rms
+
+    return loops.device_call(solve, dict(u=u, f=f, c=_c_arg(c)),
+                             key=("coarse_jacobi", cfg, float(h), _c_key(c), float(tol), elim))
+
+
+def _inf(like):
+    return torch.full((), float("inf"), dtype=like.dtype, device=like.device)
+
+
+def _int0(like):
+    """A 0-dim int32 zero on like's device: a loop counter, as in JAX."""
+    return torch.zeros((), dtype=torch.int32, device=like.device)
 
 
 def vcycle(u, f, h, c, tol, cfg: MGConfig, apply_bcs=False, elim=False):
@@ -115,16 +167,7 @@ def vcycle(u, f, h, c, tol, cfg: MGConfig, apply_bcs=False, elim=False):
     post-smooth) (multigrid.vcycle).  elim: the side columns become copies
     of their interior neighbours after every sweep (set only by the
     correction cycles' small-level subtree)."""
-    smooth0, residual = _smooth_fns(cfg)
-    if elim:
-        def smooth(u, f, h, c, with_norm):
-            u, r = smooth0(u, f, h, c, with_norm)
-            u = u.clone()
-            u[:, 0] = u[:, 1]
-            u[:, -1] = u[:, -2]
-            return u, r
-    else:
-        smooth = smooth0
+    smooth, residual = _smoother(cfg, elim), _smooth_fns(cfg)[1]
     ny, nx = u.shape
     mg_levels(nx, ny, cfg.coarse_size)  # validates the 2^k+1 sides
     restrict = (transfer.restrict_full_weighting
@@ -134,7 +177,7 @@ def vcycle(u, f, h, c, tol, cfg: MGConfig, apply_bcs=False, elim=False):
     def descend(u, f, h, top):
         nyl, nxl = u.shape
         if min(nxl, nyl) <= cfg.coarse_size:
-            return _coarse_solve(u, f, h, c, tol, cfg, smooth)
+            return _coarse_solve(u, f, h, c, tol, cfg, elim)
         for _ in range(cfg.pre_smooth):
             u, _ = smooth(u, f, h, c, False)
         res_c = restrict(residual(u, f, h, c), apply_bcs=apply_bcs)
@@ -340,24 +383,49 @@ def mg_solve_ds_rp(u_ds, f_ds, tolf, h: float, c, niters: int,
     (multigrid.py:300-315).  The correction cycles are ``vcycle_stk`` when
     ``_stk_eligible(cfg)``, else ``vcycle_rp``.
 
-    Returns (u_ds', r_rms, outer_iterations[, (max|du/dy|, max|du/dx|)]).
+    The outer loop is a ``while_loop`` over (u_ds, L or r32, r_rms, extras,
+    it), as in JAX: on CUDA one launch of a cached CUDA graph (or a part of
+    the caller's graph), no host read.  Returns (u_ds', r_rms,
+    outer_iterations[, (max|du/dy|, max|du/dx|)]), the count a 0-dim int32
+    tensor on the device.
     """
     _, ny, nx = f_ds.shape
     if inner_cycles is None:
         inner_cycles = _auto_inner_cycles(ny, nx, cfg)
     if velocity_max and r0 is not None and extras0 is None:
         raise ValueError("velocity_max with r0 needs extras0")
+    if not isinstance(tolf, torch.Tensor):
+        tolf = torch.full((), float(tolf), dtype=torch.float32, device=f_ds.device)
+    args = dict(u=u_ds, f=f_ds, tolf=tolf.to(torch.float32), c=_c_arg(c),
+                r0=None if r0 is None else tuple(r0),
+                ex0=tuple(extras0) if velocity_max and r0 is not None else None)
+    key = ("mg_solve_ds_rp", cfg, float(h), _c_key(c), niters, inner_cycles, apply_bcs,
+           float(tol), velocity_max)
+
+    def solve(a):
+        return _ds_outer(a, h, c if a["c"] is None else a["c"], niters, cfg, inner_cycles,
+                         apply_bcs, tol, velocity_max)
+
+    out = loops.device_call(solve, args, key=key)
+    return out if velocity_max else out[:3]
+
+
+def _ds_outer(a, h, c, niters, cfg, inner_cycles, apply_bcs, tol, velocity_max):
+    """mg_solve_ds_rp on its graph's inputs a; returns (u_ds, r_rms, it,
+    extras)."""
+    f_ds, tolf = a["f"], a["tolf"]
+    _, ny, nx = f_ds.shape
     dev = f_ds.device
-    tolf = torch.as_tensor(tolf, dtype=torch.float32, device=dev)
     c_t = stencil2d.as_scalar(c, f_ds[0])
     C = dsm.defect_scalars(c, h, dev)
     kw = dict(apply_bcs=apply_bcs, velocity_max=velocity_max)
 
+    u_ds = a["u"]
     if u_ds is None:
         u_ds = torch.zeros((2, ny, nx), dtype=torch.float32, device=dev)
-    if r0 is not None:
-        r32, r_rms = r0
-        extras = tuple(extras0) if velocity_max else ()
+    if a["r0"] is not None:
+        r32, r_rms = a["r0"]
+        extras = a["ex0"] if velocity_max else ()
     else:
         out = dsm.defect_pass(u_ds, f_ds, None, 0.0, h, c, C=C, **kw)
         u_ds, r32, r_rms = out[:3]
@@ -367,27 +435,29 @@ def mg_solve_ds_rp(u_ds, f_ds, tolf, h: float, c, niters: int,
     if stk:
         L = torch.empty((2, ny, nx), dtype=torch.float32, device=dev)
         L[1] = r32
-    it = 0
-    while it < niters and bool(r_rms >= tolf):
+
+    def cond(s):
+        return (s["it"] < niters) & (s["r_rms"] >= tolf)
+
+    def body(s):
         if stk:
+            L = s["s"]
             for cyc in range(inner_cycles):
                 L, _ = vcycle_stk(L, h, c_t, tol, cfg, apply_bcs=apply_bcs,
                                   assume_zero_u=(cyc == 0), elim=apply_bcs)
-            out = dsm.defect_pass_stk(u_ds, f_ds, L, 1.0, h, c, C=C, **kw)
-            u_ds, L, r_rms = out[:3]
+            out = dsm.defect_pass_stk(s["u"], f_ds, L, 1.0, h, c, C=C, **kw)
         else:
             e = None
             for cyc in range(inner_cycles):
-                e, _ = vcycle_rp(e, r32, h, c_t, tol, cfg, apply_bcs=apply_bcs,
+                e, _ = vcycle_rp(e, s["s"], h, c_t, tol, cfg, apply_bcs=apply_bcs,
                                  assume_zero_u=(cyc == 0), elim=apply_bcs)
-            out = dsm.defect_pass(u_ds, f_ds, e, 1.0, h, c, C=C, **kw)
-            u_ds, r32, r_rms = out[:3]
-        if velocity_max:
-            extras = out[3][:2]
-        it += 1
-    if velocity_max:
-        return u_ds, r_rms, it, extras
-    return u_ds, r_rms, it
+            out = dsm.defect_pass(s["u"], f_ds, e, 1.0, h, c, C=C, **kw)
+        return dict(u=out[0], s=out[1], r_rms=out[2],
+                    ex=out[3][:2] if velocity_max else (), it=s["it"] + 1)
+
+    s = loops.while_loop(cond, body, dict(u=u_ds, s=L if stk else r32, r_rms=r_rms,
+                                          ex=tuple(extras), it=_int0(f_ds)), donate=True)
+    return s["u"], s["r_rms"], s["it"], s["ex"]
 
 
 def mg_solve_ds(u0, f, h: float, c, tol: float, niters: int,
@@ -400,27 +470,38 @@ def mg_solve_ds(u0, f, h: float, c, tol: float, niters: int,
     for a zero guess.  device: where to solve (required when f is not a
     tensor; by default f's device).  Returns (u, r_rms, outer_iterations)
     in f's dtype, or ((u_hi, u_lo), r_rms, outer_iterations) with
-    return_pair.
+    return_pair.  On CUDA the solve is one launch of a cached CUDA graph;
+    the host reads the outer count once, at the end (and r_rms for the
+    warning when the count reached niters).
     """
     if device is None:
         if not isinstance(f, torch.Tensor):
             raise ValueError("mg_solve_ds: pass device= when f is not a tensor")
         device = f.device
     f = torch.as_tensor(f).to(device)
+    u0 = None if u0 is None else torch.as_tensor(u0).to(device)
 
-    f_ds = f.to(torch.float32)[None] if f.dtype != torch.float64 else dsm.to_ds(f)
-    f_rms = stencil2d.rms(f)
-    tolf = (tol * f_rms).to(torch.float32)
-    if u0 is None and not apply_bcs:
-        u_ds = None
-        r0 = (-f_ds[0], f_rms.to(torch.float32))
-    else:
-        u_ds = dsm.to_ds(torch.as_tensor(u0).to(device)) if u0 is not None else None
-        r0 = None
-    u_ds, r_rms, it = mg_solve_ds_rp(u_ds, f_ds, tolf, h, c, niters, cfg=cfg,
-                                     inner_cycles=inner_cycles, apply_bcs=apply_bcs,
-                                     r0=r0, tol=tol)
-    _warn_unconverged("mg_solve_ds", r_rms, tolf, it, niters, apply_bcs)
+    def solve(a):
+        f = a["f"]
+        f_ds = f.to(torch.float32)[None] if f.dtype != torch.float64 else dsm.to_ds(f)
+        f_rms = stencil2d.rms(f)
+        tolf = (tol * f_rms).to(torch.float32)
+        if a["u0"] is None and not apply_bcs:
+            u_ds, r0 = None, (-f_ds[0], f_rms.to(torch.float32))
+        else:
+            u_ds = dsm.to_ds(a["u0"]) if a["u0"] is not None else None
+            r0 = None
+        u_ds, r_rms, it = mg_solve_ds_rp(u_ds, f_ds, tolf, h, c if a["c"] is None else a["c"],
+                                         niters, cfg=cfg, inner_cycles=inner_cycles,
+                                         apply_bcs=apply_bcs, r0=r0, tol=tol)
+        return dict(u=u_ds, r_rms=r_rms, it=it, tolf=tolf)
+
+    out = loops.device_call(solve, dict(f=f, u0=u0, c=_c_arg(c)),
+                            key=("mg_solve_ds", cfg, float(h), _c_key(c), float(tol), niters,
+                                 inner_cycles, apply_bcs))
+    it = int(out["it"])  # the host's one read
+    u_ds, r_rms = out["u"], out["r_rms"]
+    _warn_unconverged("mg_solve_ds", r_rms, out["tolf"], it, niters, apply_bcs)
     if return_pair:
         return (u_ds[0], u_ds[1]), r_rms, it
     u = u_ds[0].to(f.dtype) + u_ds[1].to(f.dtype)

@@ -76,11 +76,16 @@ class WallClock:
 def device_seconds(fn, device="cuda") -> float:
     """Summed device time (kernels and copies) of one call of fn on the
     card, from torch.profiler; RuntimeError if the window saw no device
-    event.  Work queued before the call is finished first."""
+    event.  Work queued before the call is finished first.  The profiler
+    does not see the kernels inside a CUDA graph's conditional nodes, so
+    fn's loops run as host loops here (``core.loops.host_loops``): the
+    same kernels on the same data, launched one by one."""
     from torch.profiler import ProfilerActivity, profile
 
+    from fpr_tpu_torch.core import loops
+
     torch.cuda.synchronize(device)
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with loops.host_loops(), profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize(device)
     evs = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]

@@ -16,8 +16,11 @@ mesh, 20 explicit and 8 semi-implicit steps of ``simulate_fast_sharded``
 at 2049x513 on 4 row shards, one ``mg_solve_sharded`` (the GSPMD tier) at
 2049^2 float64 on 4 row shards, and 3 steps of the host loop's
 ``simulate(mesh=)`` at 2049x513 float64 on 4 row shards; each window
-after a warm-up run.  It prints per window the wall time, the summed device time
-(kernels and memory copies), the device busy share, the device time of the
+after a warm-up run, and two diffusion solves at 128^3 (K=1 to tol 1e-6,
+ds to 1e-10, ttot 0.4).  It prints per window the wall time (the run
+unprofiled), the summed device time (kernels and memory copies, profiled as
+host loops: the profiler sees no kernel inside a CUDA graph's conditional
+node), the device busy share (that time over the wall), the device time of the
 copy kernels (the halo exchange's face copies, and casts), the device
 launches (every kernel and copy the profiler saw), the kernel launch
 counts of the port's CUDA wrappers, and the top device kernels and
@@ -31,6 +34,7 @@ begin with one of the texts, e.g. ``--only "MG 4097^2" "NS explicit"``.
 """
 
 import argparse
+import contextlib
 import os
 import sys
 import time
@@ -62,25 +66,42 @@ from fpr_tpu_torch.solvers.dist_multigrid import mg_solve_sharded  # noqa: E402
 from fpr_tpu_torch.solvers.multigrid import mg_solve_ds, mg_solve_mixed  # noqa: E402
 
 
+try:
+    from fpr_tpu_torch.core.loops import host_loops  # noqa: E402
+except ImportError:  # a tree from before the on-device loops
+    host_loops = contextlib.nullcontext
+
+
 def window(label, fn, top=12):
+    """The wall time of fn (after a warm-up run), and the device time of its
+    kernels from the profiler.  The profiler sees no kernel inside a CUDA
+    graph's conditional node, so it profiles the same work as host loops
+    (``loops.host_loops()``: the same kernels on the same data, launched
+    one by one); busy is that device time over the wall time of the run as
+    it runs, unprofiled."""
     if OPTS.only is not None and not any(label.startswith(t) for t in OPTS.only):
         return
     fn()
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
     kernels.reset_launches()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with host_loops(), profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+        eager = time.perf_counter() - t0
+    counts = getattr(kernels, "sync_launches", lambda: dict(kernels.launches))()
     evs = [e for e in prof.key_averages()
            if e.device_type.name == "CUDA" and (e.device_time_total or 0) > 0]
     busy = sum(e.device_time_total for e in evs) / 1e6
     copies = sum(e.device_time_total for e in evs if "copy" in e.key.lower()) / 1e6
     print(f"[{label}] wall {wall:.4f} s  device time (kernels + copies) {busy:.4f} s  "
-          f"busy {busy / wall:.3f}  copy kernels {copies:.4f} s  device launches "
-          f"{sum(e.count for e in evs)}  wrapper launches "
-          f"{ {k: v for k, v in kernels.launches.items() if v} }")
+          f"busy {busy / wall:.3f}  (host loops, profiled: wall {eager:.4f} s)  copy kernels "
+          f"{copies:.4f} s  device launches {sum(e.count for e in evs)}  wrapper launches "
+          f"{ {k: v for k, v in counts.items() if v} }")
     for e in sorted(evs, key=lambda e: -e.device_time_total)[:top]:
         print(f"   {e.device_time_total / 1e3:10.2f} ms  n={e.count:6d}  {e.key[:90]}")
 
@@ -136,6 +157,13 @@ def main():
         ("diffusion 128^3 ds, 2000 calls", DiffusionConfig(policy=ds), 2000),
     ):
         window(label, diffusion_loop(dcfg, calls))
+    for label, dcfg in (
+        ("diffusion 128^3 K=1 solve, ttot 0.4, tol 1e-6",
+         DiffusionConfig(policy=pallas, ttot=0.4, tol=1e-6)),
+        ("diffusion 128^3 ds solve, ttot 0.4, tol 1e-10",
+         DiffusionConfig(policy=ds, ttot=0.4, tol=1e-10)),
+    ):
+        window(label, lambda dcfg=dcfg: diffusion3d.solve(dcfg, device="cuda"))
     sharded_windows(b)
 
 

@@ -340,6 +340,22 @@ def test_defect_tile_by_tile(rng, emulate, si, ci):
     assert kernels.launches["defect"] == len(calls) == 2
 
 
+def test_defect_takes_a_device_scale(rng, emulate):
+    """A 0-dim tensor scale (mg_pcg_ds's step length, computed on the
+    device) gives the bits of the same scale as a Python number, through
+    the plain version and through the wrapper's one launch."""
+    calls = emulate(_plan(1))
+    u, f, e = _ds_inputs(rng, 67, 45)
+    alpha = torch.tensor(0.37, dtype=torch.float32)
+    a = (u, f[:1], e)
+    want = ds.defect_pass_plain(*a, float(alpha), 1.0 / 512, None, True)
+    for got in (ds.defect_pass_plain(*a, alpha, 1.0 / 512, None, True),
+                ds._defect_cuda(*a, alpha, 1.0 / 512, None, True)):
+        _bitwise(got[0], want[0])
+        _bitwise(got[1], want[1])
+    assert kernels.launches["defect"] == len(calls) == 1
+
+
 def test_defect_stk_writes_into_the_level_state(rng, emulate):
     """defect_pass_stk's r lands in L[1] through the one launch."""
     calls = emulate(_plan(3))
