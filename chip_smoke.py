@@ -37,7 +37,8 @@ Phases, in order; the first failure stops the run with a non-zero exit:
    200 iterations per step.
 10. MG mixed (``mg_solve_mixed``) at 4097^2, default MGConfig (coarse 5,
     Jacobi, V(2,2)), tol 1e-6: at most 30 outers, the same count through
-    the plain versions, a true float64 residual within tol.
+    the plain versions, a true float64 residual within tol; the solve's
+    time as one graph launch beside its time as host loops.
 11. the PALLAS policy in float64 at 2049^2: ``mg_solve`` with the Jacobi
     and the CG coarse solve against the JNP policy (equal cycle counts,
     fields within 1e-10), ``krylov.cg`` (equal iterations to the plain
@@ -49,7 +50,8 @@ Phases, in order; the first failure stops the run with a non-zero exit:
     0.005, ``mg_solver="mixed"``, float64: beta 0.5 and 1 to their end,
     beta 0 for 50 steps, the first 10 beta=0.5 steps against the plain
     versions, and 3 beta=0.5 steps with the direct solver and the PALLAS
-    policy.
+    policy; 10 steps at beta 0.5 and 1 as one graph launch a step and as
+    host loops, their times a step side by side.
 14. the sharded diffusion tier on a virtual mesh (every shard on the one
     card): 512^3 float32 on 4 z-shards, PALLAS check_every=3 (#9), capped
     at 300 iterations a step as phase 7, H bitwise equal to phase 7's
@@ -109,6 +111,15 @@ Phases, in order; the first failure stops the run with a non-zero exit:
     no kernel inside a conditional node);
     a host read in a captured body raises; each row's wall time beside
     PR 9's.
+    The host tiers, the graph against the host loops bitwise, the plain
+    versions too: ``mg_solve`` at 2049^2 float64 with the JNP and the
+    PALLAS policy (Jacobi coarse), ``mg_solve_rp`` at 2049^2 float32,
+    phase 10's ``mg_solve_mixed`` 4097^2 (8 outers), phase 13's 10 NS
+    host-loop steps at beta 0.5 and 1 (equal steps and the same
+    NOT-converged warnings; one graph launch and one host read a step),
+    ``mg_solve_ds(fmg=True)`` at 4097^2 (no more outers than without FMG,
+    a true float64 residual within 1e-6, K1, K2 and K3 launched by the
+    preamble); each new graph's build time and node count.
 
 Phase 3 holds the legs K2/K3 (one launch of the leg kernel a call) bitwise
 at the MG row's levels with ns=5, timed at 2049x513 ns=3 and at 4097^2
@@ -1379,7 +1390,8 @@ def counted(fn):
     return out, time.perf_counter() - t0, kernels.sync_launches()
 
 
-def phase_mg_mixed(n=4097):
+def phase_mg_mixed(smi, n=4097):
+    from fpr_tpu_torch.core import loops
     from fpr_tpu_torch.core.config import MGConfig
     from fpr_tpu_torch.solvers.multigrid import mg_solve_mixed
 
@@ -1392,6 +1404,7 @@ def phase_mg_mixed(n=4097):
         return mg_solve_mixed(b.new_zeros(b.shape), b, h, 0.0, tol, 30, cfg=MGConfig())
 
     solve()  # warm-up
+    built(f"MG mixed {n}^2")
     (u, r, it), secs, counts = counted(solve)
     rel = true_rel(u, b, h)
     log(f"outers {it}  solve {secs:.4f} s  r_rms/f_rms (estimate) "
@@ -1401,12 +1414,15 @@ def phase_mg_mixed(n=4097):
     require(rel <= tol, f"true f64 relative residual {rel:.3e} > {tol}")
     for k in ("smooth2r_split", "corr_smooth2"):
         require(counts[k] > 0, f"MG mixed never launched {k}")
+    with loops.host_loops():
+        host, hsecs, _ = counted(solve)
+    log(f"solve as one graph launch {secs:.4f} s, as host loops {hsecs:.4f} s  [{smi}]")
     with plain_kernels():
         (up, _, itp), psecs, _ = counted(solve)
     err = float((u - up).abs().max() / up.abs().max())
     log(f"plain: outers {itp}  solve {psecs:.4f} s  max rel diff to the kernels' run {err:.3e}")
     require(it == itp, f"outers {it} vs plain {itp}")
-    return counts
+    return counts, ((u, r, it), host)
 
 
 def phase_pallas_f64(n=2049):
@@ -1501,11 +1517,27 @@ def host_cfg(beta, **kw):
                     **kw)
 
 
-def phase_ns_host(**size):
+def printed(fn):
+    """(fn(), the lines it printed); the lines are printed again, also when
+    fn raises."""
+    import io
+
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            out = fn()
+    finally:
+        # a run that raises still shows its lines
+        print(buf.getvalue(), end="", flush=True)
+    return out, buf.getvalue().splitlines()
+
+
+def phase_ns_host(smi, **size):
     import dataclasses
 
     import numpy as np
 
+    from fpr_tpu_torch.core import loops
     from fpr_tpu_torch.core.config import ExecutionPolicy, MGConfig
     from fpr_tpu_torch.models.navier_stokes import simulate
 
@@ -1516,6 +1548,7 @@ def phase_ns_host(**size):
     for beta in (0.5, 1.0):
         out, secs, counts = counted(lambda: simulate(host_cfg(beta, **size), seed=0,
                                                      device=DEVICE))
+        built(f"beta={beta}: the step")
         log(f"beta={beta}: steps {out.steps}  timed_iters {out.timed_iters}  sim_time "
             f"{out.sim_time!r}  timed {out.t_elapsed:.3f} s "
             f"({out.t_elapsed / max(out.timed_iters, 1) * 1e3:.1f} ms a step)  run {secs:.3f} s  "
@@ -1533,7 +1566,20 @@ def phase_ns_host(**size):
     log(f"beta=0: 50 steps  timed_iters {out.timed_iters}  timed {out.t_elapsed:.3f} s "
         f"({out.t_elapsed / out.timed_iters * 1e3:.1f} ms a step)  sim_time {out.sim_time!r}")
     require(out.steps == 50 and np.isfinite(out.W).all(), "beta=0: 50 steps failed")
-    k10 = simulate(cfg5, seed=0, max_steps=10, device=DEVICE)
+    # 10 steps as one graph launch a step and as host loops (phase 22 holds
+    # them bitwise), each run's printed lines kept for its warnings
+    ten = {}
+    for beta in (0.5, 1.0):
+        cfg = host_cfg(beta, **size)
+        g = printed(lambda: simulate(cfg, seed=0, max_steps=10, device=DEVICE))
+        with loops.host_loops():
+            h = printed(lambda: simulate(cfg, seed=0, max_steps=10, device=DEVICE))
+        ten[beta] = g, h
+        log(f"beta={beta}: 10 steps, {g[0].timed_iters} timed: "
+            f"{g[0].t_elapsed / max(g[0].timed_iters, 1) * 1e3:.1f} ms a step as one graph "
+            f"launch, {h[0].t_elapsed / max(h[0].timed_iters, 1) * 1e3:.1f} ms as host loops  "
+            f"[{smi}]")
+    k10 = ten[0.5][0][0]
     with plain_kernels():
         p10 = simulate(cfg5, seed=0, max_steps=10, device=DEVICE)
     compare_runs(k10, p10, "host loop beta=0.5, 10 steps", rel=1e-10)
@@ -1544,7 +1590,7 @@ def phase_ns_host(**size):
         f"stencil launches {counts['stencil']}")
     require(out.steps == 3 and np.isfinite(out.S).all(), "direct PALLAS: 3 steps failed")
     require(counts["stencil"] > 0, "the direct PALLAS host loop never launched stencil")
-    return main_counts, results
+    return main_counts, results, ten
 
 
 def mesh_of(shape, axes):
@@ -2145,10 +2191,20 @@ def median_seconds(fn, reps=5):
     return out, sorted(ts)[reps // 2]
 
 
-def phase_device_loops(explicit, semi):
+def built(what):
+    """Log the last graph's build (``loops.stats``)."""
+    from fpr_tpu_torch.core import loops
+
+    log(f"{what}: graph built in {loops.stats['build_s']:.3f} s (warm-up pass, capture, "
+        f"instantiation), {loops.stats['nodes']} nodes")
+
+
+def phase_device_loops(explicit, semi, mixed, ns_ten):
     """Phase 22: every ported loop as one graph launch a call against the
     host loops (``loops.host_loops()``), bitwise, through the kernels and
-    through their plain versions."""
+    through their plain versions.  mixed: phase 10's MG mixed solve as a
+    graph and as host loops; ns_ten: phase 13's 10 NS host-loop steps,
+    ((graph run, its lines), (host-loop run, its lines)) by beta."""
     import dataclasses
 
     import numpy as np
@@ -2252,6 +2308,8 @@ def phase_device_loops(explicit, semi):
         walls.append((name, tg, th))
         both(solve, name, same_solve(want_it or hh[2]), plain=True)
 
+    phase_host_tiers(both, same_solve, walls, mixed, ns_ten, b, mg_cfg)
+
     # diffusion 128^3: K=1 and K=3 to tol 1e-6, ds to 1e-10; plain at 50 a step
     def same_h(g, hh, what):
         require((g.iters_total, g.timed_iters, g.converged) ==
@@ -2323,6 +2381,112 @@ def phase_device_loops(explicit, semi):
     log(f"graph launches {loops.stats['launches']}, captures {loops.stats['captures']}")
 
 
+def phase_host_tiers(both, same_solve, walls, mixed, ns_ten, b, mg_cfg):
+    """Phase 22's host tiers and FMG, each one graph a solve or a step
+    against the host loops, bitwise.  both, same_solve, walls: phase 22's;
+    b: its MG rhs and mg_cfg its ladder; mixed: phase 10's MG mixed (graph,
+    host loops) results; ns_ten: phase 13's 10-step runs."""
+    import numpy as np
+    import torch
+
+    from fpr_tpu_torch.core import loops
+    from fpr_tpu_torch.core.config import ExecutionPolicy, MGConfig
+    from fpr_tpu_torch.models.navier_stokes import simulate
+    from fpr_tpu_torch.solvers.multigrid import mg_solve, mg_solve_ds, mg_solve_mixed, mg_solve_rp
+
+    tol = 1e-6
+    h = 1.0 / (b.shape[0] - 1)
+    fname = f"MG ds FMG {b.shape[0]}^2"
+    # mg_solve_ds(fmg=True): the FMG preamble in the solve's graph
+    fmg = lambda: mg_solve_ds(None, b, h, 0.0, tol, 30, cfg=mg_cfg,  # noqa: E731
+                              return_pair=True, fmg=True)
+    plain_ds = lambda: mg_solve_ds(None, b, h, 0.0, tol, 30, cfg=mg_cfg,  # noqa: E731
+                                   return_pair=True)
+    fmg()
+    built(fname)
+    plain_ds()
+    (_, _, it0), secs0, c0 = counted(plain_ds)
+    ((fh, fl), fr, it1), secs1, c1 = counted(fmg)
+    rel = true_rel(fh.double() + fl.double(), b, h)
+    pre = {k: c1[k] - it1 * (c0[k] // it0) for k in ("defect", "smooth_down", "corr_up")}
+    log(f"{fname}: {it1} outers ({it0} without FMG), {secs1:.4f} s ({secs0:.4f} s), "
+        f"true f64 r_rms/f_rms {rel:.4e}, launches {({k: c1[k] for k in pre})} of which the "
+        f"preamble's {pre}")
+    require(it1 <= it0, f"FMG: {it1} outers, more than the {it0} without it")
+    require(rel <= tol, f"FMG: true f64 residual {rel:.3e} > {tol}")
+    require(pre["defect"] == 1 and pre["smooth_down"] > 0 and pre["corr_up"] > 0,
+            f"FMG: the preamble launched {pre}")
+    for plain in (False, True):
+        both(fmg, fname, same_solve(it1), plain)
+
+    # the host tiers' solvers: one graph a solve against the host loops
+    def same_u(g, hh, what):
+        require(g[2] == hh[2] and torch.equal(g[0], hh[0]) and torch.equal(g[1], hh[1]),
+                f"{what}: {g[2]} outers vs host loop {hh[2]}, or fields differ")
+        log(f"{what}: {g[2]} outers, bitwise equal to the host loops")
+
+    n2 = 2049
+    h2 = 1.0 / (n2 - 1)
+    b64, b32 = poisson_rhs(n2, "float64"), poisson_rhs(n2, "float32")
+    for policy in (ExecutionPolicy.JNP, ExecutionPolicy.PALLAS):
+        cfg_p = MGConfig(policy=policy)
+        solve = lambda: mg_solve(b64.new_zeros(b64.shape), b64, h2, 0.0, tol, 20,  # noqa: E731
+                                 cfg=cfg_p)
+        name = f"mg_solve {policy.value} {n2}^2 float64"
+        solve()
+        built(name)
+        g, tg = median_seconds(solve, reps=3)
+        with loops.host_loops():
+            hh, th = median_seconds(solve, reps=3)
+        same_u(g, hh, name)
+        walls.append((name, tg, th))
+        if policy is ExecutionPolicy.PALLAS:
+            both(solve, name, same_u, plain=True)
+    solve = lambda: mg_solve_rp(b32.new_zeros(b32.shape), b32, h2, 0.0, 1e-5, 30)  # noqa: E731
+    for plain in (False, True):
+        both(solve, f"mg_solve_rp {n2}^2 float32", same_u, plain)
+    g, hh = mixed
+    n_mixed = g[0].shape[-1]
+    same_u(g, hh, f"MG mixed {n_mixed}^2 (phase 10)")
+    require(g[2] == 8, f"MG mixed {n_mixed}^2: {g[2]} outers, not 8")
+    bm = poisson_rhs(n_mixed, "float64")
+    both(lambda: mg_solve_mixed(bm.new_zeros(bm.shape), bm, 1.0 / (n_mixed - 1), 0.0, tol, 30),
+         f"MG mixed {n_mixed}^2", same_u, plain=True)
+    del bm, g, hh
+
+    # the NS host loop: phase 13's 10 steps, and 3 through the plain versions
+    def same_host(a, b_, what):
+        require((a.steps, a.sim_time) == (b_.steps, b_.sim_time),
+                f"{what}: {a.steps} steps, t {a.sim_time!r} vs host loops {b_.steps}, "
+                f"{b_.sim_time!r}")
+        for k in ("T", "W", "S"):
+            require(np.array_equal(getattr(a, k), getattr(b_, k)), f"{what}: {k} differs")
+        log(f"{what}: {a.steps} steps, bitwise equal to the host loops")
+
+    for beta, ((g, glines), (hh, hlines)) in ns_ten.items():
+        what = f"NS host loop beta={beta}, 10 steps"
+        same_host(g, hh, what)
+        gw, hw = ([s for s in lines if "NOT converged" in s] for lines in (glines, hlines))
+        require(gw == hw, f"{what}: warnings {gw} vs the host loops' {hw}")
+        log(f"{what}: {len(gw)} NOT-converged warnings, as the host loops print")
+        walls.append((what, g.t_elapsed, hh.t_elapsed))
+    cfg5 = host_cfg(0.5)
+    simulate(cfg5, seed=0, max_steps=1, device=DEVICE)  # the step's graph, cached
+    launched = loops.stats["launches"]
+    with count_host_syncs() as n_syncs:
+        simulate(cfg5, seed=0, max_steps=5, device=DEVICE)
+    launched = loops.stats["launches"] - launched
+    log(f"NS host loop 5 steps: {launched} graph launches, {n_syncs[0]} host syncs (a read "
+        f"a step, the clock's 2, the fields' 3 = 10)")
+    require(launched == 5 and n_syncs[0] == 10,
+            f"NS host loop: {launched} graph launches and {n_syncs[0]} host syncs in 5 steps")
+    with plain_kernels():
+        g = simulate(cfg5, seed=0, max_steps=3, device=DEVICE)
+        with loops.host_loops():
+            hh = simulate(cfg5, seed=0, max_steps=3, device=DEVICE)
+    same_host(g, hh, "NS host loop beta=0.5, 3 steps (plain versions)")
+
+
 def main() -> int:
     # the run uses one card: make it the only one visible, so that the device
     # count in the last line is the number of cards the run used
@@ -2353,10 +2517,10 @@ def main() -> int:
         f32_counts, out_128 = phase_diffusion_f32()
         launches["dual_time"] = f32_counts["dual_time"]
         launches["ds3d"] = phase_diffusion_ds()["ds3d"]
-        phase_mg_mixed()
+        _, mixed = phase_mg_mixed(smi)
         launches["stencil"] = phase_pallas_f64()["stencil"]
         phase_krylov_ds()
-        host_counts, _ = phase_ns_host()
+        host_counts, _, ns_ten = phase_ns_host(smi)
         for k in ("smooth2r_split", "corr_smooth2"):
             launches[k] = host_counts[k]
         launches["dual_timek_padded"] = phase_dist_diffusion(out_512, out_128)[
@@ -2369,7 +2533,7 @@ def main() -> int:
         phase_bench(smi)
         phase_checkpoints()
         phase_experiments()
-        phase_device_loops(explicit, semi)
+        phase_device_loops(explicit, semi, mixed, ns_ten)
     except Failed as exc:
         log(f"chip_smoke FAILED: {exc}")
         return 1

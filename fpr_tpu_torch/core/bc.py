@@ -10,10 +10,11 @@ import torch
 
 
 def dirichlet_top_bottom(T: torch.Tensor, bottom: float = 1.0, top: float = 0.0):
-    """T = bottom on row 0, top on row ny-1 (bc.dirichlet_top_bottom)."""
+    """T = bottom on row 0, top on row ny-1 (bc.dirichlet_top_bottom).  By
+    fills, which a CUDA graph's capture takes."""
     T = T.clone()
-    T[0, :] = bottom
-    T[-1, :] = top
+    T[0].fill_(bottom)
+    T[-1].fill_(top)
     return T
 
 
@@ -51,3 +52,10 @@ def zero_boundary_2d(a: torch.Tensor):
     z = torch.zeros_like(a)
     z[1:-1, 1:-1] = a[1:-1, 1:-1]
     return z
+
+
+def interior_mask_2d(shape, dtype, *, device=None):
+    """1 in the interior, 0 on the boundary ring (bc.interior_mask_2d)."""
+    m = torch.zeros(shape, dtype=dtype, device=device)
+    m[1:-1, 1:-1] = 1
+    return m

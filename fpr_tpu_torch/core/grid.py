@@ -1,5 +1,6 @@
-"""Multigrid level ladder and the 3D cell-centred grid
-(fpr_tpu/core/grid.py: mg_levels, Grid3D, pseudo_timestep, outer_steps)."""
+"""Multigrid level ladder and the 2D and 3D grids
+(fpr_tpu/core/grid.py: is_mg_grid, mg_levels, Grid2D, Grid3D,
+pseudo_timestep, outer_steps)."""
 
 from __future__ import annotations
 
@@ -7,6 +8,12 @@ import dataclasses
 import math
 
 import numpy as np
+
+
+def is_mg_grid(n: int) -> bool:
+    """True if n = lambda 2^k + 1 for integers lambda, k >= 1: n - 1 is
+    even (grid.is_mg_grid)."""
+    return n >= 3 and (n - 1) % 2 == 0
 
 
 def mg_levels(nx: int, ny: int, coarse_size: int) -> list[tuple[int, int]]:
@@ -21,6 +28,24 @@ def mg_levels(nx: int, ny: int, coarse_size: int) -> list[tuple[int, int]]:
         cx, cy = (cx - 1) // 2 + 1, (cy - 1) // 2 + 1
         levels.append((cx, cy))
     return levels
+
+
+@dataclasses.dataclass(frozen=True)
+class Grid2D:
+    """Uniform cell-vertex 2D grid on [0, width] x [0, 1] with spacing h
+    (fpr_tpu.core.grid.Grid2D); fields are (ny, nx), x last."""
+
+    nx: int
+    ny: int
+    h: float
+
+    @property
+    def shape(self) -> tuple[int, int]:
+        return (self.ny, self.nx)
+
+    @property
+    def n(self) -> int:
+        return self.nx * self.ny
 
 
 @dataclasses.dataclass(frozen=True)

@@ -60,6 +60,7 @@ import collections
 import contextlib
 import ctypes
 import threading
+import time
 import warnings
 import weakref
 
@@ -69,8 +70,10 @@ from fpr_tpu_torch import kernels
 
 # cached graphs, least recently used first out
 CACHE_SIZE = 8
-# graph launches and captures since the process started
-stats = {"launches": 0, "captures": 0}
+# graph launches and captures since the process started; the nodes of the
+# last graph built (captured nodes, conditional and set nodes) and the
+# seconds its warm-up pass, capture and instantiation took
+stats = {"launches": 0, "captures": 0, "nodes": 0, "build_s": 0.0}
 
 _IF, _WHILE = 0, 1
 
@@ -399,15 +402,18 @@ class _Capture:
         """The graph of the captured items and its executable."""
         lib = kernels.lib()
         handles = {}
+        self.nodes = 0
 
         def emit(graph, seq):
             last = None
             for item in seq:
                 node = ctypes.c_void_p()
+                self.nodes += 1
                 if isinstance(item, torch.cuda.CUDAGraph):
                     raw = item.raw_cuda_graph()
                     n = ctypes.c_size_t()
                     kernels.check(lib.fpr_graph_nodes(raw, ctypes.byref(n)), "fpr_graph_nodes")
+                    self.nodes += n.value - 1
                     if n.value == 0:
                         continue
                     kernels.check(lib.fpr_graph_add_child(graph, last, raw, ctypes.byref(node)),
@@ -444,6 +450,7 @@ class _Graph:
     """fn captured as one executable graph with its input buffers."""
 
     def __init__(self, fn, leaves, spec, device):
+        t0 = time.perf_counter()
         self.device, self.graph, self.exe = device, None, None
         self.inputs = [torch.empty(t.shape, dtype=t.dtype, device=device) for t in leaves]
         for b, t in zip(self.inputs, leaves):
@@ -461,6 +468,7 @@ class _Graph:
         self.seen = [0] * len(cap.counted)
         self.graph, self.exe = cap.assemble(self.passes)
         stats["captures"] += 1
+        stats["nodes"], stats["build_s"] = cap.nodes, time.perf_counter() - t0
         _live.add(self)
 
     def run(self, leaves):

@@ -14,8 +14,13 @@ plain PyTorch; its three linear solves per step go through ``mg_solve``
 policy) or ``mg_solve_mixed`` (``"mixed"``: the float64 defect around
 float32 V-cycles on the legs #6/#7).  Semi-implicit steps solve
 (nabla^2 - c) T' = -c (T + dt ((1 - beta) lap T - adv)) with
-c = 1/(beta dt), a device scalar, and the analogous W solve.  Each step
-reads dt on the host once, to advance the simulated time.
+c = 1/(beta dt), a device scalar, and the analogous W solve.  A step is
+one ``core.loops.device_call``, as JAX's ``ns_step_jit`` is one launch: on
+CUDA one launch of a cached CUDA graph, each solve's outer loop a WHILE
+node in it.  The loop over steps stays on the host, as in JAX: each step
+reads one small tensor, dt with each solve's (r_rms, tolf, outer count),
+to advance the simulated time and to warn of a solve that did not
+converge.
 
 ``simulate(mesh=)`` is the GSPMD tier of the host loop: with at least
 ``SHARD_ROWS`` rows, T, W and S live on the mesh's row shards
@@ -62,7 +67,8 @@ from fpr_tpu_torch.ops import reductions
 from fpr_tpu_torch.ops.ns_fused import ns_fused_rp
 from fpr_tpu_torch.parallel.halo import refresh_rows
 from fpr_tpu_torch.solvers import dist_multigrid as dmg
-from fpr_tpu_torch.solvers.multigrid import mg_solve, mg_solve_ds_rp, mg_solve_mixed
+from fpr_tpu_torch.solvers.multigrid import (_mg_solve, _mg_solve_mixed, _warn_unconverged,
+                                             mg_solve_ds_rp)
 
 F32 = torch.float32
 SHARD_ROWS = 257  # simulate(mesh=)'s replicate_below (navier_stokes.py:205-208)
@@ -84,8 +90,8 @@ class NSResult:
     state: Optional[dict] = None
 
 
-def init_field(cfg: NSConfig, scheme: InitScheme, seed: int = 0, array=None, *,
-               device, dtype=F32) -> torch.Tensor:
+def init_field(cfg: NSConfig, scheme: InitScheme, seed: int = 0, array=None, dtype=F32, *,
+               device) -> torch.Tensor:
     """Initial (ny, nx) field of the given dtype (navier_stokes.init_field).
     RANDOM draws from numpy.random.default_rng(seed): it cannot reproduce
     jax.random, so cross-package runs pass the field as an array."""
@@ -129,20 +135,57 @@ def _dt_of(vmax2, ax, ay, cfg: NSConfig) -> torch.Tensor:
     return torch.where(vmax2 == 0.0, dt_dif, dt)
 
 
-def ns_step(T, W, S, cfg: NSConfig):
-    """One step of the host loop (navier_stokes.ns_step); returns
-    (T, W, S, dt) with dt a 0-dim device tensor."""
-    if cfg.mg_solver == "mixed":
-        solve = mg_solve_mixed
-    elif cfg.mg_solver == "direct":
-        solve = mg_solve
-    else:
+# ns_step's solvers: (the name its warnings give, the device results' function)
+_STEP_SOLVERS = {"direct": ("mg_solve", _mg_solve),
+                 "mixed": ("mg_solve_mixed", _mg_solve_mixed)}
+
+
+def _step_solver(cfg: NSConfig):
+    if cfg.mg_solver not in _STEP_SOLVERS:
         raise ValueError(f"unknown mg_solver {cfg.mg_solver!r} for ns_step (expected "
                          "'direct' or 'mixed'; use simulate_fast for the fused "
                          "double-single path)")
+    return _STEP_SOLVERS[cfg.mg_solver]
+
+
+def ns_step(T, W, S, cfg: NSConfig):
+    """One step of the host loop (navier_stokes.ns_step); returns
+    (T, W, S, dt) with dt a 0-dim device tensor.  One device call and one
+    host read (for the solves' warnings)."""
+    T, W, S, dt, _ = _ns_step(T, W, S, cfg)
+    return T, W, S, dt
+
+
+def _ns_step(T, W, S, cfg: NSConfig):
+    """ns_step as one device call (on CUDA one graph launch, as JAX's
+    ns_step_jit), then the host's one read of the step: (T, W, S, dt, dt
+    as a Python float).  Warns of each solve that stopped at niters above
+    tolerance, as JAX's solves do."""
+    name, _ = _step_solver(cfg)
+    out = loops.device_call(functools.partial(_ns_step_body, cfg=cfg), dict(T=T, W=W, S=S),
+                            key=("ns_step", cfg))
+    info = out["info"].tolist()  # the one host read a step
+    for k, apply_bcs in zip(range(1, len(info), 3), (False, True, False)):
+        r, t, it = info[k:k + 3]
+        _warn_unconverged(name, r, t, int(it), cfg.niters, apply_bcs)
+    return out["T"], out["W"], out["S"], out["dt"], info[0]
+
+
+def _ns_step_body(a: dict, cfg: NSConfig) -> dict:
+    """The step on its device call's inputs: dict(T, W, S, dt, info), info
+    = [dt, then (r_rms, tolf, outer count) of each solve in the order S, T,
+    W] in the state's dtype."""
+    _, solve = _step_solver(cfg)
+    T, W, S = a["T"], a["W"], a["S"]
     h = cfg.h
+    outcomes = []
+
+    def solved(out):
+        outcomes.append((out["r_rms"], out["tolf"], out["it"]))
+        return out["u"]
+
     # 1. the streamfunction, nabla^2 S = W, Dirichlet 0 (part2.jl:187)
-    S, _, _ = solve(S, W, h, 0.0, cfg.tol, cfg.niters, apply_bcs=False, cfg=cfg.mg)
+    S = solved(solve(S, W, h, 0.0, cfg.tol, cfg.niters, apply_bcs=False, cfg=cfg.mg))
     # 2-3. the velocity and the adaptive dt (part2.jl:190-196)
     vx, vy = ops.velocity(S, h, h)
     dt = compute_dt(vx, vy, cfg)
@@ -160,14 +203,15 @@ def ns_step(T, W, S, cfg: NSConfig):
     if _semi_implicit(cfg.beta):
         c = _full(dt, 1.0) / (cfg.beta * dt)
         T_rhs = -c * (T + dt * ((1.0 - cfg.beta) * dT2 - dTx - dTy))
-        T, _, _ = solve(T, T_rhs, h, c, cfg.tol, cfg.niters, apply_bcs=True, cfg=cfg.mg)
+        T = solved(solve(T, T_rhs, h, c, cfg.tol, cfg.niters, apply_bcs=True, cfg=cfg.mg))
         cW = c / _full(c, cfg.Pr)
         W_rhs = -cW * (W + dt * ((1.0 - cfg.beta) * dW2 - dWx - dWy - cfg.Pr * Ra_dTdx))
-        W, _, _ = solve(W, W_rhs, h, cW, cfg.tol, cfg.niters, apply_bcs=False, cfg=cfg.mg)
+        W = solved(solve(W, W_rhs, h, cW, cfg.tol, cfg.niters, apply_bcs=False, cfg=cfg.mg))
     else:
         T = T + dt * (dT2 - dTx - dTy)
         W = W + dt * (dW2 - dWx - dWy - cfg.Pr * Ra_dTdx)
-    return T, W, S, dt
+    info = torch.stack([dt] + [v.to(dt.dtype) for o in outcomes for v in o])
+    return dict(T=T, W=W, S=S, dt=dt, info=info)
 
 
 def _ns_step_sharded(T, W, S, cfg: NSConfig, mesh, axis: str):
@@ -278,10 +322,11 @@ def simulate(cfg: NSConfig = NSConfig(), W0=None, T0=None, max_steps: Optional[i
             sync()
             tic = time.perf_counter()
         if plan is None:
-            T, W, S, dt = ns_step(T, W, S, cfg)
+            T, W, S, _, dt = _ns_step(T, W, S, cfg)
         else:
             T, W, S, dt = _ns_step_sharded(T, W, S, cfg, mesh, shard_axis)
-        sim_time += float(dt)  # the one host read per step
+            dt = float(dt)
+        sim_time += dt  # the one host read per step
         step += 1
         if snapshot_every and (step - 1) % snapshot_every == 0:
             snapshots.append((host(T), host(W), host(S)))
@@ -319,8 +364,8 @@ def _full(like, v):
 def _fast_step(TW, S_ds, w_sumsq, cfg: NSConfig, defect=None):
     """One step (navier_stokes._fast_step).
 
-    defect (explicit): (r, r_rms, ax, ay), the S-solve's initial defect and
-    curl maxima from the previous operator pass.  Returns
+    defect (explicit): (r, r_rms, (ax, ay, 0)), the S-solve's initial
+    defect and curl maxima from the previous operator pass.  Returns
     (TW', S_ds', w_sumsq', dt), plus the next defect on the explicit path.
     """
     h = cfg.h
@@ -328,9 +373,9 @@ def _fast_step(TW, S_ds, w_sumsq, cfg: NSConfig, defect=None):
     tolf = (cfg.tol * cfg.s_tol_factor) * torch.sqrt(w_sumsq / n_cells)
     solve_kw = {}
     if defect is not None:
-        r32, r_rms, ax0, ay0 = defect
-        solve_kw = dict(r0=(r32, r_rms), extras0=(ax0, ay0))
-    S_ds, _, _, (ax, ay) = mg_solve_ds_rp(
+        r32, r_rms, ex0 = defect
+        solve_kw = dict(r0=(r32, r_rms), extras0=ex0)
+    S_ds, _, _, (ax, ay, _) = mg_solve_ds_rp(
         S_ds, TW[1:2], tolf, h, 0.0, cfg.niters, cfg=cfg.mg, inner_cycles=1,
         tol=cfg.tol, velocity_max=True, **solve_kw,
     )
@@ -367,7 +412,7 @@ def _fast_step(TW, S_ds, w_sumsq, cfg: NSConfig, defect=None):
         TW, S_ds, dt, h, cfg.Pr, cfg.Ra, k=cfg.k, beta=cfg.beta,
         mode="explicit", with_defect=True,
     )
-    return TW, S_ds, w_sumsq, dt, (r0n[0], r0n[1], ex0n[0], ex0n[1])
+    return TW, S_ds, w_sumsq, dt, (r0n[0], r0n[1], ex0n)
 
 
 def _fast_loop(st: dict, cfg: NSConfig) -> dict:
@@ -404,7 +449,7 @@ def _fast_chunk(st: dict, cfg: NSConfig) -> dict:
         # (the same arithmetic, so chunking changes no bit)
         S_ds, r32, r_rms, ex = dsm.defect_pass(
             carry["S_ds"], carry["TW"][1:2], None, 0.0, cfg.h, 0.0, velocity_max=True)
-        carry.update(S_ds=S_ds, dfc=(r32, r_rms, ex[0], ex[1]))
+        carry.update(S_ds=S_ds, dfc=(r32, r_rms, ex))
 
         def body(c):
             TW, S_ds, w_ss, dt, dfc = _fast_step(c["TW"], c["S_ds"], c["w_ss"], cfg,

@@ -1,6 +1,6 @@
 """Double-single (two-float32) arithmetic and the defect pass K1
-(fpr_tpu/ops/ds.py: the error-free transforms, _defect_scalars,
-defect_pass, defect_pass_stk).
+(fpr_tpu/ops/ds.py: the error-free transforms, ds_neg, ds_mul_f1,
+to_ds, from_ds, _defect_scalars, defect_pass, defect_pass_stk).
 
 A double-single value is a pair hi + lo of float32 tensors with
 |lo| <= ulp(hi)/2, about 48 mantissa bits.  The transforms below are exact
@@ -60,6 +60,11 @@ def ds_add(xh, xl, yh, yl):
     return quick_two_sum(s, e)
 
 
+def ds_neg(xh, xl):
+    """-(xh, xl)."""
+    return -xh, -xl
+
+
 def split(a):
     """Veltkamp split a == hi + lo into 12-bit-mantissa halves."""
     t = a * 4097.0
@@ -74,6 +79,13 @@ def two_prod(a, b):
     bh, bl = split(b)
     err = ((ah * bh - p) + ah * bl + al * bh) + al * bl
     return p, err
+
+
+def ds_mul_f1(xh, xl, c):
+    """(xh, xl) * c for a float32 scalar or tensor c."""
+    p, e = two_prod(xh, c)
+    e = e + xl * c
+    return quick_two_sum(p, e)
 
 
 def ds_mul_ds(xh, xl, yh, yl):
@@ -96,6 +108,11 @@ def to_ds(a: torch.Tensor) -> torch.Tensor:
     if a.dtype != torch.float64:
         return torch.stack([hi, torch.zeros_like(hi)])
     return torch.stack([hi, (a - hi.to(torch.float64)).to(torch.float32)])
+
+
+def from_ds(hi, lo, dtype=torch.float64):
+    """hi + lo in dtype (ds.from_ds)."""
+    return hi.to(dtype) + lo.to(dtype)
 
 
 def _is_pow2(x: float) -> bool:

@@ -21,11 +21,11 @@ import numpy as np
 import torch
 
 
-def dual_time_step(Ht, Htau, dt, dtau, dx, dy, dz, D):
+def dual_time_step(Ht, Htau, dt, dtau, dx, dy, dz, D, with_norm=True):
     """One pseudo-time iteration (stencil3d.dual_time_step).
 
-    Returns (Htau', sumsq) with sumsq = sum(dHdtau^2) over the interior;
-    Htau is not written.
+    Returns (Htau', sumsq) with sumsq = sum(dHdtau^2) over the interior
+    (None without with_norm); Htau is not written.
     """
     _dx2, _dy2, _dz2 = 1.0 / (dx * dx), 1.0 / (dy * dy), 1.0 / (dz * dz)
     I = (slice(1, -1),) * 3
@@ -36,7 +36,7 @@ def dual_time_step(Ht, Htau, dt, dtau, dx, dy, dz, D):
     dHdtau = (Hi - Ht[I]) / dt - D * lap
     new = Htau.clone()
     new[I] = Hi - dtau * dHdtau
-    return new, torch.sum(dHdtau * dHdtau)
+    return new, torch.sum(dHdtau * dHdtau) if with_norm else None
 
 
 def _div(a: torch.Tensor, d: float) -> torch.Tensor:
@@ -53,13 +53,15 @@ def _iota(shape, dim: int, device, start: int = 0) -> torch.Tensor:
     return (start + torch.arange(shape[dim], device=device)).view(view)
 
 
-def dual_time_step_ext3(Ht, H_ext, dt, dtau, dx, dy, dz, D, zlo, zhi, ylo, yhi, xlo, xhi):
+def dual_time_step_ext3(Ht, H_ext, dt, dtau, dx, dy, dz, D, zlo, zhi, ylo, yhi, xlo, xhi,
+                        with_norm=True):
     """One iteration on a fully ghost-padded local block (nz_l+2, ny_l+2,
     nx_l+2) with the ghosts refreshed (stencil3d.dual_time_step_ext3).
 
     Ht: the unpadded (nz_l, ny_l, nx_l) block.  (zlo..xhi): inclusive local
     ranges of updateable cells (``halo.mask_bounds``).  Returns (H_ext',
-    sumsq) with ghosts copied; H_ext is not written.
+    sumsq) with ghosts copied, sumsq None without with_norm; H_ext is not
+    written.
     """
     C = H_ext[1:-1, 1:-1, 1:-1]
     lap = (_div(H_ext[1:-1, 1:-1, 2:] - 2.0 * C + H_ext[1:-1, 1:-1, :-2], dx * dx)
@@ -72,16 +74,16 @@ def dual_time_step_ext3(Ht, H_ext, dt, dtau, dx, dy, dz, D, zlo, zhi, ylo, yhi, 
     dH = torch.where(interior, dH, dH.new_zeros(()))
     new = H_ext.clone()
     new[1:-1, 1:-1, 1:-1] = C - dtau * dH
-    return new, torch.sum(dH * dH)
+    return new, torch.sum(dH * dH) if with_norm else None
 
 
 def dual_time_step_overlap_z(Ht, H_local, ghost_lo, ghost_hi, dt, dtau, dx, dy, dz, D,
-                             zlo, zhi):
+                             zlo, zhi, with_norm=True):
     """One iteration on an unpadded local block with its z neighbours'
     faces ghost_lo/ghost_hi (1, ny_l, nx_l) from an exchange
     (stencil3d.dual_time_step_overlap_z): the interior planes need no
     ghost, only the two edge planes read them.  Returns (H_local', sumsq),
-    equal to the ghost-padded step's."""
+    equal to the ghost-padded step's (sumsq None without with_norm)."""
     nzl, nyl, nxl = Ht.shape
 
     def lat_lap(block):
@@ -106,17 +108,21 @@ def dual_time_step_overlap_z(Ht, H_local, ghost_lo, ghost_hi, dt, dtau, dx, dy, 
     first, dH_first = finish(H_local[:1], ghost_lo, H_local[1:2], Ht[:1], 0)
     last, dH_last = finish(H_local[-1:], H_local[-2:-1], ghost_hi, Ht[-1:], nzl - 1)
     new = torch.cat([first, mid, last], dim=0)
+    if not with_norm:
+        return new, None
     sumsq = (torch.sum(dH_mid * dH_mid) + torch.sum(dH_first * dH_first)
              + torch.sum(dH_last * dH_last))
     return new, sumsq
 
 
-def init_gaussian(grid, dtype=torch.float32, *, device) -> torch.Tensor:
+def init_gaussian(grid, dtype=torch.float32, x0=None, y0=None, z0=None, *,
+                  device) -> torch.Tensor:
     """H = 2 exp(-|x - centre|^2) at the cell centres (stencil3d.init_gaussian),
-    built in float64 numpy and then cast, as the JAX function does."""
+    built in float64 numpy and then cast, as the JAX function does.
+    x0, y0, z0: offsets added to the coordinates (a shard's global origin)."""
     cx, cy, cz = grid.lx / 2, grid.ly / 2, grid.lz / 2
-    X = grid.coords1d("x").reshape(1, 1, -1)
-    Y = grid.coords1d("y").reshape(1, -1, 1)
-    Z = grid.coords1d("z").reshape(-1, 1, 1)
+    X = (grid.coords1d("x") + (x0 or 0.0)).reshape(1, 1, -1)
+    Y = (grid.coords1d("y") + (y0 or 0.0)).reshape(1, -1, 1)
+    Z = (grid.coords1d("z") + (z0 or 0.0)).reshape(-1, 1, 1)
     H = 2.0 * np.exp(-((X - cx) ** 2 + (Y - cy) ** 2 + (Z - cz) ** 2))
     return torch.tensor(H, dtype=dtype, device=device)

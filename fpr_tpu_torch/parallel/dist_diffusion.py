@@ -99,13 +99,16 @@ def _pad1(b: torch.Tensor) -> torch.Tensor:
     return torch.nn.functional.pad(b, (1, 1, 1, 1, 1, 1))
 
 
-def build_step(cfg: DiffusionConfig, mesh: Mesh, dtype=torch.float32):
-    """The physical step over ``mesh`` (dist_diffusion.build_step).
+def build_step(cfg: DiffusionConfig, mesh: Mesh, axis: str = "z", *, dtype=torch.float32):
+    """The physical step over ``mesh`` (dist_diffusion.build_step, with its
+    positional order).  axis: ignored, as in JAX (the mesh's axis names
+    place the shards).
 
     Returns (step, grid): step(Ht_blocks, Htau_blocks) iterates Htau to
     convergence against Ht and returns (H_blocks, H_blocks, err,
     iterations), err a numpy scalar of the field's dtype.
     """
+    del axis
     grid = _global_grid(cfg, mesh)
     dtau = pseudo_timestep(grid.dx, grid.dy, grid.dz, cfg.D)
     kw = dict(dt=cfg.dt, dtau=dtau, dx=grid.dx, dy=grid.dy, dz=grid.dz, D=cfg.D)
@@ -304,7 +307,7 @@ def solve_distributed(cfg: DiffusionConfig = DiffusionConfig(), mesh: Mesh | Non
     if (any(d.type == "cuda" for d in mesh.devices) and cfg.policy is not ExecutionPolicy.JNP
             and dtype != torch.float32):
         raise ValueError(f"policy {cfg.policy.value} runs float32 CUDA kernels; got {dtype}")
-    step, grid = build_step(cfg, mesh, dtype)
+    step, grid = build_step(cfg, mesh, dtype=dtype)
     nt = outer_steps(cfg.ttot, cfg.dt)
     H0 = bc.dirichlet_faces_3d(stencil3d.init_gaussian(grid, dtype, device="cpu"))
     Ht = shard_field(H0, mesh)

@@ -2,7 +2,8 @@
 defect-correction solvers around it (fpr_tpu/solvers/multigrid.py:
 _warn_unconverged, _smooth_fns, _coarse_solve, vcycle, mg_solve,
 PALLAS_MIN_AREA, vcycle_rp, _stk_eligible, vcycle_stk, mg_solve_rp,
-mg_solve_mixed, _auto_inner_cycles, mg_solve_ds_rp, mg_solve_ds).
+mg_solve_mixed, _auto_inner_cycles, _fmg_guess, mg_solve_ds_rp,
+mg_solve_ds).
 
 - ``vcycle`` / ``mg_solve``: the reference-semantics V-cycle and its
   iterate loop (damped Jacobi or red-black GS, injection or full
@@ -20,29 +21,32 @@ mg_solve_mixed, _auto_inner_cycles, mg_solve_ds_rp, mg_solve_ds).
 - ``mg_solve_ds_rp`` / ``mg_solve_ds``: u and f as hi/lo float32 pairs;
   each outer iteration is V-cycles on the float32 defect (``vcycle_stk``,
   or ``vcycle_rp`` outside the fused legs' configuration), then one ds
-  defect pass (K1), which also gives the true defect norm.
+  defect pass (K1), which also gives the true defect norm.  ``fmg``: a
+  full-multigrid initial guess of the first correction (``_fmg_guess``)
+  before the loop.
 
-The loops of ``mg_solve_ds_rp`` / ``mg_solve_ds`` and of the coarse
-Jacobi and CG solves are ``core.loops.while_loop``s, as the JAX package's
-``lax.while_loop``s: on CUDA one CUDA graph a call, the host reading
-nothing until ``mg_solve_ds`` reads the outer count at its end.  The outer
-loops of the host tiers (``mg_solve``, ``mg_solve_rp``, ``mg_solve_mixed``)
-are host loops: each test of their condition reads one scalar from the
-device.  The level state of the
+Every outer loop (``mg_solve``, ``mg_solve_rp``, ``mg_solve_mixed``,
+``mg_solve_ds_rp``) and the coarse Jacobi and CG solves are
+``core.loops.while_loop``s inside a ``core.loops.device_call``, as the JAX
+package's ``lax.while_loop``s: on CUDA one CUDA graph a solve (or a part of
+the caller's graph), the host reading nothing until the public entry point
+reads (r_rms, tolf, outer count) once at its end, for the count it returns
+and the non-convergence warning.  The level state of the
 stacked V-cycle is a (2, ny, nx) tensor L = [u | f]: the up leg writes the
 new iterate into L[0] and the defect pass writes the new rhs into L[1], in
 both cases from buffers the kernel does not write, so no kernel reads what
 it writes.  Arrays are physical (ny, nx): the ``_rp`` solvers keep the
 JAX names but take no row-padded layout.  The correction cycles of the
 defect-correction solvers smooth with eliminated BCs exactly when
-apply_bcs is set (the JAX ``_ELIM_BC_SMOOTH`` default).  FMG and the fused
-DST correction are not ported.
+apply_bcs is set (the JAX ``_ELIM_BC_SMOOTH`` default).  The fused DST
+correction is not ported.
 """
 
 from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 from fpr_tpu_torch.core import bc, loops
@@ -63,15 +67,29 @@ PALLAS_MIN_AREA = 1024 * 1024
 def _warn_unconverged(solver: str, r_rms, tolf, it: int, niters: int,
                       apply_bcs: bool = False) -> None:
     """Print a warning when an outer loop stopped at niters above tolerance
-    (multigrid._warn_unconverged; the reference's "Couldn't converge",
-    multigrid.jl:78-80).  The host holds r_rms already: it tested it."""
-    if it < niters or not bool(r_rms >= tolf):
+    (multigrid._warn_unconverged, its text; the reference's "Couldn't
+    converge", multigrid.jl:78-80).  r_rms, tolf: host numbers (a solve's
+    ``_outcome``) or tensors, read only when it reached niters."""
+    if it < niters:
         return
-    hint = (" (known cold-BC stagnation: the iterate cycle smooths the Neumann "
-            "side columns as Dirichlet-0, as the reference does; the ds/mixed "
-            "correction cycles avoid it with eliminated-BC smoothing)" if apply_bcs else "")
-    print(f"WARNING: {solver} exited at niters={niters} with r_rms {float(r_rms):.3e} >= "
-          f"tol*rms(f) {float(tolf):.3e} — NOT converged{hint}")
+    r, t = float(r_rms), float(tolf)
+    if not r >= t:
+        return
+    hint = (" (known cold-BC stagnation: the jnp-tier iterate cycle smooths "
+            "the Neumann side columns as Dirichlet-0 — reference-parity "
+            "behavior; the ds/rp correction cycles avoid it via eliminated-BC "
+            "smoothing (_ELIM_BC_SMOOTH), see mg_solve_ds_rp's docstring)" if apply_bcs else "")
+    # JAX prints the two as float32
+    print(f"WARNING: {solver} exited at niters={niters} with r_rms {float(np.float32(r)):.3e} "
+          f">= tol*rms(f) {float(np.float32(t)):.3e} — NOT converged{hint}")
+
+
+def _outcome(out: dict):
+    """(r_rms, tolf, outer count) of a solve's device results on the host,
+    in one transfer: the solve's one host read."""
+    r, t, it = torch.stack([out["r_rms"].double(), out["tolf"].double(),
+                            out["it"].double()]).tolist()
+    return r, t, int(it)
 
 
 def _smooth_fns(cfg: MGConfig):
@@ -194,15 +212,42 @@ def vcycle(u, f, h, c, tol, cfg: MGConfig, apply_bcs=False, elim=False):
     return descend(u, f, h, True)
 
 
-def _outer_loop(step, u, niters, tolf):
-    """The JAX solvers' while_loop over (u, r_rms, it): step(u) -> (u, r_rms)
-    while it < niters and r_rms >= tolf, r_rms starting at inf."""
-    r_rms = torch.full((), float("inf"), dtype=u.dtype, device=u.device)
-    it = 0
-    while it < niters and bool(r_rms >= tolf):
-        u, r_rms = step(u)
-        it += 1
-    return u, r_rms, it
+def _outer(step, u0, f, c, tol: float, niters: int, key):
+    """The outer loop of ``mg_solve``, ``mg_solve_rp`` and ``mg_solve_mixed``
+    as one device call: JAX's while_loop over (u, r_rms, it), r_rms from
+    inf in u's dtype and it an int32 counter, step(u, f, c) -> (u, r_rms)
+    while it < niters and r_rms >= tolf = tol rms(f).  key: what step bakes
+    in.  Returns the device results dict(u, r_rms, it, tolf); no host read."""
+
+    def solve(a):
+        f, cc = a["f"], c if a["c"] is None else a["c"]
+        tolf = tol * stencil2d.rms(f)
+
+        def cond(s):
+            return (s[2] < niters) & (s[1] >= tolf)
+
+        def body(s):
+            u, r_rms = step(s[0], f, cc)
+            return u, r_rms, s[2] + 1
+
+        u, r_rms, it = loops.while_loop(cond, body, (a["u"], _inf(a["u"]), _int0(f)))
+        return dict(u=u, r_rms=r_rms, it=it, tolf=tolf)
+
+    return loops.device_call(solve, dict(u=u0, f=f, c=_c_arg(c)), key=key)
+
+
+def _mg_solve(u0, f, h: float, c, tol: float, niters: int, apply_bcs=False,
+              cfg: MGConfig = MGConfig()):
+    """mg_solve's device results (``_outer``), for a caller that reads them
+    itself."""
+
+    def step(u, f, c):
+        if apply_bcs:
+            u = bc.ns_temperature_bcs(u)
+        return vcycle(u, f, h, c, tol, cfg, apply_bcs=apply_bcs)
+
+    return _outer(step, u0, f, c, tol, niters,
+                  key=("mg_solve", cfg, float(h), _c_key(c), float(tol), niters, apply_bcs))
 
 
 def mg_solve(u0, f, h: float, c, tol: float, niters: int, apply_bcs=False,
@@ -210,16 +255,10 @@ def mg_solve(u0, f, h: float, c, tol: float, niters: int, apply_bcs=False,
     """V-cycles until r_rms < tol * rms(f) (multigrid.mg_solve); with
     apply_bcs the NS temperature BCs are applied to u before every cycle.
     Returns (u, r_rms, iterations)."""
-    tolf = tol * stencil2d.rms(f)
-
-    def step(u):
-        if apply_bcs:
-            u = bc.ns_temperature_bcs(u)
-        return vcycle(u, f, h, c, tol, cfg, apply_bcs=apply_bcs)
-
-    u, r_rms, it = _outer_loop(step, u0, niters, tolf)
-    _warn_unconverged("mg_solve", r_rms, tolf, it, niters, apply_bcs)
-    return u, r_rms, it
+    out = _mg_solve(u0, f, h, c, tol, niters, apply_bcs, cfg)
+    r, t, it = _outcome(out)
+    _warn_unconverged("mg_solve", r, t, it, niters, apply_bcs)
+    return out["u"], out["r_rms"], it
 
 
 def vcycle_rp(u, f, h, c, tol, cfg: MGConfig, apply_bcs=False, assume_zero_u=False,
@@ -314,16 +353,41 @@ def vcycle_stk(L, h, c, tol, cfg: MGConfig, apply_bcs=False, assume_zero_u=False
 def mg_solve_rp(u0, f, h: float, c, tol: float, niters: int, apply_bcs=False,
                 cfg: MGConfig = MGConfig()):
     """``mg_solve`` with ``vcycle_rp`` (multigrid.mg_solve_rp): the iterate
-    path, so its cycles smooth without eliminated BCs.  Returns
-    (u, r_rms, iterations)."""
-    tolf = tol * stencil2d.rms(f)
+    path, so its cycles smooth without eliminated BCs; no warning, as in
+    JAX.  Returns (u, r_rms, iterations)."""
 
-    def step(u):
+    def step(u, f, c):
         if apply_bcs:
             u = bc.ns_temperature_bcs(u)
         return vcycle_rp(u, f, h, c, tol, cfg, apply_bcs)
 
-    return _outer_loop(step, u0, niters, tolf)
+    out = _outer(step, u0, f, c, tol, niters,
+                 key=("mg_solve_rp", cfg, float(h), _c_key(c), float(tol), niters, apply_bcs))
+    return out["u"], out["r_rms"], int(out["it"])  # the host's one read
+
+
+def _mg_solve_mixed(u0, f, h: float, c, tol: float, niters: int, apply_bcs=False,
+                    cfg: MGConfig = MGConfig(), inner_cycles: int = 1):
+    """mg_solve_mixed's device results (``_outer``), for a caller that
+    reads them itself."""
+    tiny = torch.finfo(u0.dtype).tiny
+
+    def step(u, f, c):
+        if apply_bcs:
+            u = bc.ns_temperature_bcs(u)
+        r = stencil2d.residual(u, f, h, c)
+        safe = torch.clamp_min(stencil2d.rms(r), tiny)
+        r32 = (r / safe).to(torch.float32)
+        e, e_rms = None, None
+        for cyc in range(inner_cycles):
+            e, e_rms = vcycle_rp(e, r32, h, c, tol, cfg, apply_bcs=apply_bcs,
+                                 assume_zero_u=(cyc == 0), elim=apply_bcs)
+        u = u - e.to(u.dtype) * safe
+        return u, e_rms.to(u.dtype) * safe
+
+    return _outer(step, u0, f, c, tol, niters,
+                  key=("mg_solve_mixed", cfg, float(h), _c_key(c), float(tol), niters, apply_bcs,
+                       inner_cycles))
 
 
 def mg_solve_mixed(u0, f, h: float, c, tol: float, niters: int, apply_bcs=False,
@@ -338,25 +402,10 @@ def mg_solve_mixed(u0, f, h: float, c, tol: float, niters: int, apply_bcs=False,
     until the post-correction estimate safe * rms(A e - r/safe) (the last
     fine-level residual of the inner cycles) is below tol * rms(f).
     Returns (u, r_rms, outer_iterations)."""
-    tolf = tol * stencil2d.rms(f)
-    tiny = torch.finfo(u0.dtype).tiny
-
-    def step(u):
-        if apply_bcs:
-            u = bc.ns_temperature_bcs(u)
-        r = stencil2d.residual(u, f, h, c)
-        safe = torch.clamp_min(stencil2d.rms(r), tiny)
-        r32 = (r / safe).to(torch.float32)
-        e, e_rms = None, None
-        for cyc in range(inner_cycles):
-            e, e_rms = vcycle_rp(e, r32, h, c, tol, cfg, apply_bcs=apply_bcs,
-                                 assume_zero_u=(cyc == 0), elim=apply_bcs)
-        u = u - e.to(u.dtype) * safe
-        return u, e_rms.to(u.dtype) * safe
-
-    u, r_rms, it = _outer_loop(step, u0, niters, tolf)
-    _warn_unconverged("mg_solve_mixed", r_rms, tolf, it, niters, apply_bcs)
-    return u, r_rms, it
+    out = _mg_solve_mixed(u0, f, h, c, tol, niters, apply_bcs, cfg, inner_cycles)
+    r, t, it = _outcome(out)
+    _warn_unconverged("mg_solve_mixed", r, t, it, niters, apply_bcs)
+    return out["u"], out["r_rms"], it
 
 
 def _auto_inner_cycles(ny: int, nx: int, cfg: MGConfig = MGConfig()) -> int:
@@ -367,50 +416,79 @@ def _auto_inner_cycles(ny: int, nx: int, cfg: MGConfig = MGConfig()) -> int:
     return 1 if max(ny, nx) >= 8193 else 2
 
 
+def _fmg_guess(r32, h: float, c, tol: float, cfg: MGConfig, apply_bcs=False):
+    """Full-multigrid initial guess for A e = r32, float32 (ny, nx)
+    (multigrid._fmg_guess): the rhs restricted down the ladder with full
+    weighting, the coarsest level solved from zero by the coarse solver
+    (its smoother without eliminated BCs), then per level upward one
+    prolongation and one ``vcycle_stk`` from it.  No loop but the coarse
+    solve's.  JAX measured it slower at scale than the loop it shortens
+    (fpr_tpu/solvers/multigrid.py:689-696), so it is off by default."""
+    levels = [(h, r32)]
+    while min(levels[-1][1].shape) > cfg.coarse_size:
+        hl, rl = levels[-1]
+        levels.append((hl * 2.0, transfer.restrict_full_weighting(rl, apply_bcs=apply_bcs)))
+    hl, rl = levels[-1]
+    e, _ = _coarse_solve(torch.zeros_like(rl), rl, hl, c, tol, cfg)
+    for hl, rl in reversed(levels[:-1]):
+        e = transfer.prolongate(e, tuple(rl.shape), apply_bcs=apply_bcs)
+        L, _ = vcycle_stk(torch.stack([e, rl]), hl, c, tol, cfg, apply_bcs=apply_bcs,
+                          elim=apply_bcs)
+        e = L[0]
+    return e
+
+
 def mg_solve_ds_rp(u_ds, f_ds, tolf, h: float, c, niters: int,
                    cfg: MGConfig = MGConfig(), inner_cycles=None, apply_bcs=False,
-                   r0=None, tol: float = 1e-7, velocity_max=False, extras0=None):
+                   r0=None, tol: float = 1e-7, velocity_max=False, field_sumsq=False,
+                   fmg=False, extras0=None):
     """Double-single defect-correction core (multigrid.mg_solve_ds_rp).
 
     u_ds: (2, ny, nx) float32 hi/lo, or None for zero.  f_ds: (1, ny, nx)
     for an exactly-float32 rhs, or (2, ny, nx).  tolf: absolute tolerance on
     the defect rms (a float or a 0-dim tensor).  c: a Python number or a
     0-dim float32 tensor.  r0: an initial (defect, rms) replacing the first
-    defect pass; with velocity_max it needs extras0, the (max|du/dy|,
-    max|du/dx|) that pass would have given.  velocity_max: also return
-    those maxima of the returned iterate.  apply_bcs: the NS temperature
-    BCs, with eliminated-BC smoothing in the correction cycles
-    (multigrid.py:300-315).  The correction cycles are ``vcycle_stk`` when
-    ``_stk_eligible(cfg)``, else ``vcycle_rp``.
+    defect pass; with an extras flag it needs extras0, the (max_vx,
+    max_vy, sumsq) that pass would have given.  velocity_max /
+    field_sumsq: K1's max|du/dy|, max|du/dx| and sum(u_hi^2) of the
+    returned iterate, returned as JAX's extras tuple (max_vx, max_vy,
+    sumsq) when either flag is set (zeros where not asked for).  apply_bcs: the NS temperature BCs, with eliminated-BC
+    smoothing in the correction cycles (multigrid.py:300-315).  The
+    correction cycles are ``vcycle_stk`` when ``_stk_eligible(cfg)``, else
+    ``vcycle_rp``.  fmg: start the loop from ``_fmg_guess``'s correction,
+    folded in by one defect pass (a cfg that is not stk-eligible ignores
+    it, as in JAX).
 
     The outer loop is a ``while_loop`` over (u_ds, L or r32, r_rms, extras,
     it), as in JAX: on CUDA one launch of a cached CUDA graph (or a part of
     the caller's graph), no host read.  Returns (u_ds', r_rms,
-    outer_iterations[, (max|du/dy|, max|du/dx|)]), the count a 0-dim int32
-    tensor on the device.
+    outer_iterations[, extras]), the count a 0-dim int32 tensor on the
+    device.
     """
     _, ny, nx = f_ds.shape
     if inner_cycles is None:
         inner_cycles = _auto_inner_cycles(ny, nx, cfg)
-    if velocity_max and r0 is not None and extras0 is None:
-        raise ValueError("velocity_max with r0 needs extras0")
+    extras_on = velocity_max or field_sumsq
+    if extras_on and r0 is not None and extras0 is None:
+        raise ValueError("extras flags with r0 need extras0")
     if not isinstance(tolf, torch.Tensor):
         tolf = torch.full((), float(tolf), dtype=torch.float32, device=f_ds.device)
     args = dict(u=u_ds, f=f_ds, tolf=tolf.to(torch.float32), c=_c_arg(c),
                 r0=None if r0 is None else tuple(r0),
-                ex0=tuple(extras0) if velocity_max and r0 is not None else None)
+                ex0=tuple(extras0) if extras_on and r0 is not None else None)
     key = ("mg_solve_ds_rp", cfg, float(h), _c_key(c), niters, inner_cycles, apply_bcs,
-           float(tol), velocity_max)
+           float(tol), velocity_max, field_sumsq, fmg)
 
     def solve(a):
         return _ds_outer(a, h, c if a["c"] is None else a["c"], niters, cfg, inner_cycles,
-                         apply_bcs, tol, velocity_max)
+                         apply_bcs, tol, velocity_max, field_sumsq, fmg)
 
     out = loops.device_call(solve, args, key=key)
-    return out if velocity_max else out[:3]
+    return out if extras_on else out[:3]
 
 
-def _ds_outer(a, h, c, niters, cfg, inner_cycles, apply_bcs, tol, velocity_max):
+def _ds_outer(a, h, c, niters, cfg, inner_cycles, apply_bcs, tol, velocity_max,
+              field_sumsq=False, fmg=False):
     """mg_solve_ds_rp on its graph's inputs a; returns (u_ds, r_rms, it,
     extras)."""
     f_ds, tolf = a["f"], a["tolf"]
@@ -418,21 +496,29 @@ def _ds_outer(a, h, c, niters, cfg, inner_cycles, apply_bcs, tol, velocity_max):
     dev = f_ds.device
     c_t = stencil2d.as_scalar(c, f_ds[0])
     C = dsm.defect_scalars(c, h, dev)
-    kw = dict(apply_bcs=apply_bcs, velocity_max=velocity_max)
+    kw = dict(apply_bcs=apply_bcs, velocity_max=velocity_max, field_sumsq=field_sumsq)
+    extras_on = velocity_max or field_sumsq
 
     u_ds = a["u"]
     if u_ds is None:
         u_ds = torch.zeros((2, ny, nx), dtype=torch.float32, device=dev)
     if a["r0"] is not None:
         r32, r_rms = a["r0"]
-        extras = a["ex0"] if velocity_max else ()
+        extras = a["ex0"] or ()
     else:
         out = dsm.defect_pass(u_ds, f_ds, None, 0.0, h, c, C=C, **kw)
         u_ds, r32, r_rms = out[:3]
-        extras = out[3][:2] if velocity_max else ()
+        extras = out[3] if extras_on else ()
 
     stk = _stk_eligible(cfg)
-    if stk:
+    if stk and fmg:
+        # the first correction from the FMG guess, folded into u by one
+        # defect pass, which also writes the loop's first defect into L[1]
+        e0 = _fmg_guess(r32, h, c_t, tol, cfg, apply_bcs=apply_bcs)
+        out = dsm.defect_pass_stk(u_ds, f_ds, torch.stack([e0, r32]), 1.0, h, c, C=C, **kw)
+        u_ds, L, r_rms = out[:3]
+        extras = out[3] if extras_on else ()
+    elif stk:
         L = torch.empty((2, ny, nx), dtype=torch.float32, device=dev)
         L[1] = r32
 
@@ -452,8 +538,8 @@ def _ds_outer(a, h, c, niters, cfg, inner_cycles, apply_bcs, tol, velocity_max):
                 e, _ = vcycle_rp(e, s["s"], h, c_t, tol, cfg, apply_bcs=apply_bcs,
                                  assume_zero_u=(cyc == 0), elim=apply_bcs)
             out = dsm.defect_pass(s["u"], f_ds, e, 1.0, h, c, C=C, **kw)
-        return dict(u=out[0], s=out[1], r_rms=out[2],
-                    ex=out[3][:2] if velocity_max else (), it=s["it"] + 1)
+        return dict(u=out[0], s=out[1], r_rms=out[2], ex=out[3] if extras_on else (),
+                    it=s["it"] + 1)
 
     s = loops.while_loop(cond, body, dict(u=u_ds, s=L if stk else r32, r_rms=r_rms,
                                           ex=tuple(extras), it=_int0(f_ds)), donate=True)
@@ -462,17 +548,17 @@ def _ds_outer(a, h, c, niters, cfg, inner_cycles, apply_bcs, tol, velocity_max):
 
 def mg_solve_ds(u0, f, h: float, c, tol: float, niters: int,
                 cfg: MGConfig = MGConfig(), inner_cycles=None, return_pair=False,
-                apply_bcs=False, device=None):
+                apply_bcs=False, fmg=False, *, device=None):
     """Defect-correction MG with the double-single defect pass
-    (multigrid.mg_solve_ds).
+    (multigrid.mg_solve_ds, with its positional order).
 
     f: (ny, nx) float32 or float64 tensor or array; u0: the same, or None
-    for a zero guess.  device: where to solve (required when f is not a
+    for a zero guess.  fmg: a full-multigrid first correction
+    (``mg_solve_ds_rp``).  device: where to solve (required when f is not a
     tensor; by default f's device).  Returns (u, r_rms, outer_iterations)
     in f's dtype, or ((u_hi, u_lo), r_rms, outer_iterations) with
     return_pair.  On CUDA the solve is one launch of a cached CUDA graph;
-    the host reads the outer count once, at the end (and r_rms for the
-    warning when the count reached niters).
+    the host reads (r_rms, tolf, outer count) once, at the end.
     """
     if device is None:
         if not isinstance(f, torch.Tensor):
@@ -493,15 +579,15 @@ def mg_solve_ds(u0, f, h: float, c, tol: float, niters: int,
             r0 = None
         u_ds, r_rms, it = mg_solve_ds_rp(u_ds, f_ds, tolf, h, c if a["c"] is None else a["c"],
                                          niters, cfg=cfg, inner_cycles=inner_cycles,
-                                         apply_bcs=apply_bcs, r0=r0, tol=tol)
+                                         apply_bcs=apply_bcs, r0=r0, tol=tol, fmg=fmg)
         return dict(u=u_ds, r_rms=r_rms, it=it, tolf=tolf)
 
     out = loops.device_call(solve, dict(f=f, u0=u0, c=_c_arg(c)),
                             key=("mg_solve_ds", cfg, float(h), _c_key(c), float(tol), niters,
-                                 inner_cycles, apply_bcs))
-    it = int(out["it"])  # the host's one read
+                                 inner_cycles, apply_bcs, fmg))
+    r, t, it = _outcome(out)
     u_ds, r_rms = out["u"], out["r_rms"]
-    _warn_unconverged("mg_solve_ds", r_rms, out["tolf"], it, niters, apply_bcs)
+    _warn_unconverged("mg_solve_ds", r, t, it, niters, apply_bcs)
     if return_pair:
         return (u_ds[0], u_ds[1]), r_rms, it
     u = u_ds[0].to(f.dtype) + u_ds[1].to(f.dtype)

@@ -1,9 +1,9 @@
 """The port's public entry points take the JAX package's positional order
-and return its dtypes: ``simulate_fast``, ``simulate_fast_sharded`` and
-``solve_distributed`` called with the same positional arguments on both
-sides, their positional parameters compared by ``inspect.signature``, and
-the float32 host loop (``simulate``), whose fields and snapshots come back
-in the state's dtype.
+and return its dtypes: ``simulate_fast``, ``simulate_fast_sharded``,
+``solve_distributed``, ``mg_solve_ds`` and ``build_step`` called with the
+same positional arguments on both sides, their positional parameters
+compared by ``inspect.signature``, and the float32 host loop
+(``simulate``), whose fields and snapshots come back in the state's dtype.
 
 Bounds are the existing tests': the fast loop as
 tests/test_torch_navier_stokes.py (explicit fields within 1e-5 of their
@@ -26,21 +26,27 @@ import torch
 from fpr_tpu.core.config import DiffusionConfig as JConfig
 from fpr_tpu.core.config import ExecutionPolicy as JPolicy
 from fpr_tpu.core.config import InitScheme as JInit
+from fpr_tpu.core.config import MGConfig as JMG
 from fpr_tpu.core.config import NSConfig as JNS
 from fpr_tpu.models import dist_ns as jdn
 from fpr_tpu.models import navier_stokes as jns
 from fpr_tpu.parallel import dist_diffusion as jdd
 from fpr_tpu.parallel.mesh import make_mesh as jmesh
-from fpr_tpu_torch.core.config import DiffusionConfig, ExecutionPolicy, InitScheme, NSConfig
+from fpr_tpu.solvers import multigrid as jmg
+from fpr_tpu_torch.core.config import (DiffusionConfig, ExecutionPolicy, InitScheme, MGConfig,
+                                       NSConfig)
 from fpr_tpu_torch.models import dist_ns, navier_stokes
 from fpr_tpu_torch.parallel import dist_diffusion
 from fpr_tpu_torch.parallel.mesh import make_mesh
+from fpr_tpu_torch.solvers import multigrid as tmg
 
 EPS32 = float(np.finfo(np.float32).eps)
 PAIRS = [(jns.simulate_fast, navier_stokes.simulate_fast),
          (jdn.simulate_fast_sharded, dist_ns.simulate_fast_sharded),
          (jdd.solve_distributed, dist_diffusion.solve_distributed),
-         (jns.simulate, navier_stokes.simulate)]
+         (jns.simulate, navier_stokes.simulate),
+         (jmg.mg_solve_ds, tmg.mg_solve_ds),
+         (jdd.build_step, dist_diffusion.build_step)]
 
 
 def _positional(fn):
@@ -67,6 +73,19 @@ def _agree(got, want, rel, t_abs=None):
 @pytest.mark.parametrize("jax_fn,port_fn", PAIRS, ids=lambda f: f.__name__)
 def test_positional_parameters_match_jax(jax_fn, port_fn):
     assert _positional(port_fn) == _positional(jax_fn)
+
+
+@pytest.mark.parametrize("pkg", ["core", "ops", "solvers"])
+def test_package_exports_match_jax(pkg):
+    """Each package exports JAX's names: core's grid names, ops' modules,
+    solvers' entry points."""
+    import importlib
+
+    port = importlib.import_module(f"fpr_tpu_torch.{pkg}")
+    ref = importlib.import_module(f"fpr_tpu.{pkg}")
+    assert set(ref.__all__) <= set(port.__all__)
+    assert all(callable(getattr(port, n)) or inspect.ismodule(getattr(port, n))
+               for n in ref.__all__)
 
 
 @pytest.mark.parametrize("bad", [0, -3, 2.5, "5", True])
@@ -122,6 +141,38 @@ def test_solve_distributed_positional_axis_dtype():
     assert got.H.dtype == np.float64
     assert got.iters_total == want.iters_total
     np.testing.assert_allclose(got.H, want.H, rtol=0, atol=1e-13)
+
+
+def test_build_step_positional_axis():
+    """build_step(cfg, mesh, "z"): the axis is taken and ignored on both
+    sides, which build the same global grid; dtype is keyword-only."""
+    kw = dict(nx=8, ny=8, nz=8, ttot=0.4, tol=1e-7)
+    jstep, jgrid = jdd.build_step(JConfig(**kw, policy=JPolicy.JNP), jmesh((2,), ("z",)), "z")
+    step, grid = dist_diffusion.build_step(DiffusionConfig(**kw, policy=ExecutionPolicy.JNP),
+                                           make_mesh((2,), ("z",), device="cpu"), "z")
+    assert (grid.nx, grid.ny, grid.nz) == (jgrid.nx, jgrid.ny, jgrid.nz) == (8, 8, 16)
+    assert inspect.signature(dist_diffusion.build_step).parameters["dtype"].kind == \
+        inspect.Parameter.KEYWORD_ONLY
+
+
+def test_mg_solve_ds_positional_fmg(monkeypatch):
+    """mg_solve_ds(u0, f, h, c, tol, niters, cfg, inner_cycles, return_pair,
+    apply_bcs, fmg): a positional fmg is fmg (bitwise the keyword call, and
+    another run than fmg=False); device stays keyword-only.  FMG against
+    JAX's: tests/test_torch_host_tiers.py."""
+    monkeypatch.setattr(tmg, "PALLAS_MIN_AREA", 65 * 65)
+    n = 129
+    b = np.zeros((n, n), np.float32)
+    b[1:-1, 1:-1] = np.random.default_rng(3).standard_normal((n - 2, n - 2))
+    b = torch.tensor(b)
+    cfg = MGConfig(coarse_size=17)
+    up, rp, ip = tmg.mg_solve_ds(None, b, 1 / 128, 0.0, 1e-6, 30, cfg, None, False, False, True)
+    uk, rk, ik = tmg.mg_solve_ds(None, b, 1 / 128, 0.0, 1e-6, 30, cfg=cfg, fmg=True)
+    u0, _, i0 = tmg.mg_solve_ds(None, b, 1 / 128, 0.0, 1e-6, 30, cfg=cfg)
+    assert ip == ik < i0 and torch.equal(up, uk) and torch.equal(rp, rk)
+    assert not torch.equal(up, u0)
+    assert inspect.signature(tmg.mg_solve_ds).parameters["device"].kind == \
+        inspect.Parameter.KEYWORD_ONLY
 
 
 @pytest.mark.parametrize("dtype", ["float32", "float64"])

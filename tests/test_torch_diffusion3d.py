@@ -132,6 +132,55 @@ def test_initial_field_matches_jax(dtype):
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
+@pytest.mark.parametrize("offsets", [(None, None, None), (2.5, -1.25, 7.0)])
+def test_initial_field_offsets_match_jax(offsets):
+    """init_gaussian's x0, y0, z0: a shard's global origin."""
+    got = stencil3d.init_gaussian(grid.Grid3D(12, 10, 9), torch.float64, *offsets, device="cpu")
+    want = jst.init_gaussian(jgrid.Grid3D(12, 10, 9), jnp.float64, *offsets)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_grid2d_and_mg_grid_match_jax():
+    from fpr_tpu import core as jcore
+    from fpr_tpu_torch import core
+
+    for nx, ny, h in ((257, 65, 1 / 64), (9, 9, 0.125)):
+        g, gj = core.Grid2D(nx, ny, h), jcore.Grid2D(nx, ny, h)
+        assert (g.nx, g.ny, g.h, g.shape, g.n) == (gj.nx, gj.ny, gj.h, gj.shape, gj.n)
+    assert [core.is_mg_grid(n) for n in range(12)] == [jcore.is_mg_grid(n) for n in range(12)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_interior_mask_matches_jax(dtype):
+    got = bc.interior_mask_2d((6, 9), dtype)
+    want = jbc.interior_mask_2d((6, 9), jnp.float32 if dtype == torch.float32 else jnp.float64)
+    assert got.dtype == dtype
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_dual_time_steps_with_norm_match_jax(rng):
+    """with_norm=False: the same field, no sum (None), for the three steps."""
+    kw = dict(dt=0.2, dtau=0.01, dx=0.5, dy=0.4, dz=0.3, D=1.0)
+    Ht, H = rng.random((6, 7, 8)), rng.random((6, 7, 8))
+    Hx = np.pad(rng.random((6, 7, 8)), 1)
+    lo, hi = rng.random((1, 7, 8)), rng.random((1, 7, 8))
+    bounds = dict(zlo=0, zhi=5, ylo=1, yhi=5, xlo=1, xhi=6)
+    calls = (
+        (stencil3d.dual_time_step, jst.dual_time_step, (Ht, H), {}),
+        (stencil3d.dual_time_step_ext3, jst.dual_time_step_ext3, (Ht, Hx), bounds),
+        (stencil3d.dual_time_step_overlap_z, jst.dual_time_step_overlap_z, (Ht, H, lo, hi),
+         dict(zlo=1, zhi=4)))
+    for port, ref, args, extra in calls:
+        for with_norm in (True, False):
+            got, gs = port(*map(torch.tensor, args), **kw, **extra, with_norm=with_norm)
+            want, ws = ref(*map(jnp.asarray, args), **kw, **extra, with_norm=with_norm)
+            np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=1e-12)
+            if with_norm:
+                assert float(gs) == pytest.approx(float(ws), rel=1e-12)
+            else:
+                assert gs is None and ws is None
+
+
 def test_config_and_bench_model_match_jax():
     port, ref = DiffusionConfig(), jcfg.DiffusionConfig()
     for f in dataclasses.fields(port):

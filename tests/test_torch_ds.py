@@ -31,6 +31,27 @@ def test_eft_exactness(rng):
     np.testing.assert_array_equal(p.double() + e.double(), a.double() * b.double())
 
 
+def test_ds_neg_mul_f1_from_ds_match_jax(rng):
+    """ds_neg, ds_mul_f1 and from_ds bitwise against JAX's on float32."""
+    xh, xl = (rng.standard_normal(4096).astype(np.float32) for _ in range(2))
+    xl *= np.float32(1e-8)
+    c = rng.standard_normal(4096).astype(np.float32)
+    T = torch.tensor
+    for got, want in ((tds.ds_neg(T(xh), T(xl)), jds.ds_neg(jnp.asarray(xh), jnp.asarray(xl))),
+                      (tds.ds_mul_f1(T(xh), T(xl), T(c)),
+                       jds.ds_mul_f1(jnp.asarray(xh), jnp.asarray(xl), jnp.asarray(c))),
+                      (tds.ds_mul_f1(T(xh), T(xl), 3.0),
+                       jds.ds_mul_f1(jnp.asarray(xh), jnp.asarray(xl), jnp.float32(3.0)))):
+        for g, w in zip(got, want):
+            assert g.dtype == torch.float32
+            np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    for dtype, jdtype in ((torch.float64, jnp.float64), (torch.float32, jnp.float32)):
+        got = tds.from_ds(T(xh), T(xl), dtype)
+        np.testing.assert_array_equal(got.numpy(), np.asarray(
+            jds.from_ds(jnp.asarray(xh), jnp.asarray(xl), jdtype)))
+    assert tds.from_ds(T(xh), T(xl)).dtype == torch.float64
+
+
 def test_defect_scalars_match(rng):
     """C = 4 + c h^2 as a ds pair: a Python c split on the host, a float32
     tensor c by error-free transforms, both as ds._defect_scalars."""
