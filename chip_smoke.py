@@ -52,6 +52,9 @@ Phases, in order; the first failure stops the run with a non-zero exit:
     versions, and 3 beta=0.5 steps with the direct solver and the PALLAS
     policy; 10 steps at beta 0.5 and 1 as one graph launch a step and as
     host loops, their times a step side by side.
+14-18 run the sharded tiers as graphs (one launch a solve, chunk or
+    step), each wall printed beside the host loops' figure (HOST_LOOPS)
+    and each new graph's nodes and build seconds.
 14. the sharded diffusion tier on a virtual mesh (every shard on the one
     card): 512^3 float32 on 4 z-shards, PALLAS check_every=3 (#9), capped
     at 300 iterations a step as phase 7, H bitwise equal to phase 7's
@@ -107,8 +110,9 @@ Phases, in order; the first failure stops the run with a non-zero exit:
     (NS 20 and 5 steps, diffusion 50 iterations a step); the device
     launches of K1, K4 and the legs in 20 NS steps as the graphs count
     them, equal to the host loops' and to the profiler's count on the host
-    loops or one more (the profiler loses an event now and then; it sees
-    no kernel inside a conditional node);
+    loops or one more, counted in a process of their own (``chip_smoke.py
+    --launch-counts``; the profiler loses an event now and then in a long
+    process, and sees no kernel inside a conditional node);
     a host read in a captured body raises; each row's wall time beside
     PR 9's.
     The host tiers, the graph against the host loops bitwise, the plain
@@ -120,6 +124,17 @@ Phases, in order; the first failure stops the run with a non-zero exit:
     ``mg_solve_ds(fmg=True)`` at 4097^2 (no more outers than without FMG,
     a true float64 residual within 1e-6, K1, K2 and K3 launched by the
     preamble); each new graph's build time and node count.
+    The sharded tiers on 4 shards of the card, the graph against the host
+    loops bitwise, one graph launch a solve, chunk or physical step and the
+    host syncs of a run counted: ``mg_solve_ds_sharded`` over rows and 2x2
+    at 4097^2 (4 outers; the row solve also through the plain versions), a
+    cold apply_bcs solve at 2049^2 with the same NOT-converged warning,
+    ``simulate_fast_sharded`` 23 explicit steps in chunks of 5 (plain
+    versions too) and 5 semi-implicit, ``solve_distributed`` at 128^3 in
+    4 physical steps of at most 100 iterations in each body (jnp, jnp
+    overlap, pallas 2x2x2 and pallas overlap, K=3; pallas 2x2x2 and K=3
+    through the plain versions too), ``mg_solve_sharded`` at 2049^2 float64
+    and 2 steps of ``simulate(mesh=)``; the part's seconds.
 
 Phase 3 holds the legs K2/K3 (one launch of the leg kernel a call) bitwise
 at the MG row's levels with ns=5, timed at 2049x513 ns=3 and at 4097^2
@@ -152,7 +167,8 @@ solves fed through that mode, against the separate passes; no solver path
 launches it, as none of the JAX package does), with the counts set to 0
 just before it; phases 14-21 print and check their own counts as well.
 The second-to-last line is the kernel table as JSON; the last line is
-``{"ok": true, "device": {...}}``.
+``{"ok": true, "device": {...}}``.  A failed check prints its message on
+the standard output and on the standard error, and the exit code is 1.
 """
 
 from __future__ import annotations
@@ -179,7 +195,24 @@ DEVICE = "cuda"
 RAGGED = ((67, 45), (130, 257), (67, 113), (65, 97))
 
 
+# the sharded phases' figures in the last run of this script whose sharded
+# tiers ran host loops (an NVIDIA H100 80GB HBM3 at 700.00 W), printed
+# beside the walls of the graphs that replaced those loops
+HOST_LOOPS = {"512^3 K=3": "0.5318 ms an iteration", "2x2x2": "15.167 s timed",
+             "overlap_comm=False": "0.4036 s timed", "overlap_comm=True": "1.0529 s timed",
+             "MG 4097^2": "0.0200 s a solve", "apply_bcs c=0.0": "0.295 s",
+             "apply_bcs c=64.0": "0.313 s", "NS explicit": "11.93 ms a step",
+             "NS beta=0.5": "1.458 s timed", "2x2": "0.0217 s a solve",
+             "1x4": "0.0227 s a solve", "mg_solve_sharded": "0.395 s",
+             "simulate(mesh=)": "3.637 s"}
+
 T0 = time.perf_counter()
+
+
+def was(what: str, smi: str) -> str:
+    """A sharded row's host-loop figure from HOST_LOOPS, beside this card."""
+    return (f"[as host loops: {HOST_LOOPS[what]}, NVIDIA H100 80GB HBM3, 700.00 W; "
+            f"this card: {smi}]")
 
 
 def log(msg: str) -> None:
@@ -1599,8 +1632,9 @@ def mesh_of(shape, axes):
     return make_mesh(shape, axes, device=DEVICE)
 
 
-def phase_dist_diffusion(single_512, single_128, n=512, n_small=128, cap=300):
-    """Phase 14: the sharded diffusion tier against phases 7 and 8."""
+def phase_dist_diffusion(smi, single_512, single_128, n=512, n_small=128, cap=300):
+    """Phase 14: the sharded diffusion tier against phases 7 and 8, one
+    graph launch a physical step."""
     import dataclasses
 
     import numpy as np
@@ -1618,7 +1652,8 @@ def phase_dist_diffusion(single_512, single_128, n=512, n_small=128, cap=300):
         f"{out.timed_iters}  run {secs:.3f} s  ms per iteration "
         f"{out.bench.delta_t / max(out.timed_iters, 1) * 1e3:.4f} (single device, phase 7: "
         f"{single_512.bench.delta_t / single_512.timed_iters * 1e3:.4f})  launches "
-        f"{ {k: v for k, v in counts.items() if v} }")
+        f"{ {k: v for k, v in counts.items() if v} }  {was('512^3 K=3', smi)}")
+    built(f"{n}^3 on 4 z-shards K=3: the physical step")
     require(out.iters_total == single_512.iters_total == 4 * cap,
             f"iterations {out.iters_total} vs single device {single_512.iters_total}")
     require(counts["dual_timek_padded"] > 0, "the sharded K=3 run never launched #9")
@@ -1638,7 +1673,8 @@ def phase_dist_diffusion(single_512, single_128, n=512, n_small=128, cap=300):
         f"{out.iters_total} (single device {single_128.iters_total})  probe {v:.7f} (single "
         f"device {v1:.7f}, reference {REF_PROBE_F32})  timed {out.bench.delta_t:.3f} s "
         f"(single device {single_128.bench.delta_t:.3f} s)  run {secs:.3f} s  launches "
-        f"{ {k: v for k, v in counts.items() if v} }")
+        f"{ {k: v for k, v in counts.items() if v} }  {was('2x2x2', smi)}")
+    built(f"{n_small}^3 on 2x2x2 shards: the physical step")
     require(out.converged, f"{n_small}^3 on 2x2x2 shards did not converge")
     require(abs(v - REF_PROBE_F32) <= 1e-4, f"probe {v} is not within 1e-4 of {REF_PROBE_F32}")
     require(counts["dual_time"] > 0, "the 2x2x2 run never launched dual_time")
@@ -1650,7 +1686,8 @@ def phase_dist_diffusion(single_512, single_128, n=512, n_small=128, cap=300):
         runs[overlap], secs, _ = counted(lambda: dist_diffusion.solve_distributed(
             dataclasses.replace(base, overlap_comm=overlap), mesh_of((4,), ("z",))))
         log(f"  overlap_comm={overlap}: {runs[overlap].iters_total} iterations, timed "
-            f"{runs[overlap].bench.delta_t:.4f} s, run {secs:.3f} s")
+            f"{runs[overlap].bench.delta_t:.4f} s, run {secs:.3f} s  "
+            f"{was(f'overlap_comm={overlap}', smi)}")
     require(runs[True].iters_total == runs[False].iters_total,
             f"overlap iterations {runs[True].iters_total} vs plain {runs[False].iters_total}")
     require(np.array_equal(runs[True].H, runs[False].H), "overlap H differs from plain")
@@ -1658,8 +1695,9 @@ def phase_dist_diffusion(single_512, single_128, n=512, n_small=128, cap=300):
     return main_counts
 
 
-def phase_dist_mg(single_it, single_u, n=4097, n_bcs=2049, shards=4):
-    """Phase 15: the row-sharded ds MG against phase 4 and the single device."""
+def phase_dist_mg(smi, single_it, single_u, n=4097, n_bcs=2049, shards=4):
+    """Phase 15: the row-sharded ds MG against phase 4 and the single device,
+    one graph launch a solve."""
     from fpr_tpu_torch.core.config import CoarseSolver, MGConfig
     from fpr_tpu_torch.solvers.dist_mg_ds import mg_solve_ds_sharded
     from fpr_tpu_torch.solvers.multigrid import mg_solve_ds
@@ -1676,14 +1714,15 @@ def phase_dist_mg(single_it, single_u, n=4097, n_bcs=2049, shards=4):
     def solve():
         return mg_solve_ds_sharded(b, h, 0.0, tol, 30, mesh, cfg=cfg, replicate_below=1025)
 
-    solve()  # warm-up
+    solve()  # warm-up: the graph is built here
+    built(f"mg_solve_ds_sharded {n}^2")
     ((uh, ul), r, it), secs, counts = counted(solve)
     u = uh.double() + ul.double()
     rel = true_rel(u, b, h)
     diff = float((u - single_u).abs().max() / single_u.abs().max())
     log(f"outers {it} (single device {single_it})  solve {secs:.4f} s  true f64 r_rms/f_rms "
         f"{rel:.3e}  max rel diff to the single device {diff:.3e}  launches "
-        f"{ {k: v for k, v in counts.items() if v} }")
+        f"{ {k: v for k, v in counts.items() if v} }  {was('MG 4097^2', smi)}")
     require(it == single_it, f"outers {it} vs single device {single_it}")
     require(rel <= tol, f"true f64 relative residual {rel:.3e} > {tol}")
     require(diff <= 1e-6, f"u differs from the single device by {diff:.3e}")
@@ -1698,20 +1737,24 @@ def phase_dist_mg(single_it, single_u, n=4097, n_bcs=2049, shards=4):
     for c in (0.0, 64.0):
         (ud, _, itd), secs, _ = counted(lambda: mg_solve_ds_sharded(
             b, h, c, tol, 20, mesh, cfg=cfg, replicate_below=513, apply_bcs=True))
+        if c == 0.0:  # c rides in the graph's inputs: c=64 launches the same graph
+            built(f"apply_bcs {n_bcs}^2")
         (us, _, its), ssecs, _ = counted(lambda: mg_solve_ds(
             None, b, h, c, tol, 20, cfg=cfg, return_pair=True, apply_bcs=True))
         ud, us = ud[0].double() + ud[1].double(), us[0].double() + us[1].double()
         diff = float((ud - us).abs().max() / us.abs().max())
-        log(f"apply_bcs {n_bcs}^2 c={c}: outers {itd} (single device {its})  {secs:.3f} s "
-            f"(single device {ssecs:.3f} s)  max rel diff {diff:.3e}  row 0 "
-            f"{float(ud[0].min())}..{float(ud[0].max())}")
+        log(f"apply_bcs {n_bcs}^2 c={c}: outers {itd} (single device {its})  {secs:.3f} s"
+            f"{' with the graph build' if c == 0.0 else ''} (single device {ssecs:.3f} s)  "
+            f"max rel diff {diff:.3e}  "
+            f"row 0 {float(ud[0].min())}..{float(ud[0].max())}  {was(f'apply_bcs c={c}', smi)}")
         require(itd == its, f"apply_bcs c={c}: outers {itd} vs single device {its}")
         require(diff <= 1e-6, f"apply_bcs c={c}: u differs by {diff:.3e}")
     return main_counts
 
 
-def phase_dist_ns(single_semi, nx=2049, ny=513, shards=4, timed_steps=200):
-    """Phase 16: the row-sharded NS fast loop against the single device."""
+def phase_dist_ns(smi, single_semi, nx=2049, ny=513, shards=4, timed_steps=200):
+    """Phase 16: the row-sharded NS fast loop against the single device, one
+    graph launch a chunk."""
     import dataclasses
 
     import numpy as np
@@ -1724,6 +1767,7 @@ def phase_dist_ns(single_semi, nx=2049, ny=513, shards=4, timed_steps=200):
     mesh = mesh_of((shards,), ("y",))
     cfg = dataclasses.replace(ns_cfg(0.0), nx=nx, ny=ny)
     got = simulate_fast_sharded(cfg, mesh, max_steps=6)
+    built(f"NS explicit on {shards} row shards: the chunk")
     want = simulate_fast(cfg, max_steps=6, device=DEVICE)
     w = float(np.abs(got.W - want.W).max() / np.abs(want.W).max())
     t = float(np.abs(got.T - want.T).max())
@@ -1740,7 +1784,7 @@ def phase_dist_ns(single_semi, nx=2049, ny=513, shards=4, timed_steps=200):
         f"{out.t_elapsed:.3f} s ({out.t_elapsed / out.timed_iters * 1e3:.2f} ms a step; single "
         f"device {ref.t_elapsed:.3f} s, {ref.t_elapsed / ref.timed_iters * 1e3:.2f} ms)  W "
         f"drift {drift:.3e}  sim_time {out.sim_time!r} vs {ref.sim_time!r}  launches "
-        f"{ {k: v for k, v in counts.items() if v} }")
+        f"{ {k: v for k, v in counts.items() if v} }  {was('NS explicit', smi)}")
     require(np.isfinite(out.W).all() and out.steps == timed_steps, "explicit run failed")
     for k in ("defect", "smooth2r_split", "corr_smooth2", "ns_fused"):
         require(counts[k] > 0, f"the sharded NS loop never launched {k}")
@@ -1750,7 +1794,9 @@ def phase_dist_ns(single_semi, nx=2049, ny=513, shards=4, timed_steps=200):
     log(f"beta=0.5 to the end: steps {semi.steps} (single device, phase 6: "
         f"{single_semi.steps})  timed {semi.t_elapsed:.3f} s (single device "
         f"{single_semi.t_elapsed:.3f} s)  sim_time {semi.sim_time!r} vs "
-        f"{single_semi.sim_time!r}  W rel diff {w:.3e}  T diff {t:.3e}")
+        f"{single_semi.sim_time!r}  W rel diff {w:.3e}  T diff {t:.3e}  "
+        f"{was('NS beta=0.5', smi)}")
+    built(f"NS beta=0.5 on {shards} row shards: the chunk")
     # the bounds of the JAX package's sharded semi-implicit test against its
     # single device (tests/test_dist_mg.py)
     require(semi.steps == single_semi.steps,
@@ -1764,8 +1810,9 @@ def phase_dist_ns(single_semi, nx=2049, ny=513, shards=4, timed_steps=200):
     return counts
 
 
-def phase_dist_mg_2d(single_it, single_u, n=4097):
-    """Phase 17: the 2D (y, x) mesh ds MG against phase 4."""
+def phase_dist_mg_2d(smi, single_it, single_u, n=4097):
+    """Phase 17: the 2D (y, x) mesh ds MG against phase 4, one graph launch
+    a solve."""
     import torch
 
     from fpr_tpu_torch.core.config import CoarseSolver, MGConfig
@@ -1786,7 +1833,8 @@ def phase_dist_mg_2d(single_it, single_u, n=4097):
             return mg_solve_ds_sharded_2d(b, h, 0.0, tol, 30, mesh, cfg=cfg,
                                           replicate_below=1025)
 
-        solve()  # warm-up
+        solve()  # warm-up: the graph is built here
+        built(f"{shape[0]}x{shape[1]}")
         ((uh, ul), r, it), secs, counts = counted(solve)
         u = uh.double() + ul.double()
         rel = true_rel(u, b, h)
@@ -1794,7 +1842,7 @@ def phase_dist_mg_2d(single_it, single_u, n=4097):
         log(f"{shape[0]}x{shape[1]}: outers {it} (single device {single_it})  solve {secs:.4f} s  "
             f"true f64 r_rms/f_rms {rel:.3e}  max rel diff to the single device {diff:.3e} "
             f"(bitwise: {torch.equal(u, single_u)})  launches "
-            f"{ {k: v for k, v in counts.items() if v} }")
+            f"{ {k: v for k, v in counts.items() if v} }  {was(f'{shape[0]}x{shape[1]}', smi)}")
         require(it == single_it, f"{shape}: outers {it} vs single device {single_it}")
         require(rel <= tol, f"{shape}: true f64 relative residual {rel:.3e} > {tol}")
         require(diff <= 1e-6, f"{shape}: u differs from the single device by {diff:.3e}")
@@ -1805,9 +1853,10 @@ def phase_dist_mg_2d(single_it, single_u, n=4097):
     return main_counts
 
 
-def phase_gspmd(n=2049, shards=4, **size):
+def phase_gspmd(smi, n=2049, shards=4, **size):
     """Phase 18: the GSPMD tier (row-sharded mg_solve and simulate(mesh=))
-    against the single device, float64."""
+    against the single device, float64: one graph launch a solve and a
+    step."""
     import dataclasses
 
     import numpy as np
@@ -1826,20 +1875,23 @@ def phase_gspmd(n=2049, shards=4, **size):
     b = poisson_rhs(n, "float64")
     (ud, _, itd), secs, _ = counted(lambda: mg_solve_sharded(b.new_zeros(b.shape), b, h, 0.0,
                                                              tol, 30, mesh))
+    built(f"mg_solve_sharded {n}^2")
     (us, _, its), ssecs, _ = counted(lambda: mg_solve(b.new_zeros(b.shape), b, h, 0.0, tol, 30))
     err = float((ud - us).abs().max())
-    log(f"mg_solve_sharded: cycles {itd} (single device {its})  {secs:.3f} s (single device "
-        f"{ssecs:.3f} s)  sharded levels {plan_rows(n, n, shards, MGConfig()).s}  "
-        f"max abs diff {err:.3e}  true f64 r_rms/f_rms {true_rel(ud, b, h):.3e}")
+    log(f"mg_solve_sharded: cycles {itd} (single device {its})  {secs:.3f} s with the graph's "
+        f"build (single device {ssecs:.3f} s)  sharded levels "
+        f"{plan_rows(n, n, shards, MGConfig()).s}  max abs diff {err:.3e}  true f64 "
+        f"r_rms/f_rms {true_rel(ud, b, h):.3e}  {was('mg_solve_sharded', smi)}")
     require(itd == its < 30, f"mg_solve_sharded: cycles {itd} vs single device {its}")
     require(err <= 1e-12, f"mg_solve_sharded: fields differ by {err:.3e}")
     del ud, us, b
     got, secs, _ = counted(lambda: simulate(cfg, seed=0, max_steps=3, mesh=mesh))
+    built("simulate(mesh=): the step")
     ref, rsecs, _ = counted(lambda: simulate(cfg, seed=0, max_steps=3, device=DEVICE))
     diffs = {k: float(np.abs(getattr(got, k) - getattr(ref, k)).max()) for k in "TWS"}
     log(f"simulate(mesh=) beta=0.5: steps {got.steps} (single device {ref.steps})  sim_time "
-        f"{got.sim_time!r} vs {ref.sim_time!r}  {secs:.3f} s (single device {rsecs:.3f} s)  "
-        f"max abs diffs {diffs}")
+        f"{got.sim_time!r} vs {ref.sim_time!r}  {secs:.3f} s with the graph's build (single "
+        f"device {rsecs:.3f} s)  max abs diffs {diffs}  {was('simulate(mesh=)', smi)}")
     require(got.steps == ref.steps == 3, f"simulate(mesh=): steps {got.steps} vs {ref.steps}")
     require(abs(got.sim_time - ref.sim_time) <= 1e-12 * ref.sim_time,
             "simulate(mesh=): sim_time differs")
@@ -2199,7 +2251,7 @@ def built(what):
         f"instantiation), {loops.stats['nodes']} nodes")
 
 
-def phase_device_loops(explicit, semi, mixed, ns_ten):
+def phase_device_loops(smi, explicit, semi, mixed, ns_ten):
     """Phase 22: every ported loop as one graph launch a call against the
     host loops (``loops.host_loops()``), bitwise, through the kernels and
     through their plain versions.  mixed: phase 10's MG mixed solve as a
@@ -2210,7 +2262,6 @@ def phase_device_loops(explicit, semi, mixed, ns_ten):
     import numpy as np
     import torch
 
-    from fpr_tpu_torch import kernels
     from fpr_tpu_torch.core import loops
     from fpr_tpu_torch.core.config import CoarseSolver, DiffusionConfig, ExecutionPolicy, MGConfig
     from fpr_tpu_torch.models import diffusion3d
@@ -2309,6 +2360,7 @@ def phase_device_loops(explicit, semi, mixed, ns_ten):
         both(solve, name, same_solve(want_it or hh[2]), plain=True)
 
     phase_host_tiers(both, same_solve, walls, mixed, ns_ten, b, mg_cfg)
+    phase_sharded_loops(smi, both, same_ns, same_solve, walls, b, mg_cfg)
 
     # diffusion 128^3: K=1 and K=3 to tol 1e-6, ds to 1e-10; plain at 50 a step
     def same_h(g, hh, what):
@@ -2331,39 +2383,20 @@ def phase_device_loops(explicit, semi, mixed, ns_ten):
         both(lambda: diffusion3d.solve(dataclasses.replace(dcfg, iter_max=50), device="cuda"),
              name + ", 50 a step", same_h, plain=True)
 
-    # device launches: the graphs' counts (kernels.sync_launches) against the
-    # same run as host loops, whose wrappers each launch once a call, and
-    # against the profiler's count of that run (it loses an event now and
-    # then, never adds one, and sees no kernel inside a conditional node;
-    # in PR 10's runs it saw all or all but one K1 launch)
-    from torch.profiler import ProfilerActivity, profile
-
-    def by_kernel(counts):
-        return {"defect": counts["defect"], "ns_fused": counts["ns_fused"],
-                "legs": counts["smooth_down"] + counts["corr_up"]}
-
-    def profiled(host):
-        with loops.host_loops() if host else contextlib.nullcontext(), \
-                profile(activities=[ProfilerActivity.CUDA]) as prof:
-            run()
-            torch.cuda.synchronize()
-        return {k: sum(e.count for e in prof.key_averages() if name in e.key)
-                for k, name in PROFILED.items()}
-
-    run = lambda: simulate_fast(cfg, seed=0, max_steps=20, device="cuda")  # noqa: E731
-    run()  # a graph built anew (the cache keeps CACHE_SIZE) launches its warm-up pass too
-    kernels.reset_launches()
-    run()
-    graphs = by_kernel(kernels.sync_launches())
-    with loops.host_loops():
-        kernels.reset_launches()
-        run()
-        host = by_kernel(kernels.sync_launches())
-    seen = [profiled(True) for _ in range(3)]
-    best = {k: max(w[k] for w in seen) for k in graphs}
+    # device launches: the graphs' counts against the host loops' and the
+    # profiler's, in a process of their own (launch_counts)
+    here = os.path.dirname(os.path.abspath(__file__))
+    p = subprocess.run([sys.executable, os.path.abspath(__file__), LAUNCH_COUNTS], cwd=here,
+                       capture_output=True, text=True, timeout=300)
+    lines = p.stdout.strip().splitlines()
+    require(p.returncode == 0 and lines, f"{LAUNCH_COUNTS}: exit {p.returncode}\n"
+                                         f"{(p.stdout + p.stderr)[-2000:]}")
+    got = json.loads(lines[-1])
+    graphs, host, seen = got["graphs"], got["host"], got["seen"]
+    best = {k: max(w[k] for w in seen) for k in host}
     log(f"NS explicit 20 steps, device launches: graphs {graphs}, host loops {host}, the "
         f"profiler on the host loops {best} (windows {seen}); on the graphs it saw "
-        f"{profiled(False)}")
+        f"{got['on_graphs']}")
     require(graphs == host, f"device launches {graphs} vs the host loops' {host}")
     require(all(host[k] - 1 <= best[k] <= host[k] for k in host),
             f"the profiler's counts {best} are not those of the host loops {host} or one fewer")
@@ -2379,6 +2412,58 @@ def phase_device_loops(explicit, semi, mixed, ns_ten):
         pr9 = f"{PR9_SECONDS[what]:.4f} s" if what in PR9_SECONDS else "not measured"
         log(f"wall {what}: graphs {tg:.4f} s, host loops {th:.4f} s, PR 9 {pr9}")
     log(f"graph launches {loops.stats['launches']}, captures {loops.stats['captures']}")
+
+
+LAUNCH_COUNTS = "--launch-counts"
+
+
+def launch_counts() -> dict:
+    """The device launches of K1, K4 and the legs in 20 NS explicit steps
+    (phase 22), run by ``chip_smoke.py --launch-counts`` in a process of its
+    own: as the graphs count them (``kernels.sync_launches``), as the host
+    loops' wrappers count them (each launches once a call), and as
+    torch.profiler sees the host loops in up to 8 windows, stopping at the
+    first that sees every launch, and once the graphs (it sees no kernel
+    inside a conditional node).  In a process that has run phases 1-21 the
+    profiler lost one K1 event of every window now and then; in a fresh one
+    it lost none (an NVIDIA H100 80GB HBM3, 700.00 W)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from fpr_tpu_torch import kernels
+    from fpr_tpu_torch.core import loops
+    from fpr_tpu_torch.models.navier_stokes import simulate_fast
+
+    kernels.build()
+
+    def by_kernel(counts):
+        return {"defect": counts["defect"], "ns_fused": counts["ns_fused"],
+                "legs": counts["smooth_down"] + counts["corr_up"]}
+
+    def profiled(host):
+        with loops.host_loops() if host else contextlib.nullcontext(), \
+                profile(activities=[ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+        return {k: sum(e.count for e in prof.key_averages() if name in e.key)
+                for k, name in PROFILED.items()}
+
+    cfg = ns_cfg(0.0)
+    run = lambda: simulate_fast(cfg, seed=0, max_steps=20, device="cuda")  # noqa: E731
+    run()  # the graph's build, with its warm-up pass
+    kernels.reset_launches()
+    run()
+    graphs = by_kernel(kernels.sync_launches())
+    with loops.host_loops():
+        kernels.reset_launches()
+        run()
+        host = by_kernel(kernels.sync_launches())
+    seen = []
+    while len(seen) < 8:
+        seen.append(profiled(True))
+        if seen[-1] == host:
+            break
+    return dict(graphs=graphs, host=host, seen=seen, on_graphs=profiled(False))
 
 
 def phase_host_tiers(both, same_solve, walls, mixed, ns_ten, b, mg_cfg):
@@ -2487,6 +2572,140 @@ def phase_host_tiers(both, same_solve, walls, mixed, ns_ten, b, mg_cfg):
     same_host(g, hh, "NS host loop beta=0.5, 3 steps (plain versions)")
 
 
+def phase_sharded_loops(smi, both, same_ns, same_solve, walls, b, mg_cfg):
+    """Phase 22's sharded tiers on 4 shards of the one card: a solve, a chunk
+    of NS steps or a physical step is one graph launch, held bitwise against
+    the same work as host loops (``loops.host_loops()``); the graph
+    launches and host syncs of one run are counted, a few runs go through
+    the plain versions too.  The runs are short: the host loops take 4-18 %
+    busy seconds.  both, same_ns, same_solve, walls: phase 22's; b: its MG
+    rhs (4097^2) and mg_cfg its ladder."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from fpr_tpu_torch.core import loops
+    from fpr_tpu_torch.core.config import CoarseSolver, DiffusionConfig, ExecutionPolicy, MGConfig
+    from fpr_tpu_torch.models.dist_ns import simulate_fast_sharded
+    from fpr_tpu_torch.models.navier_stokes import simulate
+    from fpr_tpu_torch.parallel import dist_diffusion
+    from fpr_tpu_torch.solvers.dist_mg_ds import mg_solve_ds_sharded, mg_solve_ds_sharded_2d
+    from fpr_tpu_torch.solvers.dist_multigrid import mg_solve_sharded
+
+    t_phase = time.perf_counter()
+    y4 = mesh_of((4,), ("y",))
+
+    def check(what, run, same, launches, syncs, plain=False):
+        """run() once (its graph built or cached), once with its graph launches
+        and host syncs counted, then timed as a graph and as host loops
+        and compared bitwise; with plain, again through the plain versions."""
+        run()
+        launched = loops.stats["launches"]
+        with count_host_syncs() as n:
+            run()
+        launched = loops.stats["launches"] - launched
+        g, tg = median_seconds(run, reps=1)
+        with loops.host_loops():
+            h, th = median_seconds(run, reps=1)
+        same(g, h, what)
+        walls.append((what, tg, th))
+        log(f"{what}: {launched} graph launches and {n[0]} host syncs a run (expected "
+            f"{launches} and {syncs}); graph {tg:.4f} s, host loops {th:.4f} s  [{smi}]")
+        require(launched == launches and n[0] == syncs,
+                f"{what}: {launched} graph launches and {n[0]} host syncs")
+        if plain:
+            both(run, what, same, plain=True)
+
+    # 1. the ds MG over 4 row shards and over 2x2 (y, x), 4097^2; a cold
+    # apply_bcs solve at 2049^2 with its NOT-converged warning
+    h = 1.0 / (b.shape[0] - 1)
+    sharded = lambda: mg_solve_ds_sharded(b, h, 0.0, 1e-6, 30, y4, cfg=mg_cfg)  # noqa: E731
+    check("mg_solve_ds_sharded 4097^2, 4 row shards", sharded, same_solve(4), 1, 1, plain=True)
+    check("mg_solve_ds_sharded_2d 4097^2, 2x2", lambda: mg_solve_ds_sharded_2d(
+        b, h, 0.0, 1e-6, 30, mesh_of((2, 2), ("y", "x")), cfg=mg_cfg), same_solve(4), 1, 1)
+    n2 = 2049
+    b2 = poisson_rhs(n2, "float32")
+
+    def same_warned(g, hh, what):
+        ((gh, gl), gr, git), glines = g
+        ((hh_, hl), hr, hit), hlines = hh
+        require(git == hit and torch.equal(gh, hh_) and torch.equal(gl, hl)
+                and torch.equal(gr, hr), f"{what}: {git} vs host loop {hit}, or fields differ")
+        gw, hw = ([s for s in lines if "NOT converged" in s] for lines in (glines, hlines))
+        require(len(gw) == 1 and gw == hw, f"{what}: warnings {gw} vs the host loops' {hw}")
+        log(f"{what}: {git} outers, bitwise equal to the host loops, the same warning")
+
+    check(f"mg_solve_ds_sharded {n2}^2 apply_bcs c=0", lambda: printed(
+        lambda: mg_solve_ds_sharded(b2, 1.0 / (n2 - 1), 0.0, 1e-6, 20, y4,
+                                    cfg=MGConfig(coarse_size=129, coarse_solver=CoarseSolver.DST),
+                                    replicate_below=513, apply_bcs=True)), same_warned, 1, 1)
+    del b2
+
+    # 2. the NS fast loop on 4 row shards: 23 explicit steps in chunks of 5
+    # (the warm-up, then 4 chunks: 1 + 4 + 1 host syncs), 5 semi-implicit
+    ns = ns_cfg(0.0)
+    check("NS explicit 4 row shards, 23 steps, chunk_steps=5", lambda: simulate_fast_sharded(
+        ns, y4, max_steps=23, chunk_steps=5), same_ns, 5, 6, plain=True)
+    check("NS semi 4 row shards, 5 steps", lambda: simulate_fast_sharded(
+        ns_cfg(0.5), y4, max_steps=5), same_ns, 2, 3)
+
+    # 3. part 1's physical step, each body, 128^3 in 4 physical steps capped
+    # at 100 iterations each (K=3: 99): one launch and one read a step, the
+    # clock's 2 syncs, a transfer a shard for the field
+    def same_h(g, hh, what):
+        require((g.iters_total, g.timed_iters, g.converged) ==
+                (hh.iters_total, hh.timed_iters, hh.converged) and np.array_equal(g.H, hh.H),
+                f"{what}: {g.iters_total} iterations vs host loop {hh.iters_total}, or H differs")
+        log(f"{what}: {g.iters_total} iterations, H bitwise equal to the host loops")
+
+    jnp_, pallas = ExecutionPolicy.JNP, ExecutionPolicy.PALLAS
+    for what, dcfg, shape, axes, plain in (
+            ("jnp 2x2 (z, y)", dict(nx=128, ny=64, nz=64, policy=jnp_), (2, 2), ("z", "y"),
+             False),
+            ("jnp overlap 4 z", dict(nx=128, ny=128, nz=32, policy=jnp_, overlap_comm=True),
+             (4,), ("z",), False),
+            ("pallas 2x2x2", dict(nx=64, ny=64, nz=64, policy=pallas), (2, 2, 2),
+             ("z", "y", "x"), True),
+            ("pallas overlap 4 z", dict(nx=128, ny=128, nz=32, policy=pallas, overlap_comm=True),
+             (4,), ("z",), False),
+            ("pallas K=3 4 z", dict(nx=128, ny=128, nz=32, policy=pallas, check_every=3,
+                                    iter_max=99), (4,), ("z",), True)):
+        dcfg = DiffusionConfig(**{"ttot": 0.8, "tol": 1e-6, "iter_max": 100, **dcfg})
+        mesh = mesh_of(shape, axes)
+        check(f"diffusion 128^3 {what}", lambda: dist_diffusion.solve_distributed(dcfg, mesh),
+              same_h, 4, 4 + 2 + mesh.size, plain)
+
+    # 4-5. the GSPMD tier, float64: one mg_solve_sharded solve, 2 steps of
+    # simulate(mesh=) (a read a step, the end's sync, the fields' 3)
+    b64 = poisson_rhs(n2, "float64")
+
+    def same_u(g, hh, what):
+        require(g[2] == hh[2] and torch.equal(g[0], hh[0]) and torch.equal(g[1], hh[1]),
+                f"{what}: {g[2]} cycles vs host loops {hh[2]}, or fields differ")
+        log(f"{what}: {g[2]} cycles, bitwise equal to the host loops")
+
+    check(f"mg_solve_sharded {n2}^2 float64", lambda: mg_solve_sharded(
+        b64.new_zeros(b64.shape), b64, 1.0 / (n2 - 1), 0.0, 1e-6, 30, y4), same_u, 1, 1)
+    del b64
+
+    def same_host(a, b_, what):
+        (a, alines), (b_, blines) = a, b_
+        require((a.steps, a.sim_time) == (b_.steps, b_.sim_time),
+                f"{what}: {a.steps} steps, t {a.sim_time!r} vs host loops {b_.steps}, "
+                f"{b_.sim_time!r}")
+        for k in ("T", "W", "S"):
+            require(np.array_equal(getattr(a, k), getattr(b_, k)), f"{what}: {k} differs")
+        require(alines == blines, f"{what}: its lines {alines} vs the host loops' {blines}")
+        log(f"{what}: {a.steps} steps, bitwise equal to the host loops, the same "
+            f"{sum('NOT converged' in s for s in alines)} warnings")
+
+    gspmd = dataclasses.replace(host_cfg(0.5), mg_solver="direct", ttot=1.0)
+    check("simulate(mesh=) 2 steps", lambda: printed(lambda: simulate(
+        gspmd, seed=0, max_steps=2, mesh=y4)), same_host, 2, 6)
+    log(f"the sharded tiers: {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     # the run uses one card: make it the only one visible, so that the device
     # count in the last line is the number of cards the run used
@@ -2502,6 +2721,9 @@ def main() -> int:
     except ImportError as exc:
         log(f"chip_smoke: the fpr_tpu_torch package is missing ({exc})")
         return 3
+    if sys.argv[1:] == [LAUNCH_COUNTS]:
+        print(json.dumps(launch_counts()))
+        return 0
     try:
         smi = phase_env()
         phase_build()
@@ -2523,19 +2745,23 @@ def main() -> int:
         host_counts, _, ns_ten = phase_ns_host(smi)
         for k in ("smooth2r_split", "corr_smooth2"):
             launches[k] = host_counts[k]
-        launches["dual_timek_padded"] = phase_dist_diffusion(out_512, out_128)[
+        launches["dual_timek_padded"] = phase_dist_diffusion(smi, out_512, out_128)[
             "dual_timek_padded"]
         del out_512
-        phase_dist_mg(mg_it, mg_u)
-        phase_dist_ns(semi)
-        phase_dist_mg_2d(mg_it, mg_u)
-        phase_gspmd()
+        phase_dist_mg(smi, mg_it, mg_u)
+        phase_dist_ns(smi, semi)
+        phase_dist_mg_2d(smi, mg_it, mg_u)
+        phase_gspmd(smi)
         phase_bench(smi)
         phase_checkpoints()
         phase_experiments()
-        phase_device_loops(explicit, semi, mixed, ns_ten)
+        phase_device_loops(smi, explicit, semi, mixed, ns_ten)
     except Failed as exc:
         log(f"chip_smoke FAILED: {exc}")
+        # the check that failed on the standard error too, where a caller
+        # that keeps only that stream's end finds it
+        print(f"chip_smoke FAILED after {time.perf_counter() - T0:.0f} s: {exc}",
+              file=sys.stderr, flush=True)
         return 1
     log(f"chip_smoke: 22 phases passed in {time.perf_counter() - T0:.0f} s")
     table = []

@@ -16,21 +16,28 @@ reductions add per-shard partials in shard order, so dt can differ in the
 last bit and long runs drift apart at the float32 rounding level.  The
 state payload (``result.state``) has the single-device global-field schema,
 so a single-device or a sharded run of either package (through
-``navier_stokes.state_from_jax``) resumes here, and back.  The JAX
-function's ``chunk_steps`` bounds one device call under its TPU
-transport's deadline; it is taken and checked in its position but changes
-nothing, since the step loop is a host loop, one host read per step.
+``navier_stokes.state_from_jax``) resumes here, and back.
+
+The loop over steps is a ``core.loops.while_loop``, as JAX's: a chunk of
+at most ``chunk_steps`` steps is one device call in ``mesh.route()``, on
+a mesh whose shards share one CUDA device one launch of a cached CUDA
+graph, each step's solves WHILE nodes inside the step loop's.  The host
+reads the clock once a chunk, as ``navier_stokes.simulate_fast`` does; a
+mesh over several devices runs the plain host loops, one read a test.
 """
 
 from __future__ import annotations
 
+import functools
 import time
 from typing import Optional
 
 import torch
 
+from fpr_tpu_torch.core import loops
 from fpr_tpu_torch.core.config import InitScheme, NSConfig
-from fpr_tpu_torch.models.navier_stokes import (NSResult, _semi_implicit, check_chunk_steps,
+from fpr_tpu_torch.models.navier_stokes import (NSResult, _clock, _fields, _host_state,
+                                                _semi_implicit, check_chunk_steps,
                                                 fast_mg_default, init_field)
 from fpr_tpu_torch.ops import ds as dsm
 from fpr_tpu_torch.ops import reductions
@@ -41,9 +48,10 @@ from fpr_tpu_torch.solvers.dist_mg_ds import G, gather_rows, plan_shards, shard_
 F32 = torch.float32
 
 
-def _step(st: dict, plan, mesh, axis: str, cfg: NSConfig) -> None:
-    """One step on the state st (TW, S_ds per-shard lists; w_ss, th, tl on
-    shard 0's device), in place (dist_ns._build_ns_loop's body)."""
+def _step(st: dict, plan, mesh, axis: str, cfg: NSConfig) -> dict:
+    """One step on the carry st (TW, S_ds per-shard lists; w_ss, th, tl and
+    the int32 step on shard 0's device): the next carry (dist_ns.
+    _build_ns_loop's body)."""
     TW, S_ds, w_ss = st["TW"], st["S_ds"], st["w_ss"]
     ndev, ny_l = plan.ndev, plan.ny_l
     h = cfg.h
@@ -94,17 +102,24 @@ def _step(st: dict, plan, mesh, axis: str, cfg: NSConfig) -> None:
                            **op_kw) for d in range(ndev)]
         TW = [o[0] for o in ops]
         w_ss = reductions.dist_sumsq([o[1][1] for o in ops])
-    st["th"], st["tl"] = dsm.ds_add(st["th"], st["tl"], dt, full(0.0))
-    st.update(TW=TW, S_ds=S_ds, w_ss=w_ss, step=st["step"] + 1)
+    th, tl = dsm.ds_add(st["th"], st["tl"], dt, full(0.0))
+    return dict(TW=TW, S_ds=S_ds, w_ss=w_ss, th=th, tl=tl, step=st["step"] + 1)
 
 
-def _loop(st: dict, limit: int, plan, mesh, axis: str, cfg: NSConfig) -> None:
-    """Steps while sim_time < ttot and step < limit (the JAX chunk loop)."""
+def _chunk(st: dict, plan, mesh, axis: str, cfg: NSConfig) -> dict:
+    """Steps while sim_time < ttot and step < limit (the JAX chunk loop):
+    a ``while_loop`` on st (TW, S_ds, w_ss, th, tl, step, limit); returns
+    st after the steps."""
     tt_hi, tt_lo = dsm.f32_pair(cfg.ttot)
-    th = st["th"]
+    th, limit = st["th"], st["limit"]
     neg_hi, neg_lo = th.new_full((), -tt_hi), th.new_full((), -tt_lo)
-    while st["step"] < limit and bool(dsm.ds_add(st["th"], st["tl"], neg_hi, neg_lo)[0] < 0.0):
-        _step(st, plan, mesh, axis, cfg)
+
+    def cond(c):
+        return (dsm.ds_add(c["th"], c["tl"], neg_hi, neg_lo)[0] < 0.0) & (c["step"] < limit)
+
+    carry = {k: st[k] for k in ("TW", "S_ds", "w_ss", "th", "tl", "step")}
+    out = loops.while_loop(cond, lambda c: _step(c, plan, mesh, axis, cfg), carry, donate=True)
+    return dict(out, limit=limit)
 
 
 def simulate_fast_sharded(cfg: NSConfig, mesh, axis: str = "y", W0=None, T0=None,
@@ -116,12 +131,14 @@ def simulate_fast_sharded(cfg: NSConfig, mesh, axis: str = "y", W0=None, T0=None
     tier (dist_ns.simulate_fast_sharded, with its positional order).
 
     W0, T0: initial fields (FROM_ARRAY), else cfg's init schemes.  Steps
-    1-3 are warm-up, excluded from t_elapsed and timed_iters.  chunk_steps:
-    checked as in ``simulate_fast``, and as there it changes nothing.
-    snapshot_steps > 0 stores (T, W, S, sim_time, step) every that many
-    steps and at the end.  state0: a previous result.state of either loop
-    (or ``navier_stokes.state_from_jax`` of a JAX one); the run continues
-    it exactly, with max_steps the total step budget.
+    1-3 are warm-up, excluded from t_elapsed and timed_iters.  chunk_steps
+    (an int >= 1): the most steps of one device call, as in JAX; the host
+    reads the clock at each chunk's end, and the result does not depend on
+    it.  snapshot_steps > 0 stores (T, W, S, sim_time, step) every that
+    many steps and at the end (chunks end on its multiples).  state0: a
+    previous result.state of either loop (or ``navier_stokes.state_from_jax``
+    of a JAX one); the run continues it exactly, with max_steps the total
+    step budget.
     """
     check_chunk_steps(chunk_steps)
     cfg = fast_mg_default(cfg)
@@ -132,13 +149,17 @@ def simulate_fast_sharded(cfg: NSConfig, mesh, axis: str = "y", W0=None, T0=None
     def on0(a):
         return torch.as_tensor(a, dtype=F32).to(dev0)
 
+    def int32(v):
+        return torch.full((), int(v), dtype=torch.int32, device=dev0)
+
     if state0 is not None:
         if "S_hi" not in state0:
             raise ValueError("state0 is not a fast-path payload (no S_hi)")
         T, W = on0(state0["T"]), on0(state0["W"])
         S_ds = shard_rows(torch.stack([on0(state0["S_hi"]), on0(state0["S_lo"])]), plan, mesh)
         st = dict(w_ss=on0(state0["w_sumsq"]).reshape(()), th=on0(state0["t_hi"]).reshape(()),
-                  tl=on0(state0["t_lo"]).reshape(()), step=int(state0["step"]))
+                  tl=on0(state0["t_lo"]).reshape(()), step=int32(state0["step"]))
+        start_step = int(state0["step"])
     else:
         T, W = (init_field(cfg, scheme, seed, device=dev0) if a is None else
                 init_field(cfg, InitScheme.FROM_ARRAY, array=a, device=dev0)
@@ -146,51 +167,55 @@ def simulate_fast_sharded(cfg: NSConfig, mesh, axis: str = "y", W0=None, T0=None
         S_ds = [torch.zeros((2, G + plan.ny_l + G, nx), dtype=F32, device=dev)
                 for dev in mesh.devices]
         st = dict(w_ss=torch.sum(W * W), th=torch.zeros((), dtype=F32, device=dev0),
-                  tl=torch.zeros((), dtype=F32, device=dev0), step=0)
+                  tl=torch.zeros((), dtype=F32, device=dev0), step=int32(0))
+        start_step = 0
     st.update(TW=shard_rows(torch.stack([T, W]), plan, mesh), S_ds=S_ds)
     del T, W, S_ds
-    start_step = st["step"]
     hard_cap = max_steps if max_steps is not None else 1_000_000
     snapshots = [] if snapshot_steps else None
+    chunk = functools.partial(_chunk, plan=plan, mesh=mesh, axis=axis, cfg=cfg)
 
-    def host_fields():
-        TW = gather_rows(st["TW"], plan).cpu().double().numpy()
-        S = gather_rows(st["S_ds"], plan).cpu().double().numpy()
-        return TW[0], TW[1], S[0] + S[1]
+    def run(limit):
+        with mesh.route():
+            return loops.device_call(chunk, dict(st, limit=limit), key=(
+                "ns_fast_sharded", cfg, plan, axis, mesh.dims, mesh.axis_names))
+
+    def host_state():
+        """The global payload on the host: one transfer."""
+        return _host_state(dict(st, TW=gather_rows(st["TW"], plan),
+                                S_ds=gather_rows(st["S_ds"], plan)))
 
     if start_step == 0:
-        _loop(st, min(3, hard_cap), plan, mesh, axis, cfg)
+        st = run(int32(min(3, hard_cap)))
         mesh.synchronize()
     tic = time.perf_counter()
     while True:
-        limit = hard_cap
-        if snapshot_steps:
-            limit = min(limit, (st["step"] // snapshot_steps + 1) * snapshot_steps)
-        _loop(st, limit, plan, mesh, axis, cfg)
-        mesh.synchronize()
-        sim_time = float(st["th"]) + float(st["tl"])
         step = st["step"]
+        limit = torch.clamp_max(step + chunk_steps, hard_cap)
+        if snapshot_steps:
+            # chunks end on snapshot multiples, so the cadence holds even
+            # when snapshot_steps > chunk_steps
+            limit = torch.minimum(limit, (step // snapshot_steps + 1) * snapshot_steps)
+        st = run(limit.to(torch.int32))
+        sim_time, step, limit = _clock(st)  # the sync that stops the clock
         # the loop stopped short of its limit only when its ds time test
         # said done, even if the float64 sum disagrees in the last bits
         done = sim_time >= cfg.ttot or step >= hard_cap or step < limit
         if snapshots is not None and (done or step % snapshot_steps == 0):
-            snapshots.append((*host_fields(), sim_time, step))
+            snapshots.append((*_fields(host_state()), sim_time, step))
         if done:
             break
         if verbose:
             print(f"time, steps: {sim_time} {step}")
     t_elapsed = time.perf_counter() - tic
 
-    steps = st["step"]
     if verbose:
-        print(f"time, steps: {sim_time} {steps}")
-    T, W, S = host_fields()
-    TW = gather_rows(st["TW"], plan).cpu()
-    S_pair = gather_rows(st["S_ds"], plan).cpu()
-    state = dict(T=TW[0], W=TW[1], S_hi=S_pair[0], S_lo=S_pair[1], w_sumsq=st["w_ss"].cpu(),
-                 t_hi=st["th"].cpu(), t_lo=st["tl"].cpu(), step=steps)
+        print(f"time, steps: {sim_time} {step}")
+    state = host_state()
+    T, W, S = _fields(state)
+    state["step"] = step
     return NSResult(
         T=T, W=W, S=S, t_elapsed=t_elapsed,
-        timed_iters=max(steps - start_step - (3 if start_step == 0 else 0), 0),
-        steps=steps, sim_time=sim_time, snapshots=snapshots, state=state,
+        timed_iters=max(step - start_step - (3 if start_step == 0 else 0), 0),
+        steps=step, sim_time=sim_time, snapshots=snapshots, state=state,
     )

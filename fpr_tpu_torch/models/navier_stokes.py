@@ -28,7 +28,9 @@ converge.
 ``mg_solve_sharded``, the NS operators run per shard after a refresh of
 the ghost rows with their global boundary rows zeroed, and dt's maxima are
 maxima over the shards (exact).  It takes ``mg_solver="direct"`` only, as
-in JAX.
+in JAX.  Its step is one device call too (``_ns_step_sharded``), on a
+mesh over several devices run as host loops (``Mesh.route``), with the
+same one read a step.
 
 The fast loop's state: T and W as a stacked (2, ny, nx) float32 tensor, S as a
 double-single hi/lo (2, ny, nx) pair; every linear solve is
@@ -216,34 +218,59 @@ def _ns_step_body(a: dict, cfg: NSConfig) -> dict:
 
 def _ns_step_sharded(T, W, S, cfg: NSConfig, mesh, axis: str):
     """ns_step on ``RowShards`` T, W, S (navier_stokes.ns_step with the
-    constrain hook); returns (T, W, S, dt)."""
-    h, plan = cfg.h, T.plan
+    constrain hook) as one device call in ``mesh.route()`` (on a one-device
+    CUDA mesh one graph launch, each ``mg_solve_sharded`` a WHILE node in
+    it), then the host's one read of the step, from which it warns as the
+    solves do: (T, W, S, dt, dt as a Python float)."""
+    plan = T.plan
+    with mesh.route():
+        out = loops.device_call(
+            functools.partial(_ns_step_sharded_body, cfg=cfg, plan=plan, mesh=mesh, axis=axis),
+            dict(T=T.blocks, W=W.blocks, S=S.blocks),
+            key=("ns_step_sharded", cfg, plan, axis, mesh.dims, mesh.axis_names))
+    info = out["info"].tolist()  # the one host read a step
+    for k, apply_bcs in zip(range(1, len(info), 3), (False, True, False)):
+        r, t, it = info[k:k + 3]
+        _warn_unconverged("mg_solve_sharded", r, t, int(it), cfg.niters, apply_bcs)
+    T, W, S = (dmg.RowShards(out[k], plan) for k in "TWS")
+    return T, W, S, out["dt"], info[0]
+
+
+def _ns_step_sharded_body(a: dict, cfg: NSConfig, plan, mesh, axis: str) -> dict:
+    """The sharded step on its device call's inputs (the fields' blocks):
+    dict(T, W, S blocks, dt, info), info as ``_ns_step_body``'s."""
+    h = cfg.h
     rows = [plan.rows(0, d) for d in range(plan.ndev)]
     own = slice(dmg.GR, dmg.GR + plan.ny_l)
+    masks = dmg.row_masks(plan, mesh)
+    outcomes = []
 
     def solve(u, f, c, apply_bcs):
-        return dmg.mg_solve_sharded(u, dmg.RowShards(f, plan), h, c, cfg.tol, cfg.niters, mesh,
-                                    axis, apply_bcs=apply_bcs, cfg=cfg.mg,
-                                    replicate_below=SHARD_ROWS)[0]
+        out = dmg._mg_solve_sharded(u, f, None, h, c, cfg.tol, cfg.niters, mesh, axis,
+                                    apply_bcs, cfg.mg, plan)
+        outcomes.append((out["r_rms"], out["tolf"], out["it"]))
+        return out["u"]
+
+    def zero_rows(a, r):
+        return dmg.zero_boundary_rows(a, r.off, r.ny, masks)
 
     def per_shard(op, *fields):
         """op per shard, its result's global boundary rows zeroed (the
         operators' zero ring); the fields' ghost rows are fresh."""
-        return [dmg.zero_boundary_rows(op(*(f[d] for f in fields)), r.off, r.ny)
-                for d, r in enumerate(rows)]
+        return [zero_rows(op(*(f[d] for f in fields)), r) for d, r in enumerate(rows)]
 
-    S = solve(S, W.blocks, 0.0, False)
-    Sb, Wb = S.blocks, W.blocks
+    Wb = list(a["W"])
+    Sb = solve(a["S"], Wb, 0.0, False)
     refresh_rows(Sb, mesh, axis, plan.ny_l, dmg.GR)
     refresh_rows(Wb, mesh, axis, plan.ny_l, dmg.GR)
     vel = [ops.velocity(s, h, h) for s in Sb]
-    vx, vy = ([dmg.zero_boundary_rows(v[k], r.off, r.ny) for v, r in zip(vel, rows)]
-              for k in (0, 1))
-    dt = _dt_of(reductions.dist_max([torch.amax((a * a + b * b)[own]) for a, b in zip(vx, vy)]),
-                reductions.dist_max([torch.amax(torch.abs(a[own])) for a in vx]),
-                reductions.dist_max([torch.amax(torch.abs(b[own])) for b in vy]), cfg)
-    refresh_rows(T.blocks, mesh, axis, plan.ny_l, dmg.GR)
-    Tb = [bc.ns_temperature_bcs(t, r) for t, r in zip(T.blocks, rows)]
+    vx, vy = ([zero_rows(v[k], r) for v, r in zip(vel, rows)] for k in (0, 1))
+    dt = _dt_of(reductions.dist_max([torch.amax((x * x + y * y)[own]) for x, y in zip(vx, vy)]),
+                reductions.dist_max([torch.amax(torch.abs(x[own])) for x in vx]),
+                reductions.dist_max([torch.amax(torch.abs(y[own])) for y in vy]), cfg)
+    Tb = list(a["T"])
+    refresh_rows(Tb, mesh, axis, plan.ny_l, dmg.GR)
+    Tb = [bc.ns_temperature_bcs(t, r) for t, r in zip(Tb, rows)]
     Ra_dTdx = per_shard(lambda t: ops.buoyancy(t, cfg.Ra, h), Tb)
     if _needs_diffusion_term(cfg.beta):
         dT2 = per_shard(lambda t: ops.diffusion(t, cfg.k, h, h), Tb)
@@ -258,16 +285,16 @@ def _ns_step_sharded(T, W, S, cfg: NSConfig, mesh, axis: str):
     if _semi_implicit(cfg.beta):
         c = _full(dt, 1.0) / (cfg.beta * dt)
         T_rhs = [-c * (Tb[d] + dt * ((1.0 - cfg.beta) * dT2[d] - dTx[d] - dTy[d])) for d in n]
-        T = solve(dmg.RowShards(Tb, plan), T_rhs, c, True)
+        Tb = solve(Tb, T_rhs, c, True)
         cW = c / _full(c, cfg.Pr)
         W_rhs = [-cW * (Wb[d] + dt * ((1.0 - cfg.beta) * dW2[d] - dWx[d] - dWy[d]
                                       - cfg.Pr * Ra_dTdx[d])) for d in n]
-        W = solve(W, W_rhs, cW, False)
+        Wb = solve(Wb, W_rhs, cW, False)
     else:
-        T = dmg.RowShards([Tb[d] + dt * (dT2[d] - dTx[d] - dTy[d]) for d in n], plan)
-        W = dmg.RowShards([Wb[d] + dt * (dW2[d] - dWx[d] - dWy[d] - cfg.Pr * Ra_dTdx[d])
-                           for d in n], plan)
-    return T, W, S, dt
+        Tb, Wb = ([Tb[d] + dt * (dT2[d] - dTx[d] - dTy[d]) for d in n],
+                  [Wb[d] + dt * (dW2[d] - dWx[d] - dWy[d] - cfg.Pr * Ra_dTdx[d]) for d in n])
+    info = torch.stack([dt] + [v.to(dt.dtype) for o in outcomes for v in o])
+    return dict(T=Tb, W=Wb, S=Sb, dt=dt, info=info)
 
 
 def simulate(cfg: NSConfig = NSConfig(), W0=None, T0=None, max_steps: Optional[int] = None,
@@ -315,17 +342,15 @@ def simulate(cfg: NSConfig = NSConfig(), W0=None, T0=None, max_steps: Optional[i
         return a.cpu().numpy()
 
     snapshots = [] if snapshot_every else None
+    step_fn = _ns_step if plan is None else functools.partial(_ns_step_sharded, mesh=mesh,
+                                                              axis=shard_axis)
     sim_time, step = 0.0, 0
     tic = time.perf_counter()
     while sim_time < cfg.ttot:
         if step == 3:  # warm-up exclusion (part2.jl:182-184)
             sync()
             tic = time.perf_counter()
-        if plan is None:
-            T, W, S, _, dt = _ns_step(T, W, S, cfg)
-        else:
-            T, W, S, dt = _ns_step_sharded(T, W, S, cfg, mesh, shard_axis)
-            dt = float(dt)
+        T, W, S, _, dt = step_fn(T, W, S, cfg)
         sim_time += dt  # the one host read per step
         step += 1
         if snapshot_every and (step - 1) % snapshot_every == 0:

@@ -26,9 +26,16 @@ The tiers:
   one K-plane exchange per K iterations; Ht's (K-1)-deep ghosts are
   exchanged once per physical step.
 
-As in ``models.diffusion3d``, the JAX on-device loop over iterations is a
-host loop: each call reads the global norm once.  A call of the physical
-step takes and returns lists of per-shard physical blocks.
+As in ``models.diffusion3d``, the loop over iterations is a
+``core.loops.while_loop`` over (the per-shard blocks, err, it), as JAX's
+``lax.while_loop``, and a physical step one device call in
+``mesh.route()``: on a mesh whose shards share one CUDA device one launch
+of a cached CUDA graph, the host reading err and the iterations once a
+physical step; on a mesh over several devices the plain host loops, one
+read a test.  err = sqrt(sumsq) dt / sqrt(N) is formed on the device in
+the field's dtype.  The kernel tiers iterate on ping-pong pairs of
+buffers (two iterations a graph pass, no copy of a field).  A call of the
+physical step takes and returns lists of per-shard physical blocks.
 """
 
 from __future__ import annotations
@@ -39,7 +46,7 @@ import time
 import numpy as np
 import torch
 
-from fpr_tpu_torch.core import bc
+from fpr_tpu_torch.core import bc, loops
 from fpr_tpu_torch.core.config import DiffusionConfig, ExecutionPolicy
 from fpr_tpu_torch.core.grid import Grid3D, outer_steps, pseudo_timestep
 from fpr_tpu_torch.ops import dual_time, reductions, stencil3d
@@ -106,7 +113,8 @@ def build_step(cfg: DiffusionConfig, mesh: Mesh, axis: str = "z", *, dtype=torch
 
     Returns (step, grid): step(Ht_blocks, Htau_blocks) iterates Htau to
     convergence against Ht and returns (H_blocks, H_blocks, err,
-    iterations), err a numpy scalar of the field's dtype.
+    iterations), err a numpy scalar of the field's dtype: one device call
+    (``mesh.route()``) and one host read a physical step.
     """
     del axis
     grid = _global_grid(cfg, mesh)
@@ -130,80 +138,92 @@ def build_step(cfg: DiffusionConfig, mesh: Mesh, axis: str = "z", *, dtype=torch
     axis_of = {d: sharded.get(d) for d in range(3)}
     bounds = [[halo.mask_bounds(mesh, i, axis_of[d], local_shape[d]) for d in range(3)]
               for i in range(mesh.size)]
-    f = _NP[dtype]
-    tol, dt_f, sqrt_n = f(cfg.tol), f(cfg.dt), f(np.sqrt(grid.n))
+    devs = list(dict.fromkeys(mesh.devices))
+    # the overlap's face copies run on this stream; inside a capture it
+    # forks from the capture stream and joins it again within the iteration
+    side = (torch.cuda.Stream(device=devs[0])
+            if pallas_overlap and devs[0].type == "cuda" else None)
 
-    def error(parts):
-        total = reductions.dist_sumsq(parts)
-        return f(np.sqrt(f(float(total)))) * dt_f / sqrt_n
+    def loop(body, H, inc=1):
+        """The pseudo-time while_loop over (H, err, it): body(H) ->
+        (H', [per-shard sumsq]) while err > tol and it < iter_max (the JAX
+        test, in the field's dtype).  The kernel tiers' bodies write the
+        buffer of a ping-pong pair they do not read: two passes a graph
+        pass, no copy."""
+        like = H[0]
+        tol, dt, sqrt_n = (like.new_full((), v) for v in (cfg.tol, cfg.dt,
+                                                           float(np.sqrt(grid.n))))
 
-    def loop(iterate, inc=1):
-        """Calls iterate() -> [per-shard sumsq] while err > tol and it <
-        iter_max (the JAX while_loop's test, in the field's dtype)."""
-        err, it = f(np.inf), 0
-        while err > tol and it < cfg.iter_max:
-            err = error(iterate())
-            it += inc
-        return err, it
+        def cond(s):
+            return (s[1] > tol) & (s[2] < cfg.iter_max)
+
+        def step(s):
+            H, parts = body(s[0])
+            return H, torch.sqrt(reductions.dist_sumsq(parts)) * dt / sqrt_n, s[2] + inc
+
+        return loops.while_loop(cond, step, (H, like.new_full((), float("inf")),
+                                             torch.zeros((), dtype=torch.int32,
+                                                         device=like.device)),
+                                unroll=1 if cfg.policy is ExecutionPolicy.JNP else 2,
+                                donate=True)
+
+    def pair(A, B):
+        """other(X): the list of the ping-pong pair (A, B) that X is not."""
+        def other(X):
+            return B if X[0] is A[0] else A
+        return other
 
     def step_jnp(Ht_l, Htau_l):
-        ext = [_pad1(b) for b in Htau_l]
-
-        def iterate():
+        def body(ext):
             halo.refresh_ghosts_ext(ext, mesh, sharded)
-            parts = []
+            out = []
             for i in range(mesh.size):
                 (zlo, zhi), (ylo, yhi), (xlo, xhi) = bounds[i]
-                ext[i], s = stencil3d.dual_time_step_ext3(
+                out.append(stencil3d.dual_time_step_ext3(
                     Ht_l[i], ext[i], **kw, zlo=zlo, zhi=zhi, ylo=ylo, yhi=yhi, xlo=xlo,
-                    xhi=xhi)
-                parts.append(s)
-            return parts
+                    xhi=xhi))
+            return [o[0] for o in out], [o[1] for o in out]
 
-        err, it = loop(iterate)
+        ext, err, it = loop(body, [_pad1(b) for b in Htau_l])
         return [e[1:-1, 1:-1, 1:-1].contiguous() for e in ext], err, it
 
     def step_jnp_overlap(Ht_l, Htau_l):
-        H = list(Htau_l)
-
-        def iterate():
+        def body(H):
             if 0 in sharded:
                 lo, hi = halo.exchange_faces(H, mesh, sharded[0], 0)
             else:
                 lo = hi = [torch.zeros_like(b[:1]) for b in H]
-            parts = []
+            out = []
             for i in range(mesh.size):
                 (zlo, zhi), _, _ = bounds[i]
-                H[i], s = stencil3d.dual_time_step_overlap_z(
-                    Ht_l[i], H[i], lo[i], hi[i], **kw, zlo=zlo, zhi=zhi)
-                parts.append(s)
-            return parts
+                out.append(stencil3d.dual_time_step_overlap_z(
+                    Ht_l[i], H[i], lo[i], hi[i], **kw, zlo=zlo, zhi=zhi))
+            return [o[0] for o in out], [o[1] for o in out]
 
-        err, it = loop(iterate)
-        return H, err, it
+        return loop(body, list(Htau_l))
 
     def step_pallas(Ht_l, Htau_l):
         A = [_pad1(b) for b in Htau_l]
-        B = [a.clone() for a in A]
+        # the launches write the box only: B starts as A's copy
+        other = pair(A, [a.clone() for a in A])
         Ht_p = [_pad1(b) for b in Ht_l]
         parts = [dual_time.box_partials(a, nzl) for a in A]
         window = (1, nzl)
         boxes = [tuple(v + 1 for lohi in bd for v in lohi) for bd in bounds]
-        devs = list(dict.fromkeys(mesh.devices))
-        side = (torch.cuda.Stream(device=devs[0])
-                if pallas_overlap and devs[0].type == "cuda" else None)
 
-        def launch(i, box, w, part):
-            dual_time.dual_time_box(Ht_p[i], A[i], box, **kw, window=w, out=B[i],
-                                    partials=part)
+        def body(A):
+            B = other(A)
 
-        def iterate_plain():
-            if sharded:
-                halo.refresh_ghosts_ext(A, mesh, sharded)
-            for i in range(mesh.size):
-                launch(i, boxes[i], window, parts[i])
+            def launch(i, box, w, part):
+                dual_time.dual_time_box(Ht_p[i], A[i], box, **kw, window=w, out=B[i],
+                                        partials=part)
 
-        def iterate_overlap():
+            if not pallas_overlap:
+                if sharded:
+                    halo.refresh_ghosts_ext(A, mesh, sharded)
+                for i in range(mesh.size):
+                    launch(i, boxes[i], window, parts[i])
+                return B, [p.sum() for p in parts]
             # the face copies into A's z ghosts on a side stream, beside
             # the update of the planes that read no ghost
             if side is not None:
@@ -227,20 +247,15 @@ def build_step(cfg: DiffusionConfig, mesh: Mesh, axis: str = "z", *, dtype=torch
                 if z1 >= nzl:
                     launch(i, (nzl, nzl, y0, y1, x0, x1), (nzl, nzl),
                            dual_time.plane_partials(parts[i], nzl - 1, A[i]))
+            return B, [p.sum() for p in parts]
 
-        def iterate():
-            nonlocal A, B
-            (iterate_overlap if pallas_overlap else iterate_plain)()
-            A, B = B, A
-            return [p.sum() for p in parts]
-
-        err, it = loop(iterate)
+        A, err, it = loop(body, A)
         return [a[1:-1, 1:-1, 1:-1].contiguous() for a in A], err, it
 
     def step_kfused(Ht_l, Htau_l):
         K = Kf
         Hp = [dual_time.pad3dk(b, K) for b in Htau_l]
-        scratch = [torch.empty_like(b) for b in Hp]
+        other = pair(Hp, [torch.empty_like(b) for b in Hp])
         Ht_k = [dual_time.pad_htk(b, K) for b in Ht_l]
         parts = [dual_time.fused_partials(b, nzl, K) for b in Hp]
         if 0 in sharded:
@@ -255,21 +270,18 @@ def build_step(cfg: DiffusionConfig, mesh: Mesh, axis: str = "z", *, dtype=torch
         else:
             zb = [(1, nzl - 2)] * mesh.size
 
-        def iterate():
+        def body(Hp):
+            scratch = other(Hp)
             if 0 in sharded:
                 halo.refresh_ghosts_zk(Hp, mesh, nzl, sharded[0], K)
-            sums = []
-            for i in range(mesh.size):
-                # the result lands in scratch, its ghost planes unspecified:
-                # refreshed above when z is sharded, never read otherwise
-                out, s = dual_time.dual_time_stepk_padded(
-                    Ht_k[i], Hp[i], K, **kw, z_bounds=zb[i], scratch=scratch[i],
-                    partials=parts[i])
-                Hp[i], scratch[i] = out, Hp[i]
-                sums.append(s)
-            return sums
+            # the result lands in scratch, its ghost planes unspecified:
+            # refreshed above when z is sharded, never read otherwise
+            out = [dual_time.dual_time_stepk_padded(
+                Ht_k[i], Hp[i], K, **kw, z_bounds=zb[i], scratch=scratch[i],
+                partials=parts[i]) for i in range(mesh.size)]
+            return [o[0] for o in out], [o[1] for o in out]
 
-        err, it = loop(iterate, inc=K)
+        Hp, err, it = loop(body, Hp, inc=K)
         return [b[K:K + nzl].contiguous() for b in Hp], err, it
 
     if use_kfused:
@@ -281,9 +293,20 @@ def build_step(cfg: DiffusionConfig, mesh: Mesh, axis: str = "z", *, dtype=torch
     else:
         body = step_jnp
 
+    def physical(a):
+        H, err, it = body(a["Ht"], a["Htau"])
+        return dict(H=H, err=err, it=it)
+
+    npf = _NP[dtype]
+
     def step(Ht_l, Htau_l):
-        H, err, it = body(Ht_l, Htau_l)
-        return H, H, err, it
+        with mesh.route():
+            out = loops.device_call(physical, dict(Ht=list(Ht_l), Htau=list(Htau_l)), key=(
+                "dist_diffusion", cfg, dtype, mesh.dims, mesh.axis_names))
+        # the host's one read a physical step: err (exact in float64) and
+        # the iterations
+        err, it = torch.stack([out["err"].double(), out["it"].double()]).tolist()
+        return out["H"], out["H"], npf(err), int(it)
 
     return step, grid
 

@@ -12,13 +12,26 @@ CPU tests run eight virtual devices in one process; on one card every halo
 exchange and global mask of the tier runs for real, but times taken that
 way are the cost of the tier on one card, not scaling figures.  An explicit
 device list puts one shard on each listed device.
+
+``Mesh.route()`` is how the sharded tiers run their loops.  When every
+shard sits on one device (``one_device``: the virtual mesh, every sharded
+run one card can make) a solve, a chunk of NS steps or a physical step is
+one ``core.loops.device_call``, on CUDA one CUDA graph with its loops as
+conditional WHILE nodes, as JAX runs them on the device.  A CUDA graph
+and its conditional nodes belong to one device, so a mesh over several
+devices runs the same code under ``core.loops.host_loops()``: the plain
+host loops, one host read a loop test, which is what that mesh ran before
+the graphs.  No machine with several cards has run that route yet.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
+
+from fpr_tpu_torch.core import loops
 
 AXES = ("z", "y", "x")
 
@@ -46,6 +59,17 @@ class Mesh:
     @property
     def size(self) -> int:
         return len(self.devices)
+
+    @property
+    def one_device(self) -> bool:
+        """Every shard sits on the same device."""
+        return len(set(self.devices)) == 1
+
+    def route(self):
+        """The context a sharded tier runs its device calls in: graphs on one
+        device, the host loops (``loops.host_loops()``) over several; see the
+        module docstring."""
+        return contextlib.nullcontext() if self.one_device else loops.host_loops()
 
     def extent(self, axis: str) -> int:
         """Shards along ``axis``; 1 for an axis the mesh does not have."""

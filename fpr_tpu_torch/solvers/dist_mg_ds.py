@@ -28,8 +28,12 @@ device; each shard then takes its window of the x-interleaved correction
 with 4 coarse halo rows on each side.  JAX runs that subtree identically on
 every device; the numbers are the same.  The outer loop is K1
 (``defect_pass``) with the row hooks and the sums of the shards added in
-shard order.  As in ``solvers.multigrid``, the JAX on-device loops are
-host loops that read one scalar per test.
+shard order.  As in ``solvers.multigrid``, the outer loop is a
+``core.loops.while_loop``, JAX's ``lax.while_loop``, and a solve one
+device call in ``mesh.route()``: on a mesh whose shards share one CUDA
+device one launch of a cached CUDA graph, the host reading (r_rms, tolf,
+outer count) once at the end; on a mesh over several devices the plain
+host loops, one read a test.
 
 The 2D mesh shards the columns as well: each shard owns ``nx_l`` columns,
 ``nx_l`` and the levels that may be column-sharded planned exactly as JAX
@@ -54,6 +58,7 @@ import dataclasses
 
 import torch
 
+from fpr_tpu_torch.core import loops
 from fpr_tpu_torch.core.config import ExecutionPolicy, MGConfig, Smoother
 from fpr_tpu_torch.core.grid import mg_levels
 from fpr_tpu_torch.ops import ds as dsm
@@ -61,7 +66,8 @@ from fpr_tpu_torch.ops import reductions, stencil2d, transfer
 from fpr_tpu_torch.ops.rows import Cols, Rows
 from fpr_tpu_torch.ops.vcycle_legs import corr_smooth2_raw, smooth2r_split
 from fpr_tpu_torch.parallel.halo import refresh_2d, refresh_rows
-from fpr_tpu_torch.solvers.multigrid import _auto_inner_cycles, _warn_unconverged, vcycle
+from fpr_tpu_torch.solvers.multigrid import (_auto_inner_cycles, _int0, _outcome,
+                                             _warn_unconverged, vcycle)
 
 G = 8  # ghost rows on each side of a shard: one exchange feeds up to G-2 sweeps
 GX = 8  # ghost columns on each side of a 2D-mesh shard, likewise
@@ -229,15 +235,18 @@ def solve_sharded(u_ds, f_l, tolf, plan: ShardPlan, h: float, c, cfg: MGConfig, 
                   axis: str, niters: int, tol: float, inner_cycles: int = 1,
                   apply_bcs: bool = False, velocity_max: bool = False, r0=None):
     """The ds defect-correction loop on per-shard local tensors
-    (dist_ns._solve_sharded and the loop of dist_mg_ds._build_sharded).
+    (dist_ns._solve_sharded and the loop of dist_mg_ds._build_sharded): a
+    ``loops.while_loop`` over (u_ds, r32, r_rms, curl maxima, it), as JAX's.
 
-    u_ds: per-shard (2, G + ny_l + G, nx) hi/lo iterates; f_l: per-shard
-    float32 right-hand sides.  c: a Python number (0 takes K1's exact x4
-    path) or a float32 device scalar.  r0: the initial (per-shard defects,
-    r_rms), for a zero iterate without BCs; None runs the first defect pass
-    (the warm start).  velocity_max: K1's curl maxima of the returned
-    iterate, the maximum over the shards.  Returns (u_ds', r_rms,
-    outer_iterations, (max|du/dy|, max|du/dx|) or None).
+    u_ds: per-shard (2, G + ny_l + G, nx) hi/lo iterates, which the loop may
+    overwrite (``donate``); f_l: per-shard float32 right-hand sides.  c: a
+    Python number (0 takes K1's exact x4 path) or a float32 device scalar.
+    r0: the initial (per-shard defects, r_rms), for a zero iterate without
+    BCs; None runs the first defect pass (the warm start).  velocity_max:
+    K1's curl maxima of the returned iterate, the maximum over the shards.
+    Returns (u_ds', r_rms, outer_iterations, (max|du/dy|, max|du/dx|) or
+    None), the count a 0-dim int32 device tensor: no host read, so that a
+    caller's device call holds the loop as a WHILE node.
     """
     ndev = plan.ndev
     nx, ny = plan.nx, plan.ny
@@ -253,7 +262,7 @@ def solve_sharded(u_ds, f_l, tolf, plan: ShardPlan, h: float, c, cfg: MGConfig, 
                                 rows=plan.rows(0, d), raw_sumsq=True)
                 for d in range(ndev)]
         r_rms = torch.sqrt(reductions.dist_sumsq([o[2] for o in outs]) / n_cells)
-        ext = None
+        ext = ()
         if velocity_max:
             ext = (reductions.dist_max([o[3][0] for o in outs]),
                    reductions.dist_max([o[3][1] for o in outs]))
@@ -262,16 +271,22 @@ def solve_sharded(u_ds, f_l, tolf, plan: ShardPlan, h: float, c, cfg: MGConfig, 
     if r0 is None:
         u_ds, r32, r_rms, ext = defect(u_ds, None, 0.0)
     else:
-        (r32, r_rms), ext = r0, None
-    it = 0
-    while it < niters and bool(r_rms >= tolf):
+        (r32, r_rms), ext = r0, (tolf.new_zeros(()),) * 2 if velocity_max else ()
+
+    def cond(s):
+        return (s["it"] < niters) & (s["r_rms"] >= tolf)
+
+    def body(s):
         e = None
         for cyc in range(inner_cycles):
-            e = _vcycle_dist(e, r32, plan, h, c, tol, cfg, mesh, axis,
+            e = _vcycle_dist(e, s["r"], plan, h, c, tol, cfg, mesh, axis,
                              assume_zero_u=(cyc == 0), apply_bcs=apply_bcs)
-        u_ds, r32, r_rms, ext = defect(u_ds, e, 1.0)
-        it += 1
-    return u_ds, r_rms, it, ext
+        u_ds, r32, r_rms, ext = defect(s["u"], e, 1.0)
+        return dict(u=u_ds, r=r32, r_rms=r_rms, ext=ext, it=s["it"] + 1)
+
+    s = loops.while_loop(cond, body, dict(u=list(u_ds), r=list(r32), r_rms=r_rms, ext=ext,
+                                          it=_int0(tolf)), donate=True)
+    return s["u"], s["r_rms"], s["it"], s["ext"] or None
 
 
 def mg_solve_ds_sharded(f, h: float, c, tol: float, niters: int, mesh, axis: str = "y",
@@ -284,7 +299,10 @@ def mg_solve_ds_sharded(f, h: float, c, tol: float, niters: int, mesh, axis: str
     f: the global (ny, nx) float32 rhs (a zero boundary ring, as every caller
     here gives).  c: the Helmholtz shift, taken as a float32 device scalar.
     apply_bcs: the NS temperature BCs, their Dirichlet rows applied by K1
-    against global rows, with eliminated-BC smoothing in the cycles.
+    against global rows, with eliminated-BC smoothing in the cycles.  The
+    solve is one device call (``mesh.route()``: on a one-device CUDA mesh
+    one launch of a cached CUDA graph); the host reads (r_rms, tolf, outer
+    count) once, at the end, for the count and the non-convergence warning.
     Returns ((hi, lo), r_rms, outer_iterations), hi/lo global on shard 0's
     device, or with gather_result=False the per-shard (2, G + ny_l + G, nx)
     local pairs in place of (hi, lo).
@@ -297,16 +315,27 @@ def mg_solve_ds_sharded(f, h: float, c, tol: float, niters: int, mesh, axis: str
         inner_cycles = _auto_inner_cycles(ny, nx, cfg)
     plan = plan_shards(ny, nx, mesh.shape[axis], cfg, replicate_below)
     c = torch.as_tensor(c, dtype=torch.float32, device=mesh.devices[0])
-    f_rms = stencil2d.rms(f)
-    tolf = tol * f_rms
-    f_l = shard_rows(f, plan, mesh)
-    u_ds = [torch.zeros((2,) + tuple(b.shape), dtype=torch.float32, device=b.device)
-            for b in f_l]
-    # with the BCs u != 0: the first defect goes through the kernel
-    r0 = None if apply_bcs else ([-b for b in f_l], f_rms)
-    u_ds, r_rms, it, _ = solve_sharded(u_ds, f_l, tolf, plan, h, c, cfg, mesh, axis, niters,
-                                       tol, inner_cycles, apply_bcs=apply_bcs, r0=r0)
-    _warn_unconverged("mg_solve_ds_sharded", r_rms, tolf, it, niters, apply_bcs)
+
+    def solve(a):
+        f_rms = stencil2d.rms(a["f"])
+        tolf = tol * f_rms
+        f_l = shard_rows(a["f"], plan, mesh)
+        u_ds = [torch.zeros((2,) + tuple(b.shape), dtype=torch.float32, device=b.device)
+                for b in f_l]
+        # with the BCs u != 0: the first defect goes through the kernel
+        r0 = None if apply_bcs else ([-b for b in f_l], f_rms)
+        u_ds, r_rms, it, _ = solve_sharded(u_ds, f_l, tolf, plan, h, a["c"], cfg, mesh, axis,
+                                           niters, tol, inner_cycles, apply_bcs=apply_bcs,
+                                           r0=r0)
+        return dict(u=u_ds, r_rms=r_rms, it=it, tolf=tolf)
+
+    with mesh.route():
+        out = loops.device_call(solve, dict(f=f, c=c), key=(
+            "mg_solve_ds_sharded", plan, cfg, float(h), float(tol), niters, inner_cycles,
+            apply_bcs, axis, mesh.dims, mesh.axis_names))
+    r, t, it = _outcome(out)
+    _warn_unconverged("mg_solve_ds_sharded", r, t, it, niters, apply_bcs)
+    u_ds, r_rms = out["u"], out["r_rms"]
     if not gather_result:
         return u_ds, r_rms, it
     u = gather_rows(u_ds, plan)
@@ -505,10 +534,11 @@ def mg_solve_ds_sharded_2d(f, h: float, c, tol: float, niters: int, mesh, axes=(
 
     f: the global (ny, nx) float32 rhs (a zero boundary ring).  c: the
     Helmholtz shift, taken as a float32 device scalar.  No apply_bcs, as in
-    JAX (the NS tiers shard rows only).  Returns ((hi, lo), r_rms,
-    outer_iterations), hi/lo global on shard 0's device, or with
-    gather_result=False the per-shard (2, G + ny_l + G, GX + nx_l + GX)
-    local pairs in place of (hi, lo).
+    JAX (the NS tiers shard rows only).  One device call a solve with the
+    outer loop a ``loops.while_loop``, as ``mg_solve_ds_sharded``.  Returns
+    ((hi, lo), r_rms, outer_iterations), hi/lo global on shard 0's device,
+    or with gather_result=False the per-shard (2, G + ny_l + G, GX + nx_l +
+    GX) local pairs in place of (hi, lo).
     """
     ay, ax = axes
     f = torch.as_tensor(f).to(mesh.devices[0])
@@ -519,30 +549,47 @@ def mg_solve_ds_sharded_2d(f, h: float, c, tol: float, niters: int, mesh, axes=(
         inner_cycles = _auto_inner_cycles(ny, nx, cfg)
     plan = plan_shards_2d(ny, nx, mesh.shape[ay], mesh.shape[ax], cfg, replicate_below)
     c = torch.as_tensor(c, dtype=torch.float32, device=mesh.devices[0])
-    f_rms = stencil2d.rms(f)
-    tolf = tol * f_rms
-    f_l = shard_2d(f, plan, mesh, axes)
-    C = [dsm.defect_scalars(c, h, b.device) for b in f_l]
     hooks = [plan.hooks(0, *_yx(mesh, axes, i)) for i in range(mesh.size)]
-    n_cells = tolf.new_full((), float(nx * ny))
-    u_ds = [torch.zeros((2,) + tuple(b.shape), dtype=torch.float32, device=b.device)
-            for b in f_l]
-    r32, r_rms = [-b for b in f_l], f_rms
-    it = 0
-    while it < niters and bool(r_rms >= tolf):
-        e = None
-        for cyc in range(inner_cycles):
-            e = _vcycle_dist_2d(e, r32, plan, h, c, tol, cfg, mesh, axes,
-                                assume_zero_u=(cyc == 0))
-        refresh_2d(u_ds, mesh, axes, plan.ny_l, plan.nx_l, G, GX)
-        refresh_2d(e, mesh, axes, plan.ny_l, plan.nx_l, G, GX)
-        outs = [dsm.defect_pass(u_ds[i], f_l[i][None], e[i], 1.0, h, c, C=C[i],
-                                raw_sumsq=True, **hooks[i])
-                for i in range(mesh.size)]
-        r_rms = torch.sqrt(reductions.dist_sumsq([o[2] for o in outs]) / n_cells)
-        u_ds, r32 = [o[0] for o in outs], [o[1] for o in outs]
-        it += 1
-    _warn_unconverged("mg_solve_ds_sharded_2d", r_rms, tolf, it, niters)
+
+    def solve(a):
+        c = a["c"]
+        f_rms = stencil2d.rms(a["f"])
+        tolf = tol * f_rms
+        f_l = shard_2d(a["f"], plan, mesh, axes)
+        C = [dsm.defect_scalars(c, h, b.device) for b in f_l]
+        n_cells = tolf.new_full((), float(nx * ny))
+        u_ds = [torch.zeros((2,) + tuple(b.shape), dtype=torch.float32, device=b.device)
+                for b in f_l]
+
+        def cond(s):
+            return (s["it"] < niters) & (s["r_rms"] >= tolf)
+
+        def body(s):
+            e = None
+            for cyc in range(inner_cycles):
+                e = _vcycle_dist_2d(e, s["r"], plan, h, c, tol, cfg, mesh, axes,
+                                    assume_zero_u=(cyc == 0))
+            u_ds = s["u"]
+            refresh_2d(u_ds, mesh, axes, plan.ny_l, plan.nx_l, G, GX)
+            refresh_2d(e, mesh, axes, plan.ny_l, plan.nx_l, G, GX)
+            outs = [dsm.defect_pass(u_ds[i], f_l[i][None], e[i], 1.0, h, c, C=C[i],
+                                    raw_sumsq=True, **hooks[i])
+                    for i in range(mesh.size)]
+            r_rms = torch.sqrt(reductions.dist_sumsq([o[2] for o in outs]) / n_cells)
+            return dict(u=[o[0] for o in outs], r=[o[1] for o in outs], r_rms=r_rms,
+                        it=s["it"] + 1)
+
+        s = loops.while_loop(cond, body, dict(u=u_ds, r=[-b for b in f_l], r_rms=f_rms,
+                                              it=_int0(tolf)), donate=True)
+        return dict(u=s["u"], r_rms=s["r_rms"], it=s["it"], tolf=tolf)
+
+    with mesh.route():
+        out = loops.device_call(solve, dict(f=f, c=c), key=(
+            "mg_solve_ds_sharded_2d", plan, cfg, float(h), float(tol), niters, inner_cycles,
+            tuple(axes), mesh.dims, mesh.axis_names))
+    r, t, it = _outcome(out)
+    _warn_unconverged("mg_solve_ds_sharded_2d", r, t, it, niters)
+    u_ds, r_rms = out["u"], out["r_rms"]
     if not gather_result:
         return u_ds, r_rms, it
     u = gather_2d(u_ds, plan, mesh, axes)

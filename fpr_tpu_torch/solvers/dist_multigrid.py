@@ -23,6 +23,14 @@ the sums.  The first level with fewer than ``replicate_below`` rows (or
 the coarse-solve level) is gathered to shard 0, where the rest of the
 recursion runs with the port's plain ``vcycle``, and its correction is
 sliced back onto the shards with ghost rows.
+
+The iterate loop is a ``core.loops.while_loop``, JAX's ``lax.while_loop``,
+and a solve one device call in ``mesh.route()``: on a mesh whose shards
+share one CUDA device one launch of a cached CUDA graph (or WHILE nodes
+in the sharded NS step's graph), the host reading (r_rms, tolf, cycles)
+once at the end; on a mesh over several devices the plain host loops.
+The global-row masks of ``zero_boundary_rows`` are built once a solve,
+before its loop (``row_masks``).
 """
 
 from __future__ import annotations
@@ -31,13 +39,14 @@ import dataclasses
 
 import torch
 
-from fpr_tpu_torch.core import bc
+from fpr_tpu_torch.core import bc, loops
 from fpr_tpu_torch.core.config import ExecutionPolicy, MGConfig, Restriction, Smoother
 from fpr_tpu_torch.core.grid import mg_levels
 from fpr_tpu_torch.ops import reductions, stencil2d, transfer
 from fpr_tpu_torch.ops.rows import Rows
 from fpr_tpu_torch.parallel.halo import refresh_rows
-from fpr_tpu_torch.solvers.multigrid import _warn_unconverged, mg_solve, vcycle
+from fpr_tpu_torch.solvers.multigrid import (_c_arg, _c_key, _inf, _int0, _outcome,
+                                             _warn_unconverged, mg_solve, vcycle)
 
 GR = 2  # ghost rows on each side of a block
 
@@ -102,19 +111,37 @@ def _slice_rows(a: torch.Tensor, n_l: int, ndev: int, mesh) -> list:
             for d in range(ndev)]
 
 
-def zero_boundary_rows(a: torch.Tensor, off: int, n_g: int) -> torch.Tensor:
+def row_masks(plan: RowPlan, mesh) -> dict:
+    """The masks of ``zero_boundary_rows`` that a solve and the NS step
+    use, keyed (rows, off, n_g): the level-0 blocks, and per sharded level
+    the coarse owned rows of the restriction and the coarse window of the
+    prolongation.  Built once before a loop, so that a graph holds them
+    rather than rebuilding them every pass."""
+    out = {}
+    for d in range(plan.ndev):
+        n_l, n_g, _ = plan.level(0)
+        keys = [(n_l + 2 * GR, d * n_l - GR, n_g)]
+        for m in range(plan.s):
+            nc_l, nyc_g, _ = plan.level(m + 1)
+            keys += [(nc_l, d * nc_l, nyc_g), (nc_l + 2 * GR, d * nc_l - GR, nyc_g)]
+        for rows, off, n_g in keys:
+            g = off + torch.arange(rows, device=mesh.devices[d])[:, None]
+            out[(rows, off, n_g)] = (g > 0) & (g < n_g - 1)
+    return out
+
+
+def zero_boundary_rows(a: torch.Tensor, off: int, n_g: int, masks: dict) -> torch.Tensor:
     """a, whose row i is global row off + i of an n_g-row grid, with the
     global boundary rows and the rows past the grid zeroed: the row part of
-    ``bc.zero_boundary_2d``."""
-    g = off + torch.arange(a.shape[0], device=a.device)[:, None]
-    return torch.where((g > 0) & (g < n_g - 1), a, a.new_zeros(()))
+    ``bc.zero_boundary_2d``, its mask from ``row_masks``."""
+    return torch.where(masks[(a.shape[0], off, n_g)], a, a.new_zeros(()))
 
 
 def _vcycle_sharded(u, f, h, c, tol, cfg: MGConfig, plan: RowPlan, mesh, axis: str,
-                    apply_bcs: bool):
+                    apply_bcs: bool, masks: dict):
     """One V-cycle (multigrid.vcycle) on the level-0 blocks u and f (f's
-    ghost rows fresh).  Returns (u', the global rms of the residual fed to
-    the last fine post-smooth)."""
+    ghost rows fresh); masks: ``row_masks(plan, mesh)``.  Returns (u', the
+    global rms of the residual fed to the last fine post-smooth)."""
     rb = cfg.smoother is Smoother.RED_BLACK_GS
     restrict = (transfer.restrict_full_weighting
                 if cfg.resolved_restriction() is Restriction.FULL_WEIGHTING
@@ -145,7 +172,7 @@ def _vcycle_sharded(u, f, h, c, tol, cfg: MGConfig, plan: RowPlan, mesh, axis: s
         # of the coarse grid zeroed, as the global restriction does
         res_c = [zero_boundary_rows(
             restrict(stencil2d.residual(u[d], f[d], h, c, plan.rows(m, d)), apply_bcs)
-            [GR // 2:GR // 2 + nc_l], d * nc_l, nyc_g) for d in range(ndev)]
+            [GR // 2:GR // 2 + nc_l], d * nc_l, nyc_g, masks) for d in range(ndev)]
         if m + 1 < plan.s:
             fc = [torch.nn.functional.pad(r, (0, 0, GR, GR)) for r in res_c]
             refresh_rows(fc, mesh, axis, nc_l, GR)
@@ -164,7 +191,7 @@ def _vcycle_sharded(u, f, h, c, tol, cfg: MGConfig, plan: RowPlan, mesh, axis: s
         # window's first and last rows, which prolongate zeroes as a ring,
         # feed ghost rows only
         P = [transfer.prolongate(
-            zero_boundary_rows(corr[d], d * nc_l - GR, nyc_g)[GR // 2:],
+            zero_boundary_rows(corr[d], d * nc_l - GR, nyc_g, masks)[GR // 2:],
             (n_l + 2 * GR + 1, nx_m), apply_bcs=apply_bcs) for d in range(ndev)]
         u = [u[d] - P[d][:n_l + 2 * GR] for d in range(ndev)]
         r_rms = None
@@ -188,7 +215,9 @@ def mg_solve_sharded(u0, f, h: float, c, tol: float, niters: int, mesh, axis: st
 
     u0, f: global (ny, nx) tensors, placed onto the mesh here, or
     ``RowShards`` of this solve's plan (``plan_rows``), as the sharded NS
-    step holds its fields.  Returns (u, r_rms, iterations), u global on
+    step holds its fields.  One device call (``mesh.route()``); the host
+    reads (r_rms, tolf, cycles) once, for the count and the
+    non-convergence warning.  Returns (u, r_rms, iterations), u global on
     shard 0's device or ``RowShards``, as f was given.  When no level is
     sharded (fewer than ``replicate_below`` rows), JAX replicates every
     level: the solve runs on shard 0's device.
@@ -196,6 +225,7 @@ def mg_solve_sharded(u0, f, h: float, c, tol: float, niters: int, mesh, axis: st
     if cfg.policy is not ExecutionPolicy.JNP:
         raise ValueError("the GSPMD tier runs the plain (JNP-policy) V-cycle")
     sharded_in = isinstance(f, RowShards)
+    f_glob = None
     if sharded_in:
         plan = f.plan
         u0 = u0 if isinstance(u0, RowShards) else RowShards.of(u0, plan, mesh)
@@ -211,23 +241,51 @@ def mg_solve_sharded(u0, f, h: float, c, tol: float, niters: int, mesh, axis: st
     if plan != plan_rows(plan.ny, plan.nx, mesh.shape[axis], cfg, replicate_below) or \
             plan.s == 0:
         raise ValueError(f"fields sharded as {plan} do not fit this solve's plan")
-    fb = f.blocks
-    refresh_rows(fb, mesh, axis, plan.ny_l, GR)
-    if sharded_in:
-        parts = [torch.sum(b[GR:GR + plan.ny_l] ** 2) for b in fb]
-        total = reductions.dist_sumsq(parts)
-        f_rms = torch.sqrt(total / total.new_full((), float(plan.ny * plan.nx)))
-    else:
-        f_rms = stencil2d.rms(f_glob)
-    tolf = tol * f_rms
-    u = list(u0.blocks)
-    r_rms = torch.full((), float("inf"), dtype=fb[0].dtype, device=fb[0].device)
-    it = 0
-    while it < niters and bool(r_rms >= tolf):
-        if apply_bcs:
-            u = [bc.ns_temperature_bcs(u[d], plan.rows(0, d)) for d in range(plan.ndev)]
-        u, r_rms = _vcycle_sharded(u, fb, h, c, tol, cfg, plan, mesh, axis, apply_bcs)
-        it += 1
-    _warn_unconverged("mg_solve_sharded", r_rms, tolf, it, niters, apply_bcs)
-    out = RowShards(u, plan)
-    return (out if sharded_in else out.gather()), r_rms, it
+    with mesh.route():
+        out = _mg_solve_sharded(u0.blocks, f.blocks, f_glob, h, c, tol, niters, mesh, axis,
+                                apply_bcs, cfg, plan)
+    r, t, it = _outcome(out)
+    _warn_unconverged("mg_solve_sharded", r, t, it, niters, apply_bcs)
+    u = RowShards(out["u"], plan)
+    return (u if sharded_in else u.gather()), out["r_rms"], it
+
+
+def _mg_solve_sharded(u_blocks, f_blocks, f_glob, h: float, c, tol: float, niters: int, mesh,
+                      axis: str, apply_bcs: bool, cfg: MGConfig, plan: RowPlan) -> dict:
+    """mg_solve_sharded's device call on the fields' blocks (f_glob: the
+    global rhs whose rms the tolerance takes, or None to sum it over the
+    blocks' owned rows): dict(u blocks, r_rms, it, tolf), no host read,
+    for a caller that reads them itself."""
+
+    def solve(a):
+        fb, cc = a["f"], c if a["c"] is None else a["c"]
+        refresh_rows(fb, mesh, axis, plan.ny_l, GR)
+        if a["fg"] is None:
+            parts = [torch.sum(b[GR:GR + plan.ny_l] ** 2) for b in fb]
+            total = reductions.dist_sumsq(parts)
+            f_rms = torch.sqrt(total / total.new_full((), float(plan.ny * plan.nx)))
+        else:
+            f_rms = stencil2d.rms(a["fg"])
+        tolf = tol * f_rms
+        masks = row_masks(plan, mesh)
+
+        def cond(s):
+            return (s[2] < niters) & (s[1] >= tolf)
+
+        def body(s):
+            u = s[0]
+            if apply_bcs:
+                u = [bc.ns_temperature_bcs(u[d], plan.rows(0, d)) for d in range(plan.ndev)]
+            u, r_rms = _vcycle_sharded(u, fb, h, cc, tol, cfg, plan, mesh, axis, apply_bcs,
+                                       masks)
+            return u, r_rms, s[2] + 1
+
+        u, r_rms, it = loops.while_loop(cond, body, (list(a["u"]), _inf(fb[0]), _int0(fb[0])),
+                                        donate=True)
+        return dict(u=u, r_rms=r_rms, it=it, tolf=tolf)
+
+    return loops.device_call(solve, dict(u=list(u_blocks), f=list(f_blocks), fg=f_glob,
+                                         c=_c_arg(c)),
+                             key=("mg_solve_sharded", plan, cfg, float(h), _c_key(c), float(tol),
+                                  niters, apply_bcs, f_glob is None, axis, mesh.dims,
+                                  mesh.axis_names))
