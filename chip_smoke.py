@@ -141,9 +141,12 @@ at the MG row's levels with ns=5, timed at 2049x513 ns=3 and at 4097^2
 ns=5 (the rows smooth_down_4097, corr_up_4097), and with ns 1-6, elim and
 c != 0, from u and from a zero iterate, at 2049x513 and at the ragged
 67x45, 130x257 and 67x113. It also holds the host-loop tiers' kernels
-against their plain versions: the stencil pass (#5) in every mode in
-float32 at 2049x513 and 4097^2 and in float64 at 2049^2 (fields bitwise,
-sums within REL_SUM or 1e-12), and the legs #6/#7 at 2049x513 with ns 1-6,
+against their plain versions: the stencil pass (#5) in every mode,
+smooth2 included, with and without its sum, in float32 at 2049x513 and
+4097^2 and in float64 at 2049^2 and on the ragged shapes (fields bitwise,
+sums and rms within REL_SUM or REL_SUM_F64, a rerun bitwise, each public
+entry point one launch; each mode's device time beside its bound, and
+conv2d's for the matvec), and the legs #6/#7 at 2049x513 with ns 1-6,
 with and without elim, each entry point launching the leg kernel once a
 call. And the sharded tiers' shard windows: #9 against its plain version
 and, on the owned planes, against the global #10 (first, interior and last
@@ -1072,31 +1075,54 @@ def phase_kernels_host(kc: KernelCheck):
             for mode in sp.MODES:
                 ff = None if mode.startswith("matvec") else f
                 for with_acc in (True, False):
-                    got = sp._stencil_cuda(mode, u, ff, h, ct, 0.8, with_acc)
+                    what = f"{mode} {tag} c={c} sum={with_acc}"
+
+                    def k_call(mode=mode, ff=ff, with_acc=with_acc):
+                        return sp._stencil_cuda(mode, u, ff, h, ct, 0.8, with_acc)
+                    got = k_call()
                     want = sp.stencil_plain(mode, u, ff, h, ct, 0.8, with_acc)
-                    kc.fields("stencil", got[:1], want[:1], f"{mode} {tag} c={c}")
+                    kc.fields("stencil", got[:1], want[:1], what)
                     if with_acc or mode == "matvec_dot":
-                        kc.sums("stencil", got[1:], want[1:], f"{mode} {tag} c={c}", rel=rel)
+                        # the sum, and the rms of a sum of squares
+                        k = 1 if mode.startswith("matvec") else 2
+                        kc.sums("stencil", got[1][:k], want[1][:k], what, rel=rel)
+                    same_bits("stencil", what, k_call)
             got = sp.smooth2_rp(u, f, h, ct)
             with plain_kernels():
                 want = sp.smooth2_rp(u, f, h, ct)
-            kc.fields("stencil", got[:1], want[:1], f"smooth2 {tag} c={c}")
-            kc.sums("stencil", got[1:], want[1:], f"smooth2 {tag} norm c={c}", rel=rel)
+            kc.fields("stencil", got[:1], want[:1], f"smooth2_rp {tag} c={c}")
+            kc.sums("stencil", got[1:], want[1:], f"smooth2_rp {tag} norm c={c}", rel=rel)
+            # every public entry point is one launch, smooth2 included
+            for name, call in (
+                    ("smooth_rp", lambda: sp.smooth_rp(u, f, h, ct)),
+                    ("smooth_rp no norm", lambda: sp.smooth_rp(u, f, h, ct, with_norm=False)),
+                    ("smooth2_rp", lambda: sp.smooth2_rp(u, f, h, ct)),
+                    ("smooth2_rp no norm", lambda: sp.smooth2_rp(u, f, h, ct, with_norm=False)),
+                    ("residual_rp", lambda: sp.residual_rp(u, f, h, ct)),
+                    ("matvec_rp", lambda: sp.matvec_rp(u, h, ct)),
+                    ("matvec_rp with_dot", lambda: sp.matvec_rp(u, h, ct, with_dot=True)),
+                    ("matvec_dot_rp", lambda: sp.matvec_dot_rp(u, h, ct)),
+                    ("jacobi_step", lambda: sp.jacobi_step(u, f, h, ct)),
+                    ("matvec", lambda: sp.matvec(u, h, h, ct))):
+                one_launch("stencil", f"{name} {tag} c={c}", call)
         # each mode's time at this shape; bytes: each input read once, each
         # output written once
         c0 = stencil2d.as_scalar(0.0, u)
-        for mode, ff, acc, words in (("smooth", f, True, 3), ("residual", f, False, 3),
-                                     ("matvec", None, False, 2), ("matvec_dot", None, True, 1)):
+        for mode, ff, acc, words, ops in (
+                ("smooth", f, True, 3, 10), ("smooth2", f, True, 3, 20),
+                ("residual", f, False, 3, 10), ("matvec", None, False, 2, 10),
+                ("matvec_dot", None, True, 1, 10)):
             def k_fn(mode=mode, ff=ff, acc=acc):
                 return sp._stencil_cuda(mode, u, ff, h, c0, 0.8, acc)
-            b_ms, _ = bound_of(words * word * ny * nx, 10 * ny * nx,
+            b_ms, _ = bound_of(words * word * ny * nx, ops * ny * nx,
                                PEAK_F64_FLOPS_S if f64 else PEAK_F32_FLOPS_S)
-            log(f"  stencil {mode:10s} {tag}: call {time_ms(k_fn) * 1e3:8.1f} us  kernels on "
-                f"the device {device_us(k_fn, ['stencil_kernel'])} us  bound "
-                f"{b_ms * 1e3:.1f} us")
-        if not f64:
-            log(f"  conv2d matvec {tag}: {time_ms(lambda: conv_matvec(u, h, 0.0)) * 1e3:.1f} us")
-        else:
+            dev_us = device_us(k_fn, ["stencil_kernel"])
+            log(f"  stencil {mode:10s} {tag}: call {time_ms(k_fn) * 1e3:8.1f} us  kernel on the "
+                f"device {dev_us} us  bound {b_ms * 1e3:.1f} us"
+                + ("" if dev_us is None else f" ({b_ms * 1e3 / dev_us:.0%})")
+                + ("" if mode != "matvec" else
+                   f"  conv2d {time_ms(lambda: conv_matvec(u, h, 0.0)) * 1e3:.1f} us"))
+        if f64:
             # the row: the matvec of krylov.cg with the PALLAS policy (phase 11)
             kc.timed("stencil", lambda: sp._stencil_cuda("matvec", u, None, h, c0, 0.8, False),
                      lambda: sp.stencil_plain("matvec", u, None, h, c0, 0.8, False), (u,),
@@ -1108,6 +1134,21 @@ def phase_kernels_host(kc: KernelCheck):
                 f"{float((ref - mine).abs().max()):.3e} (another order of the sums)")
         del u, f
         torch.cuda.empty_cache()
+    # ragged tiles: the last tile column and row partly or one cell wide
+    for (ny, nx), dtype in ((shape, dtype) for shape in RAGGED
+                            for dtype in (torch.float32, torch.float64)):
+        u, f = (torch.tensor(rng.standard_normal((ny, nx)), dtype=dtype, device=dev)
+                for _ in range(2))
+        ct = stencil2d.as_scalar(41.25, u)
+        for mode in sp.MODES:
+            ff = None if mode.startswith("matvec") else f
+            what = f"{mode} {ny}x{nx} {str(dtype).removeprefix('torch.')}"
+            got = sp._stencil_cuda(mode, u, ff, 1.0 / 64, ct, 0.8, True)
+            want = sp.stencil_plain(mode, u, ff, 1.0 / 64, ct, 0.8, True)
+            kc.fields("stencil", got[:1], want[:1], what)
+            k = 1 if mode.startswith("matvec") else 2
+            kc.sums("stencil", got[1][:k], want[1][:k], what,
+                    rel=REL_SUM_F64 if dtype == torch.float64 else REL_SUM)
 
     # the legs of vcycle_rp at the NS host loop's fine level
     ny, nx = 513, 2049
@@ -1458,6 +1499,12 @@ def phase_mg_mixed(smi, n=4097):
     return counts, ((u, r, it), host)
 
 
+def by_mode(counts) -> dict:
+    """The stencil pass's launches by mode (``stencil_<mode>``), the nonzero ones."""
+    return {k.removeprefix("stencil_"): v for k, v in counts.items()
+            if k.startswith("stencil_") and v}
+
+
 def phase_pallas_f64(n=2049):
     import dataclasses
 
@@ -1481,7 +1528,8 @@ def phase_pallas_f64(n=2049):
         rel = true_rel(u, b, h)
         log(f"mg_solve coarse={coarse.value}: cycles {it} (JNP policy {itj})  "
             f"{secs:.4f} s (JNP {jsecs:.4f} s)  max rel diff to JNP {err:.3e}  "
-            f"true f64 r_rms/f_rms {rel:.3e}  stencil launches {counts['stencil']}")
+            f"true f64 r_rms/f_rms {rel:.3e}  stencil launches {counts['stencil']} "
+            f"{by_mode(counts)}")
         require(it == itj < 20, f"mg_solve {coarse.value}: cycles {it} vs JNP {itj}")
         require(err <= 1e-10, f"mg_solve {coarse.value}: fields differ from JNP by {err:.3e}")
         require(rel <= tol, f"mg_solve {coarse.value}: true residual {rel:.3e} > {tol}")
@@ -1494,14 +1542,14 @@ def phase_pallas_f64(n=2049):
         (xp, _, itp), psecs, _ = counted(
             lambda: krylov.cg(b, h, h, 0.0, tol, 20000, policy=pallas))
     log(f"cg: iterations {it} (plain {itp})  {secs:.3f} s (plain {psecs:.3f} s)  "
-        f"stencil launches {counts['stencil']}  max rel diff to plain "
+        f"stencil launches {counts['stencil']} {by_mode(counts)}  max rel diff to plain "
         f"{float((x - xp).abs().max() / xp.abs().max()):.3e}")
     require(it == itp < 20000, f"cg: iterations {it} vs plain {itp}")
     (x, r, it), secs, counts = counted(lambda: krylov.mg_preconditioned_cg(
         b, h, 0.0, tol, 30, mg_cfg=MGConfig(policy=pallas)))
     rel = true_rel(x, b, h)
     log(f"mg_preconditioned_cg: iterations {it}  {secs:.4f} s  true f64 r_rms/f_rms "
-        f"{rel:.3e}  stencil launches {counts['stencil']}")
+        f"{rel:.3e}  stencil launches {counts['stencil']} {by_mode(counts)}")
     require(it < 30 and rel <= tol, f"mg_preconditioned_cg: {it} iterations, residual {rel:.3e}")
     return main_counts
 
@@ -1537,7 +1585,7 @@ def phase_krylov_ds(n=4097, n_kernel=1025):
         (_, _, itp), _, _ = counted(solve_k)
     rel = true_rel(uh.double() + ul.double(), b, h)
     log(f"dots=kernel {n_kernel}^2: iterations {it} (plain {itp})  solve {secs:.4f} s  true "
-        f"f64 r_rms/f_rms {rel:.3e}  stencil launches {counts['stencil']}")
+        f"f64 r_rms/f_rms {rel:.3e}  stencil launches {counts['stencil']} {by_mode(counts)}")
     require(it == itp < 30, f"mg_pcg_ds dots=kernel: iterations {it} vs plain {itp}")
     require(counts["stencil"] > 0, "mg_pcg_ds dots=kernel never launched stencil")
 

@@ -48,10 +48,6 @@ __device__ __forceinline__ bool tile_halo(int w, int lane, int TY, int& ry, int&
     return false;
 }
 
-inline dim3 grid_of(int ny, int nx) {
-    return dim3((nx + FPR_BX - 1) / FPR_BX, (ny + FPR_BY - 1) / FPR_BY);
-}
-
 // One block layer per z plane of an (nz, ny, nx) field.
 inline dim3 grid_of_3d(int nz, int ny, int nx) {
     return dim3((nx + FPR_BX - 1) / FPR_BX, (ny + FPR_BY - 1) / FPR_BY, nz);
@@ -114,13 +110,18 @@ __device__ __forceinline__ void c_pair(float c, float h2, float& hi, float& lo) 
     quick_two_sum(s, se + pe, hi, lo);
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
+template <typename T>
+__device__ __forceinline__ T warp_sum(T v) {
     for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
     return v;
 }
 
-__device__ __forceinline__ float warp_max(float v) {
-    for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_down_sync(0xffffffffu, v, o));
+__device__ __forceinline__ float max_of(float a, float b) { return fmaxf(a, b); }
+__device__ __forceinline__ double max_of(double a, double b) { return fmax(a, b); }
+
+template <typename T>
+__device__ __forceinline__ T warp_max(T v) {
+    for (int o = 16; o > 0; o >>= 1) v = max_of(v, __shfl_down_sync(0xffffffffu, v, o));
     return v;
 }
 
@@ -151,13 +152,12 @@ __device__ __forceinline__ float block_sum_n(float v, float* sh, int tid) {
     return v;
 }
 
-// block_sum_n over NQ values at once, value q summed, or its maximum
-// taken where bit q of max_mask is set (non-negative values), in the same
-// fixed order, with one pair of barriers for all of them; sh holds
-// NQ * NT / 32 floats.  Valid in thread 0.
-template <int NT, int NQ>
-__device__ __forceinline__ void block_reduce_n(float (&v)[NQ], unsigned max_mask, float* sh,
-                                               int tid) {
+// block_sum_n over NQ values of type T (float or double) at once, value q
+// summed, or its maximum taken where bit q of max_mask is set (non-negative
+// values), in the same fixed order, with one pair of barriers for all of
+// them; sh holds NQ * NT / 32 values.  Valid in thread 0.
+template <int NT, int NQ, typename T>
+__device__ __forceinline__ void block_reduce_n(T (&v)[NQ], unsigned max_mask, T* sh, int tid) {
 #pragma unroll
     for (int q = 0; q < NQ; ++q) v[q] = (max_mask >> q) & 1u ? warp_max(v[q]) : warp_sum(v[q]);
     __syncthreads();
@@ -169,28 +169,27 @@ __device__ __forceinline__ void block_reduce_n(float (&v)[NQ], unsigned max_mask
     if (tid < 32) {
 #pragma unroll
         for (int q = 0; q < NQ; ++q) {
-            const float x = tid < NT / 32 ? sh[q * (NT / 32) + tid] : 0.0f;
+            const T x = tid < NT / 32 ? sh[q * (NT / 32) + tid] : T(0);
             v[q] = (max_mask >> q) & 1u ? warp_max(x) : warp_sum(x);
         }
     }
 }
 
-// The sums of a launch finished in the launch: every block reduces its NQ
-// values (block_reduce_n); thread 0 writes them to partials[q * nb + b],
-// makes them visible device-wide and takes a ticket from *counter; the
-// block that takes the last ticket adds the partials (thread t folds
-// blocks t, t + NT, ... in order, then block_reduce_n), so a rerun gives
-// the same bits, and re-arms *counter to 0 for the next launch.  Returns
-// true in thread 0 of the last block only, with the launch's totals in v.
-// Every thread of every block must call it; the counter must not be used
-// by two launches at once.  On an H100 this form was the fastest of those
-// tried (PERF.md §6): a ticket with acquire semantics empties the SM's
-// L1 under the other blocks' feet, and a fold by one warp lengthens the
-// launch's tail.
-template <int NT, int NQ>
-__device__ __forceinline__ bool finish_launch(float (&v)[NQ], unsigned max_mask,
-                                              float* partials, unsigned* counter, float* sh,
-                                              int tid) {
+// The sums of a launch finished in the launch, in float (K1, K4) or double
+// (#5 in float64): every block reduces its NQ values (block_reduce_n);
+// thread 0 writes them to partials[q * nb + b], makes them visible
+// device-wide and takes a ticket from *counter; the block that takes the
+// last ticket adds the partials (thread t folds blocks t, t + NT, ... in
+// order, then block_reduce_n), so a rerun gives the same bits, and re-arms
+// *counter to 0 for the next launch.  Returns true in thread 0 of the last
+// block only, with the launch's totals in v.  Every thread of every block
+// must call it; the counter must not be used by two launches at once.  On
+// an H100 this form was the fastest of those tried (PERF.md §6): a ticket
+// with acquire semantics empties the SM's L1 under the other blocks' feet,
+// and a fold by one warp lengthens the launch's tail.
+template <int NT, int NQ, typename T>
+__device__ __forceinline__ bool finish_launch(T (&v)[NQ], unsigned max_mask, T* partials,
+                                              unsigned* counter, T* sh, int tid) {
     __shared__ bool is_last;
     const unsigned nb = gridDim.x * gridDim.y * gridDim.z;
     const unsigned b = (blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x;
@@ -204,14 +203,14 @@ __device__ __forceinline__ bool finish_launch(float (&v)[NQ], unsigned max_mask,
     __syncthreads();
     if (!is_last) return false;
     __threadfence();
-    float acc[NQ];
+    T acc[NQ];
 #pragma unroll
     for (int q = 0; q < NQ; ++q) {
         const bool mx = (max_mask >> q) & 1u;
-        float a = 0.0f;
+        T a = T(0);
         for (unsigned j = tid; j < nb; j += NT) {
-            const float x = __ldcg(partials + q * nb + j);
-            a = mx ? fmaxf(a, x) : a + x;
+            const T x = __ldcg(partials + q * nb + j);
+            a = mx ? max_of(a, x) : a + x;
         }
         acc[q] = a;
     }

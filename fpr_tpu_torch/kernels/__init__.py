@@ -23,7 +23,8 @@ kernel (never the plain-PyTorch calls), so a run can show which kernels
 its main path went through.  ``dual_timek`` and ``dual_timek_padded``
 count calls of the K-sweep wrappers (#10 and #9), each of which launches
 the fused K-sweep kernel once per pass of at most ``K_MAX`` sweeps, and
-``stencil`` calls of its wrappers (``smooth2`` launches the kernel twice).
+``stencil`` calls of its wrappers (one launch a call, ``smooth2``
+included), and ``stencil_<mode>`` the same calls by mode.
 ``smooth2r_split`` and ``corr_smooth2`` count the separate-buffer V-cycle
 legs of the row-padded V-cycle, which launch the leg kernel of
 ``smooth_down`` and ``corr_up`` (one launch a call, all four).
@@ -55,13 +56,15 @@ from pathlib import Path
 import torch
 
 KERNELS = ("defect", "smooth_down", "corr_up", "ns_fused", "dual_time", "dual_timek", "ds3d",
-           "stencil", "smooth2r_split", "corr_smooth2", "dual_timek_padded", "ns_fused_helm")
+           "stencil", "smooth2r_split", "corr_smooth2", "dual_timek_padded", "ns_fused_helm",
+           "stencil_smooth", "stencil_smooth2", "stencil_residual", "stencil_matvec",
+           "stencil_matvec_dot")
 launches = dict.fromkeys(KERNELS, 0)
 
 # the block shape of csrc/fpr_common.cuh (FPR_BX, FPR_BY); the 3D entry
 # points check the partials length they are given against their grid
 BX, BY = 32, 8
-# the tile of the single-pass 2D kernels K1 and K4 (fpr::TILE_* of
+# the tile of the single-pass 2D kernels K1, K4 and #5 (fpr::TILE_* of
 # csrc/fpr_common.cuh): TILE_X columns x TILE_WARPS * S rows, S <=
 # TILE_S_MAX rows a thread, chosen per launch by tile_plan
 TILE_X, TILE_WARPS, TILE_S_MAX = 32, 8, 4
@@ -98,8 +101,9 @@ _SIGNATURES = {
     "fpr_dual_timek": [_P, _P, _P, _P, _I, *[_F] * 6, *[_I] * 7, _P, *[_I] * 4, _P],
     "fpr_dual_timek_blocks": [_I, _I, _I, _I, ctypes.POINTER(_I)],
     "fpr_ds3d": [_P, _P, _P, _P, _I, *[_F] * 10, _I, _I, _I, _P],
-    "fpr_stencil_f32": [_P, _P, _P, _F, _F, _F, _I, _I, _I, _P, _P, _P],
-    "fpr_stencil_f64": [_P, _P, _P, _D, _D, _D, _I, _I, _I, _P, _P, _P],
+    "fpr_stencil_f32": [_P, _P, _P, *[_F] * 4, *[_I] * 5, *[_P] * 5],
+    "fpr_stencil_f64": [_P, _P, _P, *[_D] * 4, *[_I] * 5, *[_P] * 5],
+    "fpr_stencil_fill": [_I, ctypes.POINTER(_I), ctypes.POINTER(_I)],
     "fpr_graph_create": [ctypes.POINTER(_P)],
     "fpr_graph_destroy": [_P],
     "fpr_graph_nodes": [_P, ctypes.POINTER(ctypes.c_size_t)],
@@ -228,8 +232,8 @@ def stream(t: torch.Tensor) -> int:
 @functools.lru_cache(maxsize=None)
 def card_fill(fill: str, variant: int, device_index: int) -> tuple[int, int]:
     """(SMs, resident blocks an SM) of a kernel on a card, from the C entry
-    point ``fill`` (fpr_defect_fill, fpr_ns_fill) for the kernel's template
-    ``variant``; read once per card."""
+    point ``fill`` (fpr_defect_fill, fpr_ns_fill, fpr_stencil_fill) for the
+    kernel's template ``variant``; read once per card."""
     sms, per_sm = ctypes.c_int(0), ctypes.c_int(0)
     with torch.cuda.device(device_index):
         check(getattr(lib(), fill)(variant, ctypes.byref(sms), ctypes.byref(per_sm)), fill)
@@ -238,7 +242,7 @@ def card_fill(fill: str, variant: int, device_index: int) -> tuple[int, int]:
 
 def tile_plan(ny: int, nx: int, sms: int, per_sm: int,
               s_max: int = TILE_S_MAX) -> tuple[int, int]:
-    """(S, blocks) of a K1 or K4 launch over (ny, nx) on a card of ``sms``
+    """(S, blocks) of a K1, K4 or #5 launch over (ny, nx) on a card of ``sms``
     SMs that hold ``per_sm`` blocks each: S rows a thread, the largest S up
     to ``s_max`` that still gives every block the card holds at once a tile
     (S = 1 where none does), and as many blocks as the card holds at once,
@@ -251,7 +255,7 @@ def tile_plan(ny: int, nx: int, sms: int, per_sm: int,
 
 
 def n_tiles(ny: int, nx: int, S: int) -> int:
-    """Tiles of a K1 or K4 launch over (ny, nx) with S rows a thread."""
+    """Tiles of a K1, K4 or #5 launch over (ny, nx) with S rows a thread."""
     return -(-nx // TILE_X) * -(-ny // (TILE_WARPS * S))
 
 
@@ -259,21 +263,22 @@ _counters: dict = {}
 
 
 def launch_counter(t: torch.Tensor) -> torch.Tensor:
-    """The ticket word of K1's and K4's in-launch sums for launches on t's
-    device: one int32, 0 between launches (the last block of each launch
-    re-arms it).  One word per device serves every stream, the side stream
-    a graph is captured on included: the port launches K1 and K4, eagerly or
-    in a graph, on the device's current stream only, one launch after
-    another (``parallel/mesh.py`` makes no streams: every shard of a virtual
-    mesh launches on its device's current stream).  The word is made
-    outside any capture (a graph's warm-up pass makes it), never in a
-    graph's memory pool."""
+    """The ticket word of the in-launch sums of K1, K4 and #5 for launches
+    on t's device: one int32, 0 between launches (the last block of each
+    launch re-arms it).  One word per device serves every stream, the side
+    stream a graph is captured on included: the port launches these three,
+    eagerly or in a graph, on the device's current stream only, one launch
+    after another (``parallel/mesh.py`` makes no streams: every shard of a
+    virtual mesh launches on its device's current stream; the one side
+    stream, ``parallel/dist_diffusion.py``'s, carries part 1's face copies
+    only).  The word is made outside any capture (a graph's
+    warm-up pass makes it), never in a graph's memory pool."""
     key = t.device.index
     word = _counters.get(key)
     if word is None:
         if torch.cuda.is_current_stream_capturing():
-            raise RuntimeError("launch_counter: the first K1/K4 launch on a device is being "
-                               "captured; run the body once before capturing it")
+            raise RuntimeError("launch_counter: the first K1/K4/#5 launch on a device is "
+                               "being captured; run the body once before capturing it")
         word = _counters[key] = torch.zeros(1, dtype=torch.int32, device=t.device)
     return word
 

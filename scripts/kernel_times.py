@@ -23,9 +23,12 @@ S solve's flags at 513x2049, and the MG row's at 4097^2) and of K4
 (``ns_fused_rp`` at 513x2049: explicit with_defect, rhs at beta 0.5 with
 with_sumsq, rhs with_helm_defect): the device µs of every kernel the call
 launches (``all_us``) and of the K1/K4 kernel alone (``kernel_us``), the
-launches a call, and the call's µs from CUDA events.  Run it once per tree
-in a fresh process, in turns (parent, change, change, parent), since two
-packages of one name cannot share a process.
+launches a call, and the call's µs from CUDA events.  ``stencil`` holds
+one public call of #5 (``ops/stencil_pass.py``) in each mode at phase 3's
+shapes (513x2049 and 4097^2 float32, 2049^2 float64): the same figures
+for it, the stencil kernel's device µs as ``kernel_us``, and the bound.
+Run it once per tree in a fresh process, in turns (parent, change,
+change, parent), since two packages of one name cannot share a process.
 """
 
 import json
@@ -52,7 +55,8 @@ def main() -> int:
                   "bound_ms": kc.bound(name)[0]}
            for name, row in kc.rows.items()}
     print(json.dumps({"root": root, "kernels": out, "small": small_field(chip_smoke),
-                      "legs_4097": legs_4097(chip_smoke), "calls": calls(chip_smoke)}))
+                      "legs_4097": legs_4097(chip_smoke), "calls": calls(chip_smoke),
+                      "stencil": stencil(chip_smoke)}))
     return 0
 
 
@@ -117,7 +121,6 @@ def calls(chip_smoke, reps=20) -> dict:
     through the entry points that both trees have."""
     import numpy as np
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from fpr_tpu_torch.ops import ds, ns_fused
 
@@ -128,19 +131,7 @@ def calls(chip_smoke, reps=20) -> dict:
         return torch.tensor(rng.standard_normal(shape) * scale, dtype=torch.float32, device=dev)
 
     def measure(fn):
-        fn()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        evs = [ev for ev in prof.key_averages() if ev.device_type.name == "CUDA"]
-        mine = [ev for ev in evs if "defect_kernel" in ev.key or "ns_kernel" in ev.key]
-        return {"all_us": sum(ev.device_time_total for ev in evs) / reps,
-                "kernel_us": (sum(ev.device_time_total for ev in mine)
-                              / max(sum(ev.count for ev in mine), 1)),
-                "launches": sum(ev.count for ev in evs) / reps,
-                "call_us": chip_smoke.time_ms(fn) * 1e3}
+        return _measure(chip_smoke, ["defect_kernel", "ns_kernel"], reps, fn)
 
     ny, nx, n = 513, 2049, 4097
     h, h4 = 1.0 / (ny - 1), 1.0 / (n - 1)
@@ -168,6 +159,62 @@ def calls(chip_smoke, reps=20) -> dict:
         "ns_fused_rp_helm": measure(lambda: ns_fused.ns_fused_rp(
             TW, S[0], dt, h, 0.01, 1e6, with_helm_defect=True, **rhs)),
     }
+
+
+def _measure(chip_smoke, names, reps, fn) -> dict:
+    """Every CUDA kernel of fn's calls from torch.profiler: device µs of all
+    of them a call, of those whose names contain one of names a launch,
+    launches a call; and the call's µs from CUDA events."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    evs = [ev for ev in prof.key_averages() if ev.device_type.name == "CUDA"]
+    mine = [ev for ev in evs if any(n in ev.key for n in names)]
+    return {"all_us": sum(ev.device_time_total for ev in evs) / reps,
+            "kernel_us": (sum(ev.device_time_total for ev in mine)
+                          / max(sum(ev.count for ev in mine), 1)),
+            "launches": sum(ev.count for ev in evs) / reps,
+            "call_us": chip_smoke.time_ms(fn) * 1e3}
+
+
+def stencil(chip_smoke, reps=20) -> dict:
+    """#5's public calls, one a mode, at phase 3's shapes, through the entry
+    points that both trees have, c a 0-dim tensor on the card; the bound
+    counts each input read once and each output written once."""
+    import numpy as np
+    import torch
+
+    from fpr_tpu_torch.ops import stencil_pass as sp
+
+    rng = np.random.default_rng(7)
+    out = {}
+    for (ny, nx), dtype in (((513, 2049), torch.float32), ((4097, 4097), torch.float32),
+                            ((2049, 2049), torch.float64)):
+        u, f = (torch.tensor(rng.standard_normal((ny, nx)), dtype=dtype, device="cuda")
+                for _ in range(2))
+        c = torch.zeros((), dtype=dtype, device="cuda")
+        h = 1.0 / (min(ny, nx) - 1)
+        word = u.element_size()
+        tag = f"{ny}x{nx} {str(dtype).removeprefix('torch.')}"
+        for mode, fn, words in (("smooth", lambda: sp.smooth_rp(u, f, h, c), 3),
+                                ("smooth no norm", lambda: sp.smooth_rp(u, f, h, c,
+                                                                        with_norm=False), 3),
+                                ("smooth2", lambda: sp.smooth2_rp(u, f, h, c), 3),
+                                ("residual", lambda: sp.residual_rp(u, f, h, c), 3),
+                                ("matvec", lambda: sp.matvec_rp(u, h, c), 2),
+                                ("matvec_dot", lambda: sp.matvec_dot_rp(u, h, c), 1)):
+            row = _measure(chip_smoke, ["stencil_kernel"], reps, fn)
+            row["bound_us"] = chip_smoke.bound_of(words * word * ny * nx, 0)[0] * 1e3
+            out[f"{mode} {tag}"] = row
+        del u, f
+        torch.cuda.empty_cache()
+    return out
 
 
 if __name__ == "__main__":

@@ -131,12 +131,88 @@ def test_cpu_tensors_run_the_plain_version(rng):
 
     kernels.reset_launches()
     u = torch.tensor(rng.random((17, 17)))
-    out, acc = sp.stencil_plain("matvec", u, None, 1 / 16, 0.5)
+    out, sums = sp.stencil_plain("matvec", u, None, 1 / 16, 0.5)
     assert torch.equal(sp.matvec_rp(u, 1 / 16, 0.5), out)
-    assert float(sp.matvec_dot_rp(u, 1 / 16, 0.5)) == float(acc)
+    assert float(sp.matvec_dot_rp(u, 1 / 16, 0.5)) == float(sums[0])
     assert kernels.launches["stencil"] == 0
     with pytest.raises(ValueError, match="does not match"):
         sp.residual_rp(u, u[:-1], 1 / 16, 0.0)
     # the CUDA path refuses what the kernel does not take; it never falls back
     with pytest.raises(ValueError, match="expected a CUDA tensor"):
         sp._stencil_cuda("matvec", u, None, 1 / 16, 0.5)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("c", [0.0, 3.14, "tensor"])
+@pytest.mark.parametrize("shape", SHAPES)
+def test_smooth2_plain_matches_pallas2d(rng, shape, c, dtype):
+    """``stencil_plain("smooth2")``, the kernel's plain version, against the
+    TPU kernel's smooth2 mode in interpret mode; c also as a 0-dim tensor
+    (a shift on the device).  Tolerances of the file's docstring: the
+    iterate to 64 ulps of max|u| plus the residual bound times the two
+    sweeps' weights, the sum to 1e-5 (1e-12) relative plus the residual
+    bound."""
+    ny, nx = shape
+    h = 1.0 / (ny - 1)
+    cv = 3.14 if c == "tensor" else c
+    u = rng.standard_normal(shape).astype(dtype)
+    f = rng.standard_normal(shape).astype(dtype)
+    br = pallas2d._pick_br(ny, nx, np.dtype(dtype).itemsize)
+    uj, rj = pallas2d.smooth2_rp(pallas2d.pad2d(jnp.asarray(u), br),
+                                 pallas2d.pad2d(jnp.asarray(f), br), ny, nx, br, h, cv)
+    ct = torch.tensor(cv, dtype=torch.float32 if dtype == np.float32 else torch.float64) \
+        if c == "tensor" else c
+    got, sums = sp.stencil_plain("smooth2", torch.tensor(u), torch.tensor(f), h, ct)
+    tol_field, tol_sum = _bounds(u, f, h, cv, dtype)
+    w = 0.8 * h * h / (4.0 + cv * h * h)
+    bound = 64 * float(np.finfo(dtype).eps) * np.abs(u).max() + 2 * w * tol_field
+    want = np.asarray(pallas2d.unpad2d(uj, ny, nx))
+    assert np.abs(got.numpy() - want).max() <= bound
+    assert abs(float(sums[1]) - float(rj)) <= tol_sum * float(rj) + tol_field
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_smooth2_without_norm_returns_none(rng, dtype):
+    """smooth2_rp(with_norm=False) returns (u'', None), u'' the bits of two
+    smooth_rp sweeps and of smooth2_rp with the norm."""
+    u = torch.tensor(rng.standard_normal((33, 129)), dtype=dtype)
+    f = torch.tensor(rng.standard_normal((33, 129)), dtype=dtype)
+    out, none = sp.smooth2_rp(u, f, 1 / 32, 3.14, with_norm=False)
+    assert none is None
+    two, r2 = sp.smooth_rp(sp.smooth_rp(u, f, 1 / 32, 3.14, with_norm=False)[0], f, 1 / 32, 3.14)
+    normed, r = sp.smooth2_rp(u, f, 1 / 32, 3.14)
+    assert torch.equal(out, two) and torch.equal(out, normed) and torch.equal(r, r2)
+
+
+@pytest.mark.parametrize("card", [(132, 8), (132, 4), (132, 3)])
+@pytest.mark.parametrize("shape,dtype", [((513, 2049), torch.float32),
+                                         ((4097, 4097), torch.float32),
+                                         ((2049, 2049), torch.float64)])
+def test_plan_tiles_cover_every_cell_once(monkeypatch, shape, dtype, card):
+    """The launch plan at phase 3's shapes on an H100-sized card (132 SMs,
+    a few blocks each): the blocks take tiles b, b + blocks, ..., which
+    cover every cell once, and the partials have one entry a block.  Exact:
+    integer counts."""
+    from fpr_tpu_torch import kernels
+
+    monkeypatch.setattr(kernels, "card_fill", lambda fill, variant, index: card)
+    monkeypatch.setattr(kernels, "require_cuda", lambda name, dtypes, *tensors: None)
+    seen = []
+    monkeypatch.setattr(sp, "_launch", lambda mode, u, f, c, h, alpha, out, partials, sums,
+                        plan: seen.append((plan, partials.numel())))
+    ny, nx = shape
+    u = torch.empty(shape, dtype=dtype, device="meta")
+    for mode in sp.MODES:
+        f = None if mode.startswith("matvec") else u
+        sp._stencil_cuda(mode, u, f, 1.0 / (ny - 1), 0.0, with_acc=True)
+        (S, blocks), n_partials = seen.pop()
+        assert n_partials == blocks <= card[0] * card[1]
+        ty, tiles_x = kernels.TILE_WARPS * S, -(-nx // kernels.TILE_X)
+        n_tiles = kernels.n_tiles(ny, nx, S)
+        assert blocks <= n_tiles
+        count = np.zeros((-(-ny // ty) * ty, tiles_x * kernels.TILE_X), dtype=np.int8)
+        for b in range(blocks):
+            for t in range(b, n_tiles, blocks):
+                y0, x0 = t // tiles_x * ty, t % tiles_x * kernels.TILE_X
+                count[y0:y0 + ty, x0:x0 + kernels.TILE_X] += 1
+        assert (count == 1).all()
