@@ -135,6 +135,24 @@ Phases, in order; the first failure stops the run with a non-zero exit:
     overlap, pallas 2x2x2 and pallas overlap, K=3; pallas 2x2x2 and K=3
     through the plain versions too), ``mg_solve_sharded`` at 2049^2 float64
     and 2 steps of ``simulate(mesh=)``; the part's seconds.
+23. the last slice's modules: ``transfer.prolongate_shifts`` at 513^2
+    fine, float32 and float64, with and without the side copies, within 4
+    ulps of the largest coarse value of ``prolongate`` and of the host's
+    ``oracle.prolongate_scatter``; #5 in float64 at 257^2 (matvec against
+    ``oracle.helmholtz_operator``, residual and smooth with its rms against
+    the port's native ``oracle_residual2d`` and ``oracle_jacobi2d``, built
+    by g++ from ``native/``), relative 1e-12; #8 in float32 at 64^3 against
+    the float64 ``oracle_dual_time3d``, within 8 float32 ulps of max|Htau|
+    and the sum of squares within REL_SUM; each of JAX's ``*_jit`` entry
+    points bitwise against its base, with the same count and launching the
+    base's kernels: ``mg_solve_ds_jit`` and ``mg_pcg_ds_jit`` at 4097^2
+    (phase 4's and 12's configuration, 4 outers for the MG row),
+    ``mg_solve_jit`` with the PALLAS policy and ``mg_solve_mixed_jit`` at
+    2049^2 float64, ``ns_step_jit`` (phase 13's beta=0.5 step); the volume
+    demo's solve (``plotting.volume_slices.demo_field``, 48^3 float32)
+    bitwise against a direct ``diffusion3d.solve``, its iterations logged,
+    and its H through ``utils.checkpoint`` and ``volume_slices.load_field``
+    bitwise.  The plotting modules import; matplotlib is not used.
 
 Phase 3 holds the legs K2/K3 (one launch of the leg kernel a call) bitwise
 at the MG row's levels with ns=5, timed at 2049x513 ns=3 and at 4097^2
@@ -2462,6 +2480,178 @@ def phase_device_loops(smi, explicit, semi, mixed, ns_ten):
     log(f"graph launches {loops.stats['launches']}, captures {loops.stats['captures']}")
 
 
+def phase_oracles_and_entry_points(n_fine=513, n_f64=257, n_3d=64, n_ds=4097, n_pallas=2049,
+                                   n_demo=48, ns_size=None, ds_outers=4):
+    """Phase 23: the modules of the last slice.  ``prolongate_shifts``
+    against ``prolongate`` and the host's ``prolongate_scatter``; #5 in
+    float64 against the port's scipy and native oracles and #8 in float32
+    against the native float64 oracle; each of JAX's ``*_jit`` entry
+    points bitwise against its base (the two share one captured graph);
+    the volume demo's solve bitwise against a direct solve, and a field
+    through ``utils.checkpoint`` and ``volume_slices``' loader.  No
+    matplotlib is used: the plotting modules must import without it."""
+    import importlib.util
+    import tempfile
+    from pathlib import Path
+
+    import numpy as np
+    import torch
+
+    from fpr_tpu_torch.core.config import (CoarseSolver, ExecutionPolicy, InitScheme,
+                                           MGConfig)
+    from fpr_tpu_torch.models import diffusion3d, navier_stokes
+    from fpr_tpu_torch.ops import dual_time, oracle, stencil_pass, transfer
+    from fpr_tpu_torch.plotting import plots, volume_slices, volume_viewer  # noqa: F401
+    from fpr_tpu_torch.solvers import krylov, multigrid
+    from fpr_tpu_torch.utils import checkpoint, native
+
+    log("== phase 23: prolongate_shifts, #5 and #8 against the port's oracles, the *_jit "
+        "entry points against their bases, the volume demo's solve and loader")
+    on_card = torch.device(DEVICE).type == "cuda"
+    lib = native.get_lib()
+    require(lib is not None, "the native oracle library did not build (g++ and native/)")
+    log(f"native oracles: {native.library_path().name}  matplotlib "
+        f"{'present' if importlib.util.find_spec('matplotlib') else 'absent'} (not used here)")
+
+    def launched(counts, *names):
+        if on_card:
+            for k in names:
+                require(counts[k] > 0, f"phase 23 never launched {k}")
+        return {k: v for k, v in counts.items() if v}
+
+    # prolongate_shifts: the three forms add the same weighted coarse values
+    # (weights 1, 1/2, 1/4) in other orders, so they agree to a few ulps of
+    # the largest coarse value
+    rng = np.random.default_rng(23)
+    nc = (n_fine - 1) // 2 + 1
+    for dtype in (np.float32, np.float64):
+        c = rng.random((nc, nc)).astype(dtype)
+        scatter = oracle.prolongate_scatter(c, (n_fine, n_fine))
+        ct = torch.tensor(c, device=DEVICE)
+        bound = 4 * float(np.finfo(dtype).eps) * float(np.abs(c).max())
+        for apply_bcs in (False, True):
+            got = transfer.prolongate_shifts(ct, (n_fine, n_fine), apply_bcs=apply_bcs)
+            gather = transfer.prolongate(ct, (n_fine, n_fine), apply_bcs=apply_bcs)
+            want = scatter.copy()
+            if apply_bcs:
+                want[:, 0], want[:, -1] = want[:, 1], want[:, -2]
+            e_g = float((got - gather).abs().max())
+            e_s = float(np.abs(got.cpu().numpy() - want).max())
+            log(f"prolongate_shifts {n_fine}^2 {np.dtype(dtype).name} apply_bcs={apply_bcs}: "
+                f"max |diff| to prolongate {e_g:.3e}, to prolongate_scatter {e_s:.3e} "
+                f"(bound {bound:.3e})")
+            require(got.dtype == ct.dtype and e_g <= bound and e_s <= bound,
+                    f"prolongate_shifts {np.dtype(dtype).name} apply_bcs={apply_bcs}: "
+                    f"{e_g:.3e}, {e_s:.3e} > {bound:.3e}")
+
+    # #5 in float64 against the sparse Helmholtz matrix and the C++ oracles
+    n, c = n_f64, 2.5
+    h = 1.0 / (n - 1)
+    u, f = rng.random((n, n)), rng.random((n, n))
+    x = np.zeros((n, n))
+    x[1:-1, 1:-1] = u[1:-1, 1:-1]
+    ut, ft, xt = (torch.tensor(a, device=DEVICE) for a in (u, f, x))
+    A = oracle.helmholtz_operator(n - 2, n - 2, h, c)
+
+    def rel(got, want):
+        return float(np.abs(got - want).max() / np.abs(want).max())
+
+    (mv, res, (us, rms)), _, counts = counted(lambda: (
+        stencil_pass.matvec(xt, h, h, c), stencil_pass.residual_rp(ut, ft, h, c),
+        stencil_pass.smooth_rp(ut, ft, h, c)))
+    uo, ss = native.oracle_jacobi2d(u, f, h, c)
+    errs = dict(matvec=rel(mv.cpu().numpy()[1:-1, 1:-1].ravel(), A @ x[1:-1, 1:-1].ravel()),
+                residual=rel(res.cpu().numpy(), native.oracle_residual2d(u, f, h, c)),
+                smooth=rel(us.cpu().numpy(), uo),
+                smooth_rms=abs(float(rms) / float(np.sqrt(ss / u.size)) - 1.0))
+    log(f"#5 float64 {n}^2, c={c}: relative errors {errs} (bound 1e-12; matvec against "
+        f"helmholtz_operator, residual and smooth against the native oracles)  launches "
+        f"{launched(counts, 'stencil')}")
+    require(all(e <= 1e-12 for e in errs.values()), f"#5 against the oracles: {errs}")
+
+    # #8 in float32 against the float64 oracle: the kernel rounds each of its
+    # ~10 operations a cell to float32 (a few ulps of |Htau|), and sums the
+    # squares in float32 in another order
+    shape = (n_3d,) * 3
+    kw = diffusion_kw(shape)
+    Ht = rng.random(shape, dtype=np.float32)
+    Hs = (Ht + 1e-3 * rng.standard_normal(shape)).astype(np.float32)
+    (out, sumsq), _, counts = counted(lambda: dual_time.dual_time_step(
+        torch.tensor(Ht, device=DEVICE), torch.tensor(Hs, device=DEVICE), **kw))
+    want, want_ss = native.oracle_dual_time3d(Ht, Hs, **kw)
+    eps32 = float(np.finfo(np.float32).eps)
+    bound = 8 * eps32 * float(np.abs(Hs).max())
+    err, err_ss = float(np.abs(out.cpu().numpy() - want).max()), abs(float(sumsq) / want_ss - 1)
+    log(f"#8 float32 {n_3d}^3: max |diff| to oracle_dual_time3d {err:.3e} (bound {bound:.3e}), "
+        f"sumsq relative {err_ss:.3e} (bound {REL_SUM})  launches "
+        f"{launched(counts, 'dual_time')}")
+    require(err <= bound and err_ss <= REL_SUM, f"#8 against the oracle: {err:.3e}, {err_ss:.3e}")
+
+    def same(name, a, b, counts, *kernels_needed):
+        ta, tb = tensors(a), tensors(b)
+        equal = len(ta) == len(tb) and all(torch.equal(p, q) for p, q in zip(ta, tb))
+        rest = [(p, q) for p, q in zip(a, b) if not isinstance(p, (torch.Tensor, tuple))]
+        log(f"{name}: {'bitwise' if equal else 'DIFFERENT'}, counts {[p for p, _ in rest]} "
+            f"(base {[q for _, q in rest]})  launches {launched(counts, *kernels_needed)}")
+        require(equal and all(p == q for p, q in rest), f"{name} is not its base's result")
+
+    # the ds MG row (phase 4) and Krylov ds (phase 12) from zero
+    h = 1.0 / (n_ds - 1)
+    cfg = MGConfig(coarse_size=min(513, (n_ds - 1) // 2 + 1), coarse_solver=CoarseSolver.DST,
+                   pre_smooth=5, post_smooth=5)
+    b = poisson_rhs(n_ds, "float32")
+    got, _, counts = counted(lambda: multigrid.mg_solve_ds_jit(b, h, 0.0, 1e-6, 30, cfg, None,
+                                                               True))
+    base = multigrid.mg_solve_ds(None, b, h, 0.0, 1e-6, 30, cfg=cfg, return_pair=True)
+    same(f"mg_solve_ds_jit {n_ds}^2", got, base, counts, "defect", "smooth_down", "corr_up")
+    if ds_outers is not None:
+        require(got[2] == ds_outers, f"mg_solve_ds_jit: {got[2]} outers, not {ds_outers}")
+    got, _, counts = counted(lambda: krylov.mg_pcg_ds_jit(b, h, 0.0, 1e-6, 30, cfg, True))
+    base = krylov.mg_pcg_ds(b, h, 0.0, 1e-6, 30, cfg=cfg, return_pair=True)
+    same(f"mg_pcg_ds_jit {n_ds}^2", got, base, counts, "defect")
+    del b, got, base
+    # the host tiers in float64: PALLAS mg_solve (phase 11) and mg_solve_mixed
+    h = 1.0 / (n_pallas - 1)
+    b = poisson_rhs(n_pallas, "float64")
+    pallas = MGConfig(policy=ExecutionPolicy.PALLAS)
+    got, _, counts = counted(lambda: multigrid.mg_solve_jit(b.new_zeros(b.shape), b, h, 0.0,
+                                                            1e-6, 20, False, pallas))
+    base = multigrid.mg_solve(b.new_zeros(b.shape), b, h, 0.0, 1e-6, 20, cfg=pallas)
+    same(f"mg_solve_jit PALLAS {n_pallas}^2 float64", got, base, counts, "stencil")
+    got, _, counts = counted(lambda: multigrid.mg_solve_mixed_jit(b.new_zeros(b.shape), b, h,
+                                                                  0.0, 1e-6, 30))
+    base = multigrid.mg_solve_mixed(b.new_zeros(b.shape), b, h, 0.0, 1e-6, 30)
+    same(f"mg_solve_mixed_jit {n_pallas}^2", got, base, counts, "smooth2r_split",
+         "corr_smooth2")
+    del b, got, base
+    # one step of the NS host loop (phase 13's configuration)
+    ns = host_cfg(0.5, **(ns_size or {}))
+    T = navier_stokes.init_field(ns, InitScheme.COSINE, device=DEVICE, dtype=torch.float64)
+    W = torch.tensor(rng.standard_normal((ns.ny, ns.nx)) * 10.0, device=DEVICE)
+    got, _, counts = counted(lambda: navier_stokes.ns_step_jit(T, W, torch.zeros_like(W), ns))
+    base = navier_stokes.ns_step(T, W, torch.zeros_like(W), ns)
+    same(f"ns_step_jit {ns.nx}x{ns.ny} beta=0.5 mixed", got, base, counts, "smooth2r_split",
+         "corr_smooth2")
+    del T, W, got, base
+
+    # the volume demo's solve, and a field through a checkpoint
+    H, secs, _ = counted(lambda: volume_slices.demo_field(n_demo, device=DEVICE))
+    direct = diffusion3d.solve(volume_slices.demo_config(n_demo), dtype=torch.float32,
+                               device=DEVICE)
+    log(f"volume demo {n_demo}^3 (JNP, float32, t=0.4): {direct.iters_total} iterations, "
+        f"{secs:.3f} s; H {'bitwise' if np.array_equal(H, direct.H) else 'DIFFERENT'} to a "
+        f"direct solve, max {float(H.max()):.6f}")
+    require(H.shape == (n_demo,) * 3 and H.dtype == np.float32 and np.isfinite(H).all()
+            and np.array_equal(H, direct.H), "the volume demo's solve is not the direct one")
+    with tempfile.TemporaryDirectory() as d:
+        path = Path(d) / "volume.npz"
+        checkpoint.save(path, H=torch.tensor(H, device=DEVICE))
+        back = volume_slices.load_field(path)
+    require(back.dtype == H.dtype and np.array_equal(back, H),
+            "H through checkpoint.save and volume_slices.load_field is not bitwise H")
+    log("H through checkpoint.save and volume_slices.load_field: bitwise")
+
+
 LAUNCH_COUNTS = "--launch-counts"
 
 
@@ -2804,6 +2994,7 @@ def main() -> int:
         phase_checkpoints()
         phase_experiments()
         phase_device_loops(smi, explicit, semi, mixed, ns_ten)
+        phase_oracles_and_entry_points()
     except Failed as exc:
         log(f"chip_smoke FAILED: {exc}")
         # the check that failed on the standard error too, where a caller
@@ -2811,7 +3002,7 @@ def main() -> int:
         print(f"chip_smoke FAILED after {time.perf_counter() - T0:.0f} s: {exc}",
               file=sys.stderr, flush=True)
         return 1
-    log(f"chip_smoke: 22 phases passed in {time.perf_counter() - T0:.0f} s")
+    log(f"chip_smoke: 23 phases passed in {time.perf_counter() - T0:.0f} s")
     table = []
     for k, (source, replaces) in SOURCES.items():
         row = kc.rows[k]

@@ -224,6 +224,14 @@ def device_call(fn, carry, key=None):
     return graph.run(leaves)
 
 
+def clear_cache() -> None:
+    """Close every cached graph, which frees its memory pool: a sweep over
+    sizes calls it between configurations, since ``CACHE_SIZE`` graphs of
+    the largest grids hold more than the card's memory."""
+    while _cache:
+        _cache.popitem(last=False)[1].close()
+
+
 def _route():
     """Which function each kernel wrapper launches: every ``_*_cuda``
     attribute of the kernel modules."""

@@ -10,10 +10,11 @@
 Each takes the JAX module's flags but its TPU-only ones, with ``--device``
 (default ``cuda``; no card is an error, ``cpu`` runs the plain versions).
 Rows go to CSVs under ``benchmark-results-torch/`` (``RESULTS``) with the
-JAX rows' columns, so that ``fpr_tpu/plotting/plots.py`` reads them, and
-two that differ: ``backend`` is "cuda" or "cpu", and ``device`` names the
-card.  A row whose key (``backend`` included) is in the CSV already is
-skipped.  ``scripts/run_all_torch.sh`` runs the sweeps' rows.
+JAX rows' columns, so that ``fpr_tpu_torch.plotting.plots`` (and JAX's
+``plots.py``) read them, and two that differ: ``backend`` is "cuda" or
+"cpu", and ``device`` names the card.  A row whose key (``backend``
+included) is in the CSV already is skipped.  ``scripts/run_all_torch.sh``
+runs the sweeps' rows.
 """
 
 RESULTS = "benchmark-results-torch"

@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from fpr_tpu_torch.solvers.poisson import poisson_rhs
+from fpr_tpu_torch.core import loops
 from fpr_tpu_torch.core.config import CoarseSolver, MGConfig
 from fpr_tpu_torch.experiments import RESULTS
 from fpr_tpu_torch.solvers import krylov, multigrid
@@ -44,7 +45,9 @@ def timed(fn, reps: int = 3):
 
 
 def _release(dev) -> None:
+    """Free the configuration's card memory: its cached graphs' pools too."""
     if dev.type == "cuda":
+        loops.clear_cache()
         torch.cuda.empty_cache()
 
 

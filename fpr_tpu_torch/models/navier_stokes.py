@@ -1,7 +1,7 @@
 """2D streamfunction-vorticity Navier-Stokes: the host loop and the fused
 fast loop (fpr_tpu/models/navier_stokes.py: NSResult, init_field,
-compute_dt, ns_step, simulate, fast_mg_default, _fast_step, _fast_loop,
-simulate_fast).
+compute_dt, ns_step, ns_step_jit, simulate, fast_mg_default, _fast_step,
+_fast_loop, simulate_fast).
 
     dT/dt = lap T - (v . grad) T
     dW/dt = Pr lap W - (v . grad) W + Pr Ra dT/dx
@@ -156,6 +156,12 @@ def ns_step(T, W, S, cfg: NSConfig):
     host read (for the solves' warnings)."""
     T, W, S, dt, _ = _ns_step(T, W, S, cfg)
     return T, W, S, dt
+
+
+def ns_step_jit(T, W, S, cfg: NSConfig):
+    """JAX's jitted step (navier_stokes.ns_step_jit): ``ns_step``, which is
+    already one launch of its cached CUDA graph."""
+    return ns_step(T, W, S, cfg)
 
 
 def _ns_step(T, W, S, cfg: NSConfig):

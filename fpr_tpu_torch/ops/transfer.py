@@ -9,6 +9,9 @@ restriction is a column pass (``transfer.restrict_ps``), and
 are those of ``restrict`` and ``prolongate`` here.
 ``prolongate`` is bilinear interpolation in gather form, y midpoints
 before x midpoints of the cell centres, as in the JAX function.
+``prolongate_shifts`` is the same interpolation built another way, from
+zero-filled shifts of the injected coarse values: an independent
+implementation for cross-checks, which no solver calls.
 """
 
 from __future__ import annotations
@@ -58,6 +61,32 @@ def prolongate(coarse: torch.Tensor, fine_shape, apply_bcs: bool = False):
     fine[0::2, 1::2] = cx
     fine[1::2, 0::2] = cy
     fine[1::2, 1::2] = cxy
+    if apply_bcs:
+        fine = bc.neumann_left_right(fine)
+    return fine
+
+
+def _shift(a: torch.Tensor, dy: int, dx: int) -> torch.Tensor:
+    """Shift with zero fill: out[i, j] = a[i - dy, j - dx], 0 outside (not a
+    roll; transfer._shift)."""
+    ny, nx = a.shape
+    out = torch.zeros_like(a)
+    out[max(0, dy):ny - max(0, -dy), max(0, dx):nx - max(0, -dx)] = \
+        a[max(0, -dy):ny - max(0, dy), max(0, -dx):nx - max(0, dx)]
+    return out
+
+
+def prolongate_shifts(coarse: torch.Tensor, fine_shape, apply_bcs: bool = False):
+    """Shift-based bilinear prolongation (transfer.prolongate_shifts): each
+    interior coarse point scatters to its fine point with weight 1, to the
+    four face neighbours with 1/2 and to the four corners with 1/4."""
+    c0 = bc.zero_boundary_2d(coarse)  # only interior coarse points scatter
+    up = c0.new_zeros(tuple(fine_shape))
+    up[::2, ::2] = c0
+    half = 0.5 * (_shift(up, 1, 0) + _shift(up, -1, 0) + _shift(up, 0, 1) + _shift(up, 0, -1))
+    quarter = 0.25 * (_shift(up, 1, 1) + _shift(up, 1, -1) + _shift(up, -1, 1)
+                      + _shift(up, -1, -1))
+    fine = up + half + quarter
     if apply_bcs:
         fine = bc.neumann_left_right(fine)
     return fine

@@ -1,5 +1,6 @@
 """Matrix-free Krylov solvers for (nabla^2 - c) x = b
-(fpr_tpu/solvers/krylov.py: cg, mg_preconditioned_cg, mg_pcg_ds).
+(fpr_tpu/solvers/krylov.py: cg, mg_preconditioned_cg, mg_pcg_ds,
+mg_pcg_ds_jit).
 
 - ``cg``: textbook conjugate gradient from x = 0, to ||r|| < tol ||b||
   (the reference's cg!, krylov.jl:55-91), with the matvec of
@@ -215,3 +216,10 @@ def mg_pcg_ds(f, h: float, c, tol: float, niters: int, cfg: MGConfig = MGConfig(
     if return_pair:
         return (u_ds[0], u_ds[1]), r_rms, it
     return u_ds[0].to(f.dtype) + u_ds[1].to(f.dtype), r_rms.to(f.dtype), it
+
+
+def mg_pcg_ds_jit(f, h: float, c, tol: float, niters: int, cfg: MGConfig = MGConfig(),
+                  return_pair: bool = False, dots: str = "rowsum64"):
+    """JAX's zero-initial-guess benchmark entry point (krylov.mg_pcg_ds_jit):
+    the same call as ``mg_pcg_ds``, one launch of its cached CUDA graph."""
+    return mg_pcg_ds(f, h, c, tol, niters, cfg=cfg, return_pair=return_pair, dots=dots)

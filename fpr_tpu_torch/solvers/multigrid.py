@@ -3,7 +3,8 @@ defect-correction solvers around it (fpr_tpu/solvers/multigrid.py:
 _warn_unconverged, _smooth_fns, _coarse_solve, vcycle, mg_solve,
 PALLAS_MIN_AREA, vcycle_rp, _stk_eligible, vcycle_stk, mg_solve_rp,
 mg_solve_mixed, _auto_inner_cycles, _fmg_guess, mg_solve_ds_rp,
-mg_solve_ds).
+mg_solve_ds, and the jitted entry points mg_solve_jit, mg_solve_mixed_jit
+and mg_solve_ds_jit, which are the same calls here).
 
 - ``vcycle`` / ``mg_solve``: the reference-semantics V-cycle and its
   iterate loop (damped Jacobi or red-black GS, injection or full
@@ -261,6 +262,13 @@ def mg_solve(u0, f, h: float, c, tol: float, niters: int, apply_bcs=False,
     return out["u"], out["r_rms"], it
 
 
+def mg_solve_jit(u0, f, h: float, c, tol: float, niters: int, apply_bcs=False,
+                 cfg: MGConfig = MGConfig()):
+    """JAX's jitted ``mg_solve`` (multigrid.mg_solve_jit): the same call,
+    which is already one launch of its cached CUDA graph."""
+    return mg_solve(u0, f, h, c, tol, niters, apply_bcs=apply_bcs, cfg=cfg)
+
+
 def vcycle_rp(u, f, h, c, tol, cfg: MGConfig, apply_bcs=False, assume_zero_u=False,
               elim=False):
     """One V-cycle with the fused legs at large levels (multigrid.vcycle_rp).
@@ -406,6 +414,14 @@ def mg_solve_mixed(u0, f, h: float, c, tol: float, niters: int, apply_bcs=False,
     r, t, it = _outcome(out)
     _warn_unconverged("mg_solve_mixed", r, t, it, niters, apply_bcs)
     return out["u"], out["r_rms"], it
+
+
+def mg_solve_mixed_jit(u0, f, h: float, c, tol: float, niters: int, apply_bcs=False,
+                       cfg: MGConfig = MGConfig(), inner_cycles: int = 1):
+    """JAX's jitted ``mg_solve_mixed`` (multigrid.mg_solve_mixed_jit): the
+    same call, one launch of its cached CUDA graph."""
+    return mg_solve_mixed(u0, f, h, c, tol, niters, apply_bcs=apply_bcs, cfg=cfg,
+                          inner_cycles=inner_cycles)
 
 
 def _auto_inner_cycles(ny: int, nx: int, cfg: MGConfig = MGConfig()) -> int:
@@ -592,3 +608,12 @@ def mg_solve_ds(u0, f, h: float, c, tol: float, niters: int,
         return (u_ds[0], u_ds[1]), r_rms, it
     u = u_ds[0].to(f.dtype) + u_ds[1].to(f.dtype)
     return u, r_rms.to(f.dtype), it
+
+
+def mg_solve_ds_jit(f, h: float, c, tol: float, niters: int, cfg: MGConfig = MGConfig(),
+                    inner_cycles=None, return_pair=False, fmg=False, *, device=None):
+    """JAX's zero-initial-guess benchmark entry point
+    (multigrid.mg_solve_ds_jit): ``mg_solve_ds(None, f, ...)``, one launch of
+    the same cached CUDA graph."""
+    return mg_solve_ds(None, f, h, c, tol, niters, cfg=cfg, inner_cycles=inner_cycles,
+                       return_pair=return_pair, fmg=fmg, device=device)

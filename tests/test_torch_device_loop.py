@@ -99,6 +99,24 @@ def test_dict_carry_and_options_change_nothing():
     assert plain["v"][1].dtype == torch.float64
 
 
+def test_clear_cache_closes_every_cached_graph(monkeypatch):
+    """clear_cache closes the cached graphs, least recently used first, and
+    leaves the cache empty (a sweep calls it between grid sizes)."""
+    closed = []
+
+    class Graph:
+        def __init__(self, name):
+            self.name = name
+
+        def close(self):
+            closed.append(self.name)
+
+    cache = loops._cache.__class__((k, Graph(k)) for k in ("a", "b", "c"))
+    monkeypatch.setattr(loops, "_cache", cache)
+    loops.clear_cache()
+    assert closed == ["a", "b", "c"] and not loops._cache
+
+
 def test_device_call_runs_fn_on_the_cpu():
     out = loops.device_call(lambda c: dict(s=c["a"].sum()), dict(a=torch.arange(4.0)),
                             key=("sum",))
