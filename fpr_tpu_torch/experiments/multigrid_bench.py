@@ -1,7 +1,9 @@
 """Multigrid sweep (fpr_tpu/experiments/multigrid_bench.py, the analog of
 multigrid_bench.jl): the time to tol 1e-6 over k x l x coarse solver x
 solver tier, resumed by key, a failed configuration printed and skipped
-(multigrid_bench.jl:41-62).  ``--workprec`` compares instead MG as the
+(multigrid_bench.jl:41-62), and so is a solve that stopped at its iteration
+cap above tolerance: no row is a time to tolerance that was not reached.
+The exit code is 1 when a configuration was skipped so.  ``--workprec`` compares instead MG as the
 solver, unpreconditioned CG and MG-preconditioned CG: mg, mixed, ds, cg,
 mg_pcg and mg_pcg_ds, the ds tiers at DST-513 V(5,5).
 
@@ -22,6 +24,9 @@ rows fill with a TPU time amortized over chained solves, stays empty.
 from __future__ import annotations
 
 import argparse
+import gc
+import math
+import sys
 
 import numpy as np
 import torch
@@ -45,13 +50,25 @@ def timed(fn, reps: int = 3):
 
 
 def _release(dev) -> None:
-    """Free the configuration's card memory: its cached graphs' pools too."""
+    """Free the configuration's card memory: its cached graphs' pools too,
+    once the collector has dropped the captures' reference cycles."""
     if dev.type == "cuda":
         loops.clear_cache()
+        gc.collect()
         torch.cuda.empty_cache()
 
 
-def workprec(args, dev, backend, name):
+def converged(b, tol: float, r_rms, it: int, niters: int) -> bool:
+    """Whether a solve reached r_rms < tol * rms(b): it stopped before its
+    cap, or at the cap below tolerance (the test of _warn_unconverged)."""
+    if it < niters:
+        return True
+    rms_b = float(torch.linalg.vector_norm(b, dtype=torch.float64)) / math.sqrt(b.numel())
+    return float(r_rms) < tol * rms_b
+
+
+def workprec(args, dev, backend, name) -> int:
+    failed = 0
     for k in range(args.min_k, args.max_k + 1):
         n = 2**k + 1
         h = 1.0 / (n - 1)
@@ -60,18 +77,19 @@ def workprec(args, dev, backend, name):
         # and cg keep the reference's V(2,2)
         ds_cfg = MGConfig(coarse_size=min(513, n), coarse_solver=CoarseSolver.DST,
                           pre_smooth=5, post_smooth=5)
+        # solver: (iteration cap, solve)
         configs = {
-            "mg": lambda b: multigrid.mg_solve(torch.zeros_like(b), b, h, 0.0, tol, 30),
-            "mixed": lambda b: multigrid.mg_solve_mixed(torch.zeros_like(b), b, h, 0.0, tol,
-                                                        30),
-            "ds": lambda b: multigrid.mg_solve_ds(None, b, h, 0.0, tol, 30, cfg=ds_cfg,
-                                                  return_pair=True),
-            "cg": lambda b: krylov.cg(b, h, h, 0.0, tol, 40000),
-            "mg_pcg": lambda b: krylov.mg_preconditioned_cg(b, h, 0.0, tol, 100),
-            "mg_pcg_ds": lambda b: krylov.mg_pcg_ds(b, h, 0.0, tol, 60, return_pair=True,
-                                                    cfg=ds_cfg),
+            "mg": (30, lambda b: multigrid.mg_solve(torch.zeros_like(b), b, h, 0.0, tol, 30)),
+            "mixed": (30, lambda b: multigrid.mg_solve_mixed(torch.zeros_like(b), b, h, 0.0,
+                                                             tol, 30)),
+            "ds": (30, lambda b: multigrid.mg_solve_ds(None, b, h, 0.0, tol, 30, cfg=ds_cfg,
+                                                       return_pair=True)),
+            "cg": (40000, lambda b: krylov.cg(b, h, h, 0.0, tol, 40000)),
+            "mg_pcg": (100, lambda b: krylov.mg_preconditioned_cg(b, h, 0.0, tol, 100)),
+            "mg_pcg_ds": (60, lambda b: krylov.mg_pcg_ds(b, h, 0.0, tol, 60, return_pair=True,
+                                                         cfg=ds_cfg)),
         }
-        for solver, solve in configs.items():
+        for solver, (niters, solve) in configs.items():
             if args.wp_solvers and solver not in args.wp_solvers.split(","):
                 continue
             if solver == "mg" and k > args.mg64_max_k:
@@ -84,22 +102,30 @@ def workprec(args, dev, backend, name):
                 # only the rhs this solver reads: float32 for the ds tiers
                 ds_tier = solver in ("ds", "mg_pcg_ds")
                 b = poisson_rhs(n, dev, np.float32 if ds_tier else np.float64)
-                st, (_, _, it) = timed(lambda: solve(b))
+                st, (_, r, it) = timed(lambda: solve(b))
+                ok = converged(b, tol, r, int(it), niters)
             except Exception as exc:
                 msg = str(exc).splitlines()[0][:200] if str(exc) else ""
                 print(f"k={k} {solver}: FAILED {type(exc).__name__}: {msg}")
+                failed += 1
                 continue
             finally:
-                b = None
+                b = r = None
                 _release(dev)
+            if not ok:
+                print(f"k={k} {solver}: NOT converged in {niters} iterations, no row")
+                failed += 1
+                continue
             row = dict(k=k, solver=solver, backend=backend, device=name,
                        seconds=st.median_s, iters=int(it), iqr_s=st.iqr_s, reps=st.reps,
                        device_s="")
             append_csv_row(args.out, row, key_fields=("k", "solver", "backend"))
             print(row)
+    return failed
 
 
-def sweep(args, dev, backend, name):
+def sweep(args, dev, backend, name) -> int:
+    failed = 0
     for k in range(args.min_k, args.max_k + 1):
         n = 2**k + 1
         h = 1.0 / (n - 1)
@@ -135,22 +161,32 @@ def sweep(args, dev, backend, name):
                             torch.zeros_like(b), b, h, 0.0, args.tol, 30, cfg=cfg)
                     else:
                         raise ValueError(f"unknown solver {solver!r}")
-                    st, (_, _, it) = timed(fn)
+                    st, (_, r, it) = timed(fn)
+                    ok = converged(b, args.tol, r, int(it), 30)
                 except Exception as exc:
                     print(f"k={k} l={l} {coarse.value} {solver}: FAILED "
                           f"{type(exc).__name__}: {exc}")
+                    failed += 1
                     continue
                 finally:
-                    b = fn = None
+                    b = fn = r = None
                     _release(dev)
+                if not ok:
+                    print(f"k={k} l={l} {coarse.value} {solver}: NOT converged in 30 "
+                          "cycles, no row")
+                    failed += 1
+                    continue
                 row = dict(**key, device=name, seconds=st.median_s, iters=int(it),
                            iqr_s=st.iqr_s, reps=st.reps, device_s="")
                 append_csv_row(args.out, row,
                                key_fields=("k", "l", "coarse", "solver", "backend"))
                 print(row)
+    return failed
 
 
-def main(argv=None):
+def main(argv=None) -> int:
+    """Run the sweep; the number of configurations that failed or did not
+    converge (their rows are not written)."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--min-k", type=int, default=4)
     ap.add_argument("--max-k", type=int, default=12)
@@ -181,8 +217,8 @@ def main(argv=None):
         args.out = (f"{RESULTS}/mg_workprecision.csv" if args.workprec
                     else f"{RESULTS}/bench_multigrid.csv")
     dev = devinfo.resolve(args.device)
-    (workprec if args.workprec else sweep)(args, dev, dev.type, devinfo.name(dev))
+    return (workprec if args.workprec else sweep)(args, dev, dev.type, devinfo.name(dev))
 
 
 if __name__ == "__main__":
-    main()
+    sys.exit(1 if main() else 0)

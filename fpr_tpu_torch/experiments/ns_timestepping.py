@@ -3,7 +3,8 @@
 part2_semi_implicit_vs_explicit_experiments.jl): Pr in 10^(-3..1) x beta in
 {0, 0.5, 1} at 2049x513 (``--small``: 513x129), ttot 0.005, tol 1e-7; the
 steps, timed steps and the median of --reps runs' timed windows (steps
-1-3 are warm-up), resumed by (Pr, beta, nx, backend, solver).
+1-3 are warm-up), resumed by (Pr, beta, nx, backend, solver); a failed
+run is printed and skipped, and the exit code is then 1.
 
 Solvers: ``fast`` is ``simulate_fast`` (float32 state, the fused operator
 K4 and the double-single multigrid K1-K3), ``direct`` and ``mixed`` the
@@ -19,6 +20,7 @@ counts sit in the seed band of the JAX sweep's, not on its values.
 from __future__ import annotations
 
 import argparse
+import sys
 
 import torch
 
@@ -32,7 +34,8 @@ from fpr_tpu_torch.utils.timing import stats_of
 PR_VALUES = (1e-3, 1e-2, 1e-1, 1.0, 10.0)
 
 
-def main(argv=None):
+def main(argv=None) -> int:
+    """Run the sweep; the number of configurations that failed (no row)."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--small", action="store_true")
     ap.add_argument("--out", default=f"{RESULTS}/ns_semi_implicit_vs_explicit.csv")
@@ -87,6 +90,7 @@ def main(argv=None):
              else (0.0, 0.5, 1.0))
     reps = args.reps if args.reps else (3 if args.solver == "fast" else 1)
 
+    failed = 0
     for Pr in pr_values:
         for beta in betas:
             key = dict(Pr=Pr, beta=beta, nx=nx, backend=backend, solver=solver_label)
@@ -104,6 +108,7 @@ def main(argv=None):
                             for _ in range(max(1, reps))]
             except Exception as exc:
                 print(f"Pr={Pr} beta={beta}: FAILED {type(exc).__name__}: {exc}")
+                failed += 1
                 continue
             st = stats_of([o.t_elapsed for o in outs])
             out = outs[-1]
@@ -112,7 +117,8 @@ def main(argv=None):
                        seconds=st.median_s, iqr_s=st.iqr_s, reps=st.reps)
             append_csv_row(args.out, row, key_fields=("Pr", "beta", "nx", "backend", "solver"))
             print(row)
+    return failed
 
 
 if __name__ == "__main__":
-    main()
+    sys.exit(1 if main() else 0)

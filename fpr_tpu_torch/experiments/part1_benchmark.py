@@ -2,7 +2,8 @@
 (fpr_tpu/experiments/part1_benchmark.py, the analog of
 part1_benchmark.jl): plain PyTorch ("jnp"), the one-sweep kernel #8
 ("pallas") and the fused K-sweep kernel #10 at K=3 ("pallas_k3"); the
-median of --reps solves, resumed by (n, policy, backend).
+median of --reps solves, resumed by (n, policy, backend); a failed
+configuration is printed and skipped, and the exit code is then 1.
 
     python -m fpr_tpu_torch.experiments.part1_benchmark [--out ...] [--max-e 7]
 """
@@ -10,6 +11,7 @@ median of --reps solves, resumed by (n, policy, backend).
 from __future__ import annotations
 
 import argparse
+import sys
 
 import numpy as np
 import torch
@@ -26,7 +28,8 @@ VARIANTS = ((ExecutionPolicy.JNP, 1, "jnp"), (ExecutionPolicy.PALLAS, 1, "pallas
             (ExecutionPolicy.PALLAS, 3, "pallas_k3"))
 
 
-def main(argv=None):
+def main(argv=None) -> int:
+    """Run the sweep; the number of configurations that failed (no row)."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default=f"{RESULTS}/bench_diffusion.csv")
     ap.add_argument("--ttot", type=float, default=1.0)
@@ -39,6 +42,7 @@ def main(argv=None):
     dev = devinfo.resolve(args.device)
     backend, name = dev.type, devinfo.name(dev)
 
+    failed = 0
     for e in np.arange(4.0, args.max_e + 0.25, 0.5):
         n = int(round(2**e))
         for policy, check_every, label in VARIANTS:
@@ -54,6 +58,7 @@ def main(argv=None):
                         for _ in range(max(1, args.reps))]
             except Exception as exc:  # keep sweeping (multigrid_bench.jl:41-62)
                 print(f"n={n} policy={label}: FAILED {type(exc).__name__}: {exc}")
+                failed += 1
                 continue
             st = stats_of([o.bench.delta_t for o in outs])
             med = st.median_s
@@ -71,7 +76,8 @@ def main(argv=None):
             }
             written = append_csv_row(args.out, row, key_fields=("n", "policy", "backend"))
             print(("wrote " if written else "skipped ") + str(row))
+    return failed
 
 
 if __name__ == "__main__":
-    main()
+    sys.exit(1 if main() else 0)

@@ -158,10 +158,9 @@ def ns_step(T, W, S, cfg: NSConfig):
     return T, W, S, dt
 
 
-def ns_step_jit(T, W, S, cfg: NSConfig):
-    """JAX's jitted step (navier_stokes.ns_step_jit): ``ns_step``, which is
-    already one launch of its cached CUDA graph."""
-    return ns_step(T, W, S, cfg)
+# JAX's jitted step (navier_stokes.ns_step_jit): ns_step is already one
+# launch of its cached CUDA graph
+ns_step_jit = ns_step
 
 
 def _ns_step(T, W, S, cfg: NSConfig):

@@ -218,8 +218,6 @@ def mg_pcg_ds(f, h: float, c, tol: float, niters: int, cfg: MGConfig = MGConfig(
     return u_ds[0].to(f.dtype) + u_ds[1].to(f.dtype), r_rms.to(f.dtype), it
 
 
-def mg_pcg_ds_jit(f, h: float, c, tol: float, niters: int, cfg: MGConfig = MGConfig(),
-                  return_pair: bool = False, dots: str = "rowsum64"):
-    """JAX's zero-initial-guess benchmark entry point (krylov.mg_pcg_ds_jit):
-    the same call as ``mg_pcg_ds``, one launch of its cached CUDA graph."""
-    return mg_pcg_ds(f, h, c, tol, niters, cfg=cfg, return_pair=return_pair, dots=dots)
+# JAX's benchmark entry point (krylov.mg_pcg_ds_jit): mg_pcg_ds, which
+# starts from zero and is one launch of its cached CUDA graph
+mg_pcg_ds_jit = mg_pcg_ds

@@ -262,11 +262,9 @@ def mg_solve(u0, f, h: float, c, tol: float, niters: int, apply_bcs=False,
     return out["u"], out["r_rms"], it
 
 
-def mg_solve_jit(u0, f, h: float, c, tol: float, niters: int, apply_bcs=False,
-                 cfg: MGConfig = MGConfig()):
-    """JAX's jitted ``mg_solve`` (multigrid.mg_solve_jit): the same call,
-    which is already one launch of its cached CUDA graph."""
-    return mg_solve(u0, f, h, c, tol, niters, apply_bcs=apply_bcs, cfg=cfg)
+# JAX's jitted mg_solve (multigrid.mg_solve_jit): mg_solve is already one
+# launch of its cached CUDA graph
+mg_solve_jit = mg_solve
 
 
 def vcycle_rp(u, f, h, c, tol, cfg: MGConfig, apply_bcs=False, assume_zero_u=False,
@@ -416,12 +414,8 @@ def mg_solve_mixed(u0, f, h: float, c, tol: float, niters: int, apply_bcs=False,
     return out["u"], out["r_rms"], it
 
 
-def mg_solve_mixed_jit(u0, f, h: float, c, tol: float, niters: int, apply_bcs=False,
-                       cfg: MGConfig = MGConfig(), inner_cycles: int = 1):
-    """JAX's jitted ``mg_solve_mixed`` (multigrid.mg_solve_mixed_jit): the
-    same call, one launch of its cached CUDA graph."""
-    return mg_solve_mixed(u0, f, h, c, tol, niters, apply_bcs=apply_bcs, cfg=cfg,
-                          inner_cycles=inner_cycles)
+# JAX's jitted mg_solve_mixed (multigrid.mg_solve_mixed_jit), the same call
+mg_solve_mixed_jit = mg_solve_mixed
 
 
 def _auto_inner_cycles(ny: int, nx: int, cfg: MGConfig = MGConfig()) -> int:

@@ -16,6 +16,7 @@ with an error, every experiment refuses a missing card, and
 
 import ast
 import csv
+import functools
 import re
 from pathlib import Path
 
@@ -272,6 +273,72 @@ def test_multigrid_bench_max_k_bounds(tmp_path):
     assert [r["solver"] for r in read(out)[1]] == ["ds"]
 
 
+def test_converged_is_the_solvers_own_test():
+    """A solve converged when it stopped before its cap, or at its cap with
+    r_rms < tol * rms(b) (rms(b) = 2 here; exact in float64)."""
+    b = torch.full((4, 4), 2.0, dtype=torch.float64)
+    r = functools.partial(torch.tensor, dtype=torch.float64)
+    assert multigrid_bench.converged(b, 1e-6, r(5.0), 29, 30)
+    assert multigrid_bench.converged(b, 1e-6, r(1.9e-6), 30, 30)
+    assert not multigrid_bench.converged(b, 1e-6, r(2e-6), 30, 30)
+    assert not multigrid_bench.converged(b.float(), 1e-6, r(0.92), 60, 60)
+
+
+def _stalled(niters):
+    """A solver that stops at its cap far above tolerance."""
+    def solve(*a, **kw):
+        f = a[1] if torch.is_tensor(a[1]) else a[0]
+        return torch.zeros_like(f), f.new_tensor(1.0), niters
+    return solve
+
+
+@pytest.mark.parametrize("mode", ["sweep", "workprec"])
+def test_multigrid_bench_writes_no_unconverged_row(mode, tmp_path, monkeypatch, capsys):
+    """A configuration that stops at its iteration cap above tolerance is
+    printed, writes no row and makes main() return 1, as a failed one does;
+    the other configurations' rows are written."""
+    out = tmp_path / "mg.csv"
+    if mode == "sweep":
+        monkeypatch.setattr(multigrid, "mg_solve_mixed", _stalled(30))
+        argv = [*CPU, "--min-k", "5", "--max-k", "5", "--solvers", "mixed,ds"]
+        want = {"ds"}
+    else:
+        monkeypatch.setattr(krylov, "mg_pcg_ds", _stalled(60))
+        argv = [*CPU, "--workprec", "--min-k", "5", "--max-k", "5", "--wp-solvers",
+                "ds,mg_pcg_ds"]
+        want = {"ds"}
+    assert multigrid_bench.main(argv + ["--out", str(out)]) == (2 if mode == "sweep" else 1)
+    assert "NOT converged" in capsys.readouterr().out
+    assert {r["solver"] for r in read(out)[1]} == want
+
+
+@pytest.mark.parametrize("module, target, argv", [
+    ("multigrid_bench", (multigrid, "mg_solve_ds"),
+     ["--min-k", "5", "--max-k", "5", "--max-l", "2", "--solvers", "ds"]),
+    ("part1_benchmark", (diffusion3d, "solve"), ["--max-e", "4", "--reps", "1"]),
+    ("ns_timestepping", (navier_stokes, "simulate_fast"),
+     ["--small", "--solver", "fast", "--Pr", "0.01", "--betas", "0.0"]),
+], ids=lambda v: v if isinstance(v, str) else None)
+@pytest.mark.filterwarnings("ignore:'fpr_tpu_torch.experiments.*found in sys.modules")
+def test_failed_configuration_exits_1(module, target, argv, tmp_path, monkeypatch, capsys):
+    """A sweep prints a configuration that raised, writes no row for it and
+    exits 1 when run as a script, so run_all_torch.sh sees the lost row."""
+    import runpy
+    import sys
+
+    def fail(*a, **kw):
+        raise RuntimeError("out of memory")
+
+    monkeypatch.setattr(*target, fail)
+    out = tmp_path / "x.csv"
+    monkeypatch.setattr(sys, "argv", [module, *CPU, *argv, "--out", str(out)])
+    with pytest.raises(SystemExit) as e:
+        runpy.run_module(f"fpr_tpu_torch.experiments.{module}", run_name="__main__")
+    assert e.value.code == 1
+    assert "FAILED RuntimeError: out of memory" in capsys.readouterr().out
+    assert not out.exists()
+
+
 def test_ns_timestepping(tmp_path, monkeypatch):
     out = tmp_path / "ns.csv"
     argv = [*CPU, "--small", "--solver", "fast", "--Pr", "0.01", "--betas", "0.0,0.5",
@@ -394,3 +461,18 @@ def test_run_all_torch_invokes_no_jax_module():
     assert modules == {"part1_benchmark", "part1_scaling", "part1_error_experiments",
                        "multigrid_bench", "ns_timestepping"}
     assert "EX=fpr_tpu_torch.experiments" in code and "benchmark-results-torch" in code
+
+
+def test_run_all_torch_runs_k14_alone_and_reports_lost_rows():
+    """Every multigrid_bench call that reaches k = 14 (16385^2) starts
+    there, so no smaller grid shares its process, and the script's exit
+    code is 1 when any row's was not 0."""
+    text = (REPO / "scripts" / "run_all_torch.sh").read_text()
+    code = re.sub(r"\\\n\s*", "", text)
+    calls = [ln for ln in code.splitlines() if "$EX.multigrid_bench" in ln]
+    assert calls
+    for ln in calls:
+        max_k = re.search(r"--max-k (\d+)", ln)
+        if max_k and int(max_k.group(1)) >= 14:
+            assert "--min-k 14" in ln, ln
+    assert "[[ $rc -eq 0 ]] || failed=1" in code and code.rstrip().endswith("exit $failed")
