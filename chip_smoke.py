@@ -163,7 +163,8 @@ against their plain versions: the stencil pass (#5) in every mode,
 smooth2 included, with and without its sum, in float32 at 2049x513 and
 4097^2 and in float64 at 2049^2 and on the ragged shapes (fields bitwise,
 sums and rms within REL_SUM or REL_SUM_F64, a rerun bitwise, each public
-entry point one launch; each mode's device time beside its bound, and
+entry point one launch, counted in the nodes of the call captured as a
+CUDA graph; each mode's device time beside its bound, and
 conv2d's for the matvec), and the legs #6/#7 at 2049x513 with ns 1-6,
 with and without elim, each entry point launching the leg kernel once a
 call. And the sharded tiers' shard windows: #9 against its plain version
@@ -283,51 +284,56 @@ def device_us(fn, names, reps: int = 20):
     return total / reps if total > 0 else None
 
 
-def launch_windows(call, calls=1, tries=5):
-    """The CUDA kernels, as (name, launches), of up to ``tries`` profiler
-    windows of ``calls`` calls each, after one call outside them.  The
-    profiler sometimes loses events (a window with fewer, never more), so
-    the caller takes windows until one holds what it expects."""
+def captured(call):
+    """One call of ``call``, after one outside it, captured in a CUDA graph:
+    (the graph's node count, its nodes' DOT labels, the names of the kernels
+    whose wrappers counted a launch in it).  The graph holds every kernel,
+    copy and memset the call puts on the card.  torch.profiler's windows
+    lose events now and then, whole windows too, so no launch check rests
+    on them."""
+    import ctypes
+    import re
+    import tempfile
+
     import torch
-    from torch.profiler import ProfilerActivity, profile
+
+    from fpr_tpu_torch import kernels
 
     call()
     torch.cuda.synchronize()
-    for _ in range(tries):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(calls):
-                call()
-            torch.cuda.synchronize()
-        yield [(ev.key, ev.count) for ev in prof.key_averages()
-               if ev.device_type.name == "CUDA"]
+    before = dict(kernels.launches)
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        call()
+    counted = [k for k in kernels.KERNELS if kernels.launches[k] != before[k]]
+    lib, raw, n = kernels.lib(), graph.raw_cuda_graph(), ctypes.c_size_t()
+    kernels.check(lib.fpr_graph_nodes(raw, ctypes.byref(n)), "fpr_graph_nodes")
+    kernels.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=kernels.BUILD_DIR) as tmp:
+        path = os.path.join(tmp, "call.dot")
+        kernels.check(lib.fpr_graph_dot(raw, path.encode()), "fpr_graph_dot")
+        with open(path) as fh:
+            dot = fh.read()
+    del graph
+    # a node's attributes hold its label; an edge's ("a" -> "b"[...]) none
+    labels = [x for x in re.findall(r'"graph_\d+_node_\d+"\s*\[(.*?)\];', dot, re.S)
+              if 'label="' in x]
+    return n.value, labels, counted
 
 
-def kernel_launches(fn, name, expect=1) -> int:
+def kernel_launches(fn, name) -> int:
     """Launches of the CUDA kernels whose names contain name in one call of
-    fn: the count of the first window with at least ``expect``, else of the
-    last one taken."""
-    for evs in launch_windows(fn):
-        n = sum(c for k, c in evs if name in k)
-        if n >= expect:
-            break
-    return n
+    fn, from the call's captured graph."""
+    return sum(name in label for label in captured(fn)[1])
 
 
-def one_launch(name, what, call, calls=3) -> None:
-    """Fail unless each of ``calls`` calls launches exactly one CUDA kernel:
-    every kernel in the profiler's window counts.  Windows are taken until
-    one holds exactly ``calls``; a window with more, or with a second
-    kernel, fails at once."""
-    seen = []
-    for evs in launch_windows(call, calls):
-        n = sum(c for _, c in evs)
-        require(n <= calls and len(evs) <= 1,
-                f"{name} {what}: {n} kernel launches in {calls} calls ({evs})")
-        if n == calls:
-            return
-        seen.append(n)
-    require(False, f"{name} {what}: the profiler saw {seen} of {calls} launches in "
-                   f"{len(seen)} windows")
+def one_launch(name, what, call) -> None:
+    """Fail unless one call puts exactly one node on the card, the kernel
+    that its wrapper counted: no other kernel, copy or memset."""
+    nodes, labels, counted = captured(call)
+    require(nodes == 1 and len(labels) == 1 and counted,
+            f"{name} {what}: {nodes} graph nodes in one call, launches counted of "
+            f"{counted} ({[' '.join(x.split())[:160] for x in labels]})")
 
 
 def same_bits(name, what, call) -> None:

@@ -121,4 +121,11 @@ int fpr_graph_exec_destroy(void* exec) {
     return static_cast<int>(cudaGraphExecDestroy(static_cast<cudaGraphExec_t>(exec)));
 }
 
+// graph as DOT text in the file path (cudaGraphDebugDotPrint, every detail):
+// each node with its type, and a kernel node with its function's name.
+int fpr_graph_dot(void* graph, const char* path) {
+    return static_cast<int>(cudaGraphDebugDotPrint(static_cast<cudaGraph_t>(graph), path,
+                                                   cudaGraphDebugDotFlagsVerbose));
+}
+
 }  // extern "C"

@@ -114,6 +114,7 @@ _SIGNATURES = {
     "fpr_graph_instantiate": [_P, ctypes.POINTER(_P)],
     "fpr_graph_launch": [_P, _P],
     "fpr_graph_exec_destroy": [_P],
+    "fpr_graph_dot": [_P, ctypes.c_char_p],
 }
 
 _lib = None
