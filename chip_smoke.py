@@ -153,6 +153,27 @@ Phases, in order; the first failure stops the run with a non-zero exit:
     bitwise against a direct ``diffusion3d.solve``, its iterations logged,
     and its H through ``utils.checkpoint`` and ``volume_slices.load_field``
     bitwise.  The plotting modules import; matplotlib is not used.
+24. 16385^2, the sweep's largest grid, in the same process with no
+    ``loops.clear_cache``: the cached graphs of phases 1-23 give their
+    memory back when the card runs out (``loops.device_call``).
+    ``mg_solve_ds`` (DST-513, V(5,5), tol 1e-6: 6 outers, a true float64
+    residual within tol); ``mg_pcg_ds`` (60 iterations at most) as a graph;
+    a ballast tensor that leaves 6 GiB free, then ``mg_solve_ds`` with
+    another key: cached graphs closed for memory, the same bits; the
+    ``mg_pcg_ds`` solve under ``loops.host_loops()``, bitwise equal to the
+    graph in the u pair, r_rms and count; its first 10 iterations one at a time
+    (``krylov._mg_pcg_ds_history``) through the plain versions and as host
+    loops in lockstep, every field and scalar bitwise, r_rms within
+    REL_SUM, and in each iteration z zero on the boundary ring, the
+    curvature within n float32 eps of the float64 p.(A p) and negative;
+    logged: s1 = z.r (and the first iteration where it is not negative, so
+    alpha is not positive) and the preconditioner's contraction
+    rms(A z - r) / rms(r) in float64; one float32 V-cycle against the float64
+    V-cycle on the rhs at 8193^2 and 16385^2.  Each part's peak card
+    memory and each graph's pool bytes are printed beside the card's name
+    and power limit.  ``python3 chip_smoke.py --16385 [PART ...]`` runs
+    phases 1, 2 and the named parts of 24 (``PARTS_24``) alone, each part
+    in a process of its own when called once a part.
 
 Phase 3 holds the legs K2/K3 (one launch of the leg kernel a call) bitwise
 at the MG row's levels with ns=5, timed at 2049x513 ns=3 and at 4097^2
@@ -2658,6 +2679,263 @@ def phase_oracles_and_entry_points(n_fine=513, n_f64=257, n_3d=64, n_ds=4097, n_
     log("H through checkpoint.save and volume_slices.load_field: bitwise")
 
 
+PHASE_24 = "--16385"
+# phase 24's parts, in the order it runs them
+PARTS_24 = ("ds", "graph", "reclaim", "host", "history", "precond")
+
+
+def gib(nbytes) -> str:
+    return "none" if nbytes is None else f"{nbytes / 2**30:.2f} GiB"
+
+
+def peak_of(fn):
+    """(fn(), the most card memory its tensors held at once in bytes
+    (``torch.cuda.max_memory_allocated`` after ``reset_peak_memory_stats``),
+    seconds to the end of its device work)."""
+    import torch
+
+    cuda = torch.device(DEVICE).type == "cuda"
+    sync()
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = fn()
+    sync()
+    return out, torch.cuda.max_memory_allocated() if cuda else None, time.perf_counter() - t0
+
+
+def rms64(a) -> float:
+    import torch
+
+    return float(torch.linalg.vector_norm(a, dtype=torch.float64)) / a.numel() ** 0.5
+
+
+def phase_16385(smi, parts=PARTS_24, n=16385, n_hist=10, niters=60, tol=1e-6, ds_outers=6):
+    """Phase 24: the sweep's largest grid (``mg_workprec_k14``) in one
+    process, no ``clear_cache``: ``mg_solve_ds`` (6 outers), ``mg_pcg_ds``
+    as a graph, the same under ``loops.host_loops()`` (bitwise: u pair,
+    r_rms, count), the first n_hist iterations of its step as host loops
+    and through the plain versions in lockstep, and the float32
+    preconditioner against the float64 V-cycle at 8193^2 and 16385^2.  Each
+    part's peak card memory, each graph's pool.  parts: a subset of
+    PARTS_24 (``chip_smoke.py --16385 PART ...`` runs one part a process)."""
+    import torch
+
+    from fpr_tpu_torch.core import loops
+    from fpr_tpu_torch.core.config import CoarseSolver, MGConfig
+    from fpr_tpu_torch.solvers import krylov, multigrid
+    from fpr_tpu_torch.solvers.poisson import true_rel_residual
+
+    log(f"== phase 24: {n}^2 in one process, no clear_cache ({', '.join(parts)})  [{smi}]")
+    h = 1.0 / (n - 1)
+    cfg = MGConfig(coarse_size=513, coarse_solver=CoarseSolver.DST, pre_smooth=5, post_smooth=5)
+    b = poisson_rhs(n, "float32")
+    tolf = tol * rms64(b)
+
+    def graph_call(what, fn):
+        """fn() with its peak, its graph's pool if one was built, and the
+        cached graphs closed to make room."""
+        captures, reclaimed = loops.stats["captures"], loops.stats["reclaimed"]
+        out, peak, secs = peak_of(fn)
+        pool = loops.stats["pool_bytes"] if loops.stats["captures"] > captures else None
+        log(f"{what}: {secs:.3f} s (build and solve), peak {gib(peak)}, graph pool "
+            f"{gib(pool)}, cached graphs closed for memory "
+            f"{loops.stats['reclaimed'] - reclaimed}")
+        return out
+
+    def pcg(n_it=niters):
+        return krylov.mg_pcg_ds(b, h, 0.0, tol, n_it, cfg=cfg, return_pair=True)
+
+    if "ds" in parts:
+        (uh, ul), r, it = graph_call(f"mg_solve_ds {n}^2", lambda: multigrid.mg_solve_ds(
+            None, b, h, 0.0, tol, 30, cfg=cfg, return_pair=True))
+        rel = true_rel_residual(uh, ul, b, h)
+        log(f"mg_solve_ds {n}^2: {it} outers, r_rms {float(r):.4e}, true f64 r_rms/f_rms "
+            f"{rel:.4e}")
+        require(it == ds_outers and rel <= tol,
+                f"mg_solve_ds {n}^2: {it} outers (not {ds_outers}), residual {rel:.3e}")
+        ds_u = uh, ul
+        del uh, ul, r
+    graph = None
+    if "graph" in parts:
+        graph = graph_call(f"mg_pcg_ds {n}^2 as a graph", pcg)
+        (gh, gl), gr, git = graph
+        log(f"mg_pcg_ds {n}^2 as a graph: {git} iterations, r_rms {float(gr):.4e} against tol "
+            f"rms(f) {tolf:.4e} (r_rms at the start {rms64(b):.4e}), true f64 r_rms/f_rms "
+            f"{true_rel_residual(gh, gl, b, h):.4e}")
+    if "reclaim" in parts and "ds" in parts:
+        phase_16385_reclaim(b, h, cfg, tol, ds_u, ds_outers)
+    ds_u = None
+    if "host" in parts:
+        with loops.host_loops():
+            (hh, hl), hr, hit = graph_call(f"mg_pcg_ds {n}^2 as host loops", pcg)
+        log(f"mg_pcg_ds {n}^2 as host loops: {hit} iterations, r_rms {float(hr):.4e}")
+        if graph is not None:
+            same = torch.equal(gh, hh) and torch.equal(gl, hl) and torch.equal(gr, hr)
+            log(f"graph against host loops: {'bitwise' if same else 'DIFFERENT'}, {git} and "
+                f"{hit} iterations")
+            require(same and git == hit, f"mg_pcg_ds {n}^2: the graph is not the host loops")
+            del gh, gl, gr, graph
+        del hh, hl, hr
+    if "history" in parts:
+        phase_16385_history(b, h, cfg, tol, niters, n_hist, kernels_too="host" in parts)
+    if "precond" in parts:
+        del b
+        for m in (n // 2 + 1, n):
+            phase_16385_precond(m, cfg, tol)
+
+
+def phase_16385_reclaim(b, h, cfg, tol, want_u, want_it, room=6 * 2**30):
+    """Phase 24's reclaim: with the 16385^2 graphs cached, a ballast tensor
+    takes the card's free memory down to ``room`` bytes, less than the
+    pool of the ds solve's graph, and a new graph of that solve (an
+    iteration cap of 31, not 30: another key) is built: ``device_call`` must close
+    cached graphs, free their pools and build it, with the same bits as
+    the cached one gave."""
+    import torch
+
+    from fpr_tpu_torch.core import loops
+    from fpr_tpu_torch.solvers import multigrid
+
+    cached = len(loops._cache)
+    sync()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    ballast = torch.empty(max(free - room, 0), dtype=torch.uint8, device=DEVICE)
+    reclaimed = loops.stats["reclaimed"]
+    (uh, ul), _, it = multigrid.mg_solve_ds(None, b, h, 0.0, tol, 31, cfg=cfg,
+                                            return_pair=True)
+    sync()
+    closed = loops.stats["reclaimed"] - reclaimed
+    same = torch.equal(uh, want_u[0]) and torch.equal(ul, want_u[1])
+    log(f"reclaim: {cached} graphs cached, a ballast of {gib(ballast.numel())} left "
+        f"{gib(room)} of the card's {gib(total)} free; mg_solve_ds with another key: "
+        f"{closed} cached graphs closed for memory, {it} outers, "
+        f"{'bitwise' if same else 'DIFFERENT'} to the cached graph's result; the last "
+        f"graph's pool {gib(loops.stats['pool_bytes'])}")
+    del ballast
+    require(closed >= 1 and same and it == want_it,
+            f"reclaim: {closed} graphs closed, {it} outers, bitwise {same}")
+
+
+def phase_16385_history(b, h, cfg, tol, niters, n_hist, kernels_too=True):
+    """Phase 24's history: the first n_hist iterations of ``mg_pcg_ds``'s
+    step (``krylov._mg_pcg_ds_history``) through the plain versions and,
+    with kernels_too, as host loops in lockstep: every field and scalar
+    bitwise, r_rms within REL_SUM (the kernels sum in another order).  Each
+    iteration: z's boundary ring zero, the curvature within n EPS32 of the
+    float64 sum p.(A p) of the same p, and p.Ap < 0; logged: s1 = z.r,
+    negative while the float32 V-cycle is negative definite on r as M is in
+    exact arithmetic (alpha > 0), the first iteration where it is not, and
+    the preconditioner's contraction rms(A z - r) / rms(r) in float64."""
+    import numpy as np
+    import torch
+
+    from fpr_tpu_torch.core import loops
+    from fpr_tpu_torch.ops import stencil2d
+    from fpr_tpu_torch.solvers import krylov
+
+    n = b.shape[0]
+    bound = n * float(np.finfo(np.float32).eps)
+    scalars = ("s1", "s2", "beta", "pAp", "alpha")
+
+    def history():
+        return krylov._mg_pcg_ds_history(b, h, 0.0, tol, niters, cfg)
+
+    def run():
+        out = []
+        with loops.host_loops():
+            plain, kern = history(), history() if kernels_too else None
+            prev, first_s1 = float("inf"), None
+            for i in range(1, n_hist + 1):
+                with plain_kernels():
+                    step = next(plain, None)
+                if step is None:  # converged
+                    break
+                sp, dp = step
+                if kern is not None:
+                    sk, dk = next(kern)
+                    same = (all(torch.equal(sk[k], sp[k]) for k in ("u", "r", "p"))
+                            and torch.equal(dk["z"], dp["z"])
+                            and all(torch.equal(dk[k], dp[k]) for k in scalars))
+                    rk, rp = float(sk["r_rms"]), float(sp["r_rms"])
+                    require(same and abs(rk - rp) <= REL_SUM * rp,
+                            f"history {n}^2 iteration {i}: the host loops' fields or scalars "
+                            f"differ from the plain versions' (r_rms {rk!r} vs {rp!r})")
+                    del sk, dk
+                z, p, r_new = dp["z"], sp["p"], sp["r"]
+                ring = float(torch.cat([z[0], z[-1], z[:, 0], z[:, -1]]).abs().max())
+                p64 = p.double()
+                pap64 = float(torch.sum(p64 * stencil2d.matvec(p64, h, h, 0.0)))
+                del p64
+                # the step's r is the carry's before it: z = M r_old of the new carry
+                r_old = sp["r_old"].double()
+                contr = rms64(stencil2d.residual(z.double(), r_old, h, 0.0)) / rms64(r_old)
+                del r_old
+                v = {k: float(dp[k]) for k in scalars}
+                r_rms = float(sp["r_rms"])
+                rel = abs(v["pAp"] - pap64) / abs(pap64)
+                log(f"{n}^2 iteration {i}: r_rms {r_rms:.4e}{' (grew)' if r_rms > prev else ''}"
+                    f"  s1 {v['s1']:.4e}  s2 {v['s2']:.4e}  beta {v['beta']:.4e}  pAp "
+                    f"{v['pAp']:.4e} (f64 {pap64:.4e}, rel {rel:.1e})  alpha {v['alpha']:.4e}  "
+                    f"max|z| on the ring {ring}  M: rms(A z - r)/rms(r) {contr:.4e}"
+                    + ("  host loops = plain" if kernels_too else ""))
+                require(ring == 0.0, f"history {n}^2 iteration {i}: z is {ring} on the ring")
+                require(rel <= bound, f"history {n}^2 iteration {i}: curvature {v['pAp']!r} "
+                                      f"vs float64 {pap64!r}")
+                # p.Ap < 0 by its form; s1 = z.r < 0 only while the float32
+                # V-cycle is negative definite on r, as M is in exact arithmetic
+                require(v["pAp"] < 0, f"history {n}^2 iteration {i}: pAp {v['pAp']!r}")
+                if v["s1"] >= 0 and first_s1 is None:
+                    first_s1 = i
+                out.append(r_rms)
+                prev = r_rms
+                del sp, dp, z, p, r_new, step
+        return out, first_s1
+
+    (rs, first_s1), peak, secs = peak_of(run)
+    log(f"history {n}^2: {len(rs)} iterations through the plain versions"
+        + (" and as host loops" if kernels_too else "")
+        + f" in {secs:.2f} s, peak {gib(peak)}; r_rms {[f'{r:.4e}' for r in rs]}; the first "
+        f"iteration with s1 >= 0 (alpha <= 0): {first_s1}")
+
+
+def phase_16385_precond(n, cfg, tol):
+    """Phase 24's preconditioner: one float32 V-cycle from zero
+    (``vcycle_stk``, the kernels) against the float64 ``vcycle`` on the same
+    r (the rhs), and each one's contraction rms(r - A z) / rms(r) in
+    float64, the float64 z's also once rounded to float32 (what a float32
+    direction can hold at best)."""
+    import torch
+
+    from fpr_tpu_torch.ops import stencil2d
+    from fpr_tpu_torch.solvers import multigrid
+
+    def run():
+        h = 1.0 / (n - 1)
+        r = poisson_rhs(n, "float32")
+        L = torch.empty((2, n, n), dtype=torch.float32, device=DEVICE)
+        L[1] = r
+        L, _ = multigrid.vcycle_stk(L, h, 0.0, tol, cfg, assume_zero_u=True)
+        z32 = L[0].double()
+        del L
+        r64 = r.double()
+        del r
+        z64, _ = multigrid.vcycle(torch.zeros_like(r64), r64, h, 0.0, tol, cfg)
+        out = dict(rel_z=rms64(z32 - z64) / rms64(z64),
+                   contr32=rms64(stencil2d.residual(z32, r64, h, 0.0)) / rms64(r64),
+                   contr64=rms64(stencil2d.residual(z64, r64, h, 0.0)) / rms64(r64))
+        z64 = z64.float().double()
+        out["contr64_32"] = rms64(stencil2d.residual(z64, r64, h, 0.0)) / rms64(r64)
+        return out
+
+    out, peak, secs = peak_of(run)
+    log(f"preconditioner {n}^2, r = the rhs: float32 vcycle_stk against float64 vcycle: "
+        f"rms(z32 - z64)/rms(z64) {out['rel_z']:.3e}; rms(A z - r)/rms(r) float32 "
+        f"{out['contr32']:.4e}, float64 {out['contr64']:.4e}, float64 rounded to float32 "
+        f"{out['contr64_32']:.4e}  ({secs:.2f} s, peak {gib(peak)})")
+
+
 LAUNCH_COUNTS = "--launch-counts"
 
 
@@ -2685,6 +2963,8 @@ def launch_counts() -> dict:
                 "legs": counts["smooth_down"] + counts["corr_up"]}
 
     def profiled(host):
+        if not host:
+            run()  # host_loops() closed the cached graph: built again outside the window
         with loops.host_loops() if host else contextlib.nullcontext(), \
                 profile(activities=[ProfilerActivity.CUDA]) as prof:
             run()
@@ -2968,6 +3248,21 @@ def main() -> int:
     if sys.argv[1:] == [LAUNCH_COUNTS]:
         print(json.dumps(launch_counts()))
         return 0
+    if sys.argv[1:2] == [PHASE_24]:
+        parts = tuple(sys.argv[2:]) or PARTS_24
+        if not set(parts) <= set(PARTS_24):
+            log(f"chip_smoke {PHASE_24}: parts are {PARTS_24}, got {parts}")
+            return 2
+        try:
+            smi = phase_env()
+            phase_build()
+            phase_16385(smi, parts)
+        except Failed as exc:
+            log(f"chip_smoke FAILED: {exc}")
+            return 1
+        log(f"chip_smoke: phases 1, 2 and 24 ({', '.join(parts)}) passed in "
+            f"{time.perf_counter() - T0:.0f} s")
+        return 0
     try:
         smi = phase_env()
         phase_build()
@@ -3001,6 +3296,7 @@ def main() -> int:
         phase_experiments()
         phase_device_loops(smi, explicit, semi, mixed, ns_ten)
         phase_oracles_and_entry_points()
+        phase_16385(smi)
     except Failed as exc:
         log(f"chip_smoke FAILED: {exc}")
         # the check that failed on the standard error too, where a caller
@@ -3008,7 +3304,7 @@ def main() -> int:
         print(f"chip_smoke FAILED after {time.perf_counter() - T0:.0f} s: {exc}",
               file=sys.stderr, flush=True)
         return 1
-    log(f"chip_smoke: 23 phases passed in {time.perf_counter() - T0:.0f} s")
+    log(f"chip_smoke: 24 phases passed in {time.perf_counter() - T0:.0f} s")
     table = []
     for k, (source, replaces) in SOURCES.items():
         row = kc.rows[k]

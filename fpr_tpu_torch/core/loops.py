@@ -37,7 +37,13 @@ Counters are int32 tensors on the device, as in JAX.
 - Nothing falls back to the host loop on CUDA: a capture, build or launch
   that fails raises.  ``host_loops()`` runs the plain loops on CUDA as well,
   as the reference that tests and ``chip_smoke.py`` compare the graphs
-  with; no entry point takes it.
+  with; no entry point takes it.  Entering it closes the cached graphs.
+- A cached graph keeps its memory pool until it is closed, as a jitted JAX
+  call does not.  When building or launching a graph runs out of card
+  memory, ``device_call`` closes the cached graphs, least recently used
+  first (never the one it launches), frees their pools and tries again
+  after each; once no other graph is left and memory has been freed, it
+  raises the error.  The work stays on the card and in the graph.
 
 How a graph is made: fn runs once eagerly with every loop cut to one pass
 (which builds whatever its wrappers make at their first call), then on a
@@ -59,6 +65,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import ctypes
+import gc
 import threading
 import time
 import warnings
@@ -70,10 +77,13 @@ from fpr_tpu_torch import kernels
 
 # cached graphs, least recently used first out
 CACHE_SIZE = 8
-# graph launches and captures since the process started; the nodes of the
-# last graph built (captured nodes, conditional and set nodes) and the
-# seconds its warm-up pass, capture and instantiation took
-stats = {"launches": 0, "captures": 0, "nodes": 0, "build_s": 0.0}
+# graph launches and captures since the process started, and the cached
+# graphs closed to free card memory; the nodes of the last graph built
+# (captured nodes, conditional and set nodes), the seconds its warm-up pass,
+# capture and instantiation took, and the bytes its memory pool reserved
+# (torch.cuda.memory_reserved after its capture less before)
+stats = {"launches": 0, "captures": 0, "reclaimed": 0, "nodes": 0, "build_s": 0.0,
+         "pool_bytes": 0}
 
 _IF, _WHILE = 0, 1
 
@@ -100,45 +110,59 @@ def _use(mode=None, capture=None):
 @contextlib.contextmanager
 def host_loops():
     """Run every loop as the plain host loop, on CUDA too: the reference
-    that the graphs are compared with, bitwise."""
-    with _use(mode="host"):
+    that the graphs are compared with, bitwise.  Entering it closes the
+    cached graphs and frees their pools, so that the host loops have the
+    card's memory that a run of their own would have."""
+    clear_cache()
+    _free_memory()
+    with host_mode():
         yield
+
+
+def host_mode():
+    """The plain loops of ``host_loops()`` without closing the cache: the
+    context of a sharded tier on a mesh over several devices
+    (``parallel.mesh.Mesh.route``)."""
+    return _use(mode="host")
 
 
 def _flatten(carry, what):
     """(tensors, structure) of a carry of tensors, tuples, lists, dicts and
     Nones; the structure is hashable."""
     leaves = []
+    return leaves, _walk(carry, leaves, what)
 
-    def walk(x):
-        if isinstance(x, torch.Tensor):
-            leaves.append(x)
-            return "*"
-        if x is None:
-            return None
-        if isinstance(x, (tuple, list)):
-            return type(x), tuple(walk(v) for v in x)
-        if isinstance(x, dict):
-            return dict, tuple((k, walk(v)) for k, v in x.items())
-        raise TypeError(f"{what}: a carry holds tensors only, got {type(x).__name__}")
 
-    return leaves, walk(carry)
+# _walk and _build are module functions, not closures: a recursive closure
+# is a reference cycle (the function, its cell), which would keep every
+# carry it saw alive until the collector runs: 4 GiB a host-loop pass of
+# mg_pcg_ds at 16385^2
+def _walk(x, leaves, what):
+    if isinstance(x, torch.Tensor):
+        leaves.append(x)
+        return "*"
+    if x is None:
+        return None
+    if isinstance(x, (tuple, list)):
+        return type(x), tuple(_walk(v, leaves, what) for v in x)
+    if isinstance(x, dict):
+        return dict, tuple((k, _walk(v, leaves, what)) for k, v in x.items())
+    raise TypeError(f"{what}: a carry holds tensors only, got {type(x).__name__}")
 
 
 def _unflatten(leaves, spec):
-    it = iter(leaves)
+    return _build(spec, iter(leaves))
 
-    def build(s):
-        if s is None:
-            return None
-        if s == "*":
-            return next(it)
-        kind, items = s
-        if kind is dict:
-            return {k: build(v) for k, v in items}
-        return kind(build(v) for v in items)
 
-    return build(spec)
+def _build(s, it):
+    if s is None:
+        return None
+    if s == "*":
+        return next(it)
+    kind, items = s
+    if kind is dict:
+        return {k: _build(v, it) for k, v in items}
+    return kind(_build(v, it) for v in items)
 
 
 def _signature(leaves, spec):
@@ -208,7 +232,7 @@ def device_call(fn, carry, key=None):
     if any(t.device != dev for t in leaves):
         raise ValueError(f"device_call: the carry spans {sorted({str(t.device) for t in leaves})}")
     if key is None:
-        graph = _Graph(fn, leaves, spec, dev)
+        graph = _reclaiming(lambda: _Graph(fn, leaves, spec, dev))
         try:
             return graph.run(leaves)
         finally:
@@ -216,7 +240,8 @@ def device_call(fn, carry, key=None):
     full = (key, _signature(leaves, spec), dev, _route())
     graph = _cache.get(full)
     if graph is None:
-        graph = _cache[full] = _Graph(fn, leaves, spec, dev)
+        graph = _reclaiming(lambda: _Graph(fn, leaves, spec, dev))
+        _cache[full] = graph
         while len(_cache) > CACHE_SIZE:
             _cache.popitem(last=False)[1].close()
     else:
@@ -224,10 +249,40 @@ def device_call(fn, carry, key=None):
     return graph.run(leaves)
 
 
+def _reclaiming(call, keep=None):
+    """call(); each time it runs out of card memory, close the least
+    recently used cached graph other than keep, free what the closed graphs
+    and the allocator's cache hold, and call again.  Raises the error once
+    no such graph is left and memory has been freed since."""
+    freed = False
+    while True:
+        try:
+            return call()
+        except torch.cuda.OutOfMemoryError:
+            victim = next((k for k, g in _cache.items() if g is not keep), None)
+            if victim is None and freed:
+                raise
+        # outside the except clause, which would keep the failed call's
+        # frames, and their tensors, alive
+        if victim is not None:
+            _cache.pop(victim).close()
+            stats["reclaimed"] += 1
+        _free_memory()
+        freed = True
+
+
+def _free_memory() -> None:
+    """Give the card the pools of closed graphs: the collector drops any
+    reference cycle that still holds their tensors (a captured function's
+    own closures, say), then the allocator returns what is free."""
+    if torch.cuda.is_initialized():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
 def clear_cache() -> None:
-    """Close every cached graph, which frees its memory pool: a sweep over
-    sizes calls it between configurations, since ``CACHE_SIZE`` graphs of
-    the largest grids hold more than the card's memory."""
+    """Close every cached graph, which frees its memory pool once the
+    collector has run (``host_loops`` and a sweep over sizes do both)."""
     while _cache:
         _cache.popitem(last=False)[1].close()
 
@@ -328,9 +383,7 @@ class _Capture:
 
     def end(self):
         graph, self.graph = self.graph, None
-        with warnings.catch_warnings():
-            warnings.filterwarnings("ignore", message=".*CUDA Graph is empty.*")
-            graph.capture_end()
+        _capture_end(graph)
         counts = self.counts[-1]
         for k, v in self.mark.items():
             counts[k] += kernels.launches[k] - v
@@ -341,7 +394,7 @@ class _Capture:
         graph, self.graph = self.graph, None
         if graph is not None:
             try:
-                graph.capture_end()
+                _capture_end(graph)
             except Exception:  # noqa: BLE001 - the capture's own error is the one raised
                 pass
         if self.mark is not None:
@@ -409,42 +462,11 @@ class _Capture:
     def assemble(self, passes):
         """The graph of the captured items and its executable."""
         lib = kernels.lib()
-        handles = {}
         self.nodes = 0
-
-        def emit(graph, seq):
-            last = None
-            for item in seq:
-                node = ctypes.c_void_p()
-                self.nodes += 1
-                if isinstance(item, torch.cuda.CUDAGraph):
-                    raw = item.raw_cuda_graph()
-                    n = ctypes.c_size_t()
-                    kernels.check(lib.fpr_graph_nodes(raw, ctypes.byref(n)), "fpr_graph_nodes")
-                    self.nodes += n.value - 1
-                    if n.value == 0:
-                        continue
-                    kernels.check(lib.fpr_graph_add_child(graph, last, raw, ctypes.byref(node)),
-                                  "fpr_graph_add_child")
-                elif isinstance(item, _Cond):
-                    body, handle = ctypes.c_void_p(), ctypes.c_ulonglong()
-                    kernels.check(lib.fpr_graph_add_cond(
-                        graph, last, item.kind, item.pred.data_ptr(), ctypes.byref(node),
-                        ctypes.byref(body), ctypes.byref(handle)), "fpr_graph_add_cond")
-                    handles[id(item)] = handle.value
-                    emit(body.value, item.body)
-                else:
-                    kernels.check(lib.fpr_graph_add_set(
-                        graph, last, handles[id(item.target)], item.pred.data_ptr(),
-                        passes.data_ptr() + 8 * item.counter, ctypes.byref(node)),
-                        "fpr_graph_add_set")
-                last = node.value
-            return last
-
         graph = ctypes.c_void_p()
         kernels.check(lib.fpr_graph_create(ctypes.byref(graph)), "fpr_graph_create")
         try:
-            emit(graph.value, self.root)
+            self._emit(lib, graph.value, self.root, passes, {})
             exe = ctypes.c_void_p()
             kernels.check(lib.fpr_graph_instantiate(graph, ctypes.byref(exe)),
                           "fpr_graph_instantiate")
@@ -452,6 +474,45 @@ class _Capture:
             lib.fpr_graph_destroy(graph)
             raise
         return graph.value, exe.value
+
+    def _emit(self, lib, graph, seq, passes, handles):
+        """Add seq's items to graph, one after another; returns the last
+        node.  A method, not a recursive closure, which would be a
+        reference cycle holding the capture and its pool after close."""
+        last = None
+        for item in seq:
+            node = ctypes.c_void_p()
+            self.nodes += 1
+            if isinstance(item, torch.cuda.CUDAGraph):
+                raw = item.raw_cuda_graph()
+                n = ctypes.c_size_t()
+                kernels.check(lib.fpr_graph_nodes(raw, ctypes.byref(n)), "fpr_graph_nodes")
+                self.nodes += n.value - 1
+                if n.value == 0:
+                    continue
+                kernels.check(lib.fpr_graph_add_child(graph, last, raw, ctypes.byref(node)),
+                              "fpr_graph_add_child")
+            elif isinstance(item, _Cond):
+                body, handle = ctypes.c_void_p(), ctypes.c_ulonglong()
+                kernels.check(lib.fpr_graph_add_cond(
+                    graph, last, item.kind, item.pred.data_ptr(), ctypes.byref(node),
+                    ctypes.byref(body), ctypes.byref(handle)), "fpr_graph_add_cond")
+                handles[id(item)] = handle.value
+                self._emit(lib, body.value, item.body, passes, handles)
+            else:
+                kernels.check(lib.fpr_graph_add_set(
+                    graph, last, handles[id(item.target)], item.pred.data_ptr(),
+                    passes.data_ptr() + 8 * item.counter, ctypes.byref(node)),
+                    "fpr_graph_add_set")
+            last = node.value
+        return last
+
+
+def _capture_end(graph):
+    """End a segment's capture; a segment with no work is a normal case."""
+    with warnings.catch_warnings():
+        warnings.filterwarnings("ignore", message=".*CUDA Graph is empty.*")
+        graph.capture_end()
 
 
 class _Graph:
@@ -467,9 +528,11 @@ class _Graph:
         with _use(mode="warm"):
             fn(carry)
         torch.cuda.synchronize(device)
+        reserved = torch.cuda.memory_reserved(device)
         cap = _Capture(device)
         with _use(capture=cap):
             out = cap.run(fn, carry)
+        pool_bytes = torch.cuda.memory_reserved(device) - reserved
         self.out_leaves, self.out_spec = _flatten(out, "device_call result")
         self.cap = cap
         self.passes = torch.zeros(max(len(cap.counted), 1), dtype=torch.int64, device=device)
@@ -477,9 +540,17 @@ class _Graph:
         self.graph, self.exe = cap.assemble(self.passes)
         stats["captures"] += 1
         stats["nodes"], stats["build_s"] = cap.nodes, time.perf_counter() - t0
+        stats["pool_bytes"] = pool_bytes
         _live.add(self)
 
     def run(self, leaves):
+        """One launch on leaves; copies of the outputs.  Out of memory, the
+        launch or the copies close other cached graphs and try again."""
+        _reclaiming(lambda: self._launch(leaves), keep=self)
+        return _reclaiming(lambda: _unflatten([t.clone() for t in self.out_leaves],
+                                              self.out_spec), keep=self)
+
+    def _launch(self, leaves):
         for b, t in zip(self.inputs, leaves):
             if b is not t:
                 b.copy_(t)
@@ -489,7 +560,6 @@ class _Graph:
         stats["launches"] += 1
         for k, v in self.cap.root_counts.items():
             kernels.launches[k] += v
-        return _unflatten([t.clone() for t in self.out_leaves], self.out_spec)
 
     def fold(self):
         """Add the launches of the loops' passes since the last fold."""
@@ -511,5 +581,5 @@ class _Graph:
         kernels.check(lib.fpr_graph_exec_destroy(self.exe), "fpr_graph_exec_destroy")
         kernels.check(lib.fpr_graph_destroy(self.graph), "fpr_graph_destroy")
         self.exe = self.graph = None
-        self.cap = None
+        self.cap = self.inputs = self.out_leaves = None
         _live.discard(self)

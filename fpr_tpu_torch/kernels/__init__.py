@@ -217,7 +217,15 @@ def lib() -> ctypes.CDLL:
     return _lib
 
 
+CUDA_ERROR_MEMORY_ALLOCATION = 2  # cudaErrorMemoryAllocation
+
+
 def check(err: int, name: str) -> None:
+    """Raise for a cudaError_t other than cudaSuccess: out of memory (a
+    graph's instantiation, say) as torch's OutOfMemoryError, which
+    ``core.loops.device_call`` answers by freeing cached graphs."""
+    if err == CUDA_ERROR_MEMORY_ALLOCATION:
+        raise torch.cuda.OutOfMemoryError(f"{name}: CUDA out of memory (cudaError_t {err})")
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError_t {err}")
 

@@ -19,7 +19,7 @@ run one card can make) a solve, a chunk of NS steps or a physical step is
 one ``core.loops.device_call``, on CUDA one CUDA graph with its loops as
 conditional WHILE nodes, as JAX runs them on the device.  A CUDA graph
 and its conditional nodes belong to one device, so a mesh over several
-devices runs the same code under ``core.loops.host_loops()``: the plain
+devices runs the same code under ``core.loops.host_mode()``: the plain
 host loops, one host read a loop test, which is what that mesh ran before
 the graphs.  No machine with several cards has run that route yet.
 """
@@ -67,9 +67,9 @@ class Mesh:
 
     def route(self):
         """The context a sharded tier runs its device calls in: graphs on one
-        device, the host loops (``loops.host_loops()``) over several; see the
+        device, the host loops (``loops.host_mode()``) over several; see the
         module docstring."""
-        return contextlib.nullcontext() if self.one_device else loops.host_loops()
+        return contextlib.nullcontext() if self.one_device else loops.host_mode()
 
     def extent(self, axis: str) -> int:
         """Shards along ``axis``; 1 for an axis the mesh does not have."""

@@ -149,73 +149,108 @@ def mg_pcg_ds(f, h: float, c, tol: float, niters: int, cfg: MGConfig = MGConfig(
     """
     if dots not in ("rowsum64", "kernel"):
         raise ValueError(f"dots must be 'rowsum64' or 'kernel', got {dots!r}")
+
+    def solve(a):
+        s, step = _pcg_ds_start(a, h, c, tol, cfg, dots)
+        s = loops.while_loop(lambda s: _pcg_ds_cond(s, a, niters), lambda s: step(s)[0], s)
+        return s["u"], s["r_rms"], s["it"]
+
+    args = _pcg_ds_args(f, c, tol)
+    u_ds, r_rms, it = loops.device_call(
+        solve, args,
+        key=("mg_pcg_ds", float(h), _c_key(c), float(tol), niters, cfg, dots))
+    it = int(it)  # the host's one read
+    _warn_unconverged("mg_pcg_ds", r_rms, args["tolf"], it, niters)
+    if return_pair:
+        return (u_ds[0], u_ds[1]), r_rms, it
+    return u_ds[0].to(f.dtype) + u_ds[1].to(f.dtype), r_rms.to(f.dtype), it
+
+
+def _pcg_ds_args(f, c, tol: float) -> dict:
+    """mg_pcg_ds's device arguments: f as a ds stack (one plane for a
+    float32 f), tol rms(f) and rms(f) in float32, and c."""
     f32 = torch.float32
-    ny, nx = f.shape
-    f_ds = dsm.to_ds(f) if f.dtype == torch.float64 else f.to(f32)[None]
     f_rms = stencil2d.rms(f)
-    tolf = (tol * f_rms).to(f32)
+    return dict(f=dsm.to_ds(f) if f.dtype == torch.float64 else f.to(f32)[None],
+                tolf=(tol * f_rms).to(f32), f_rms=f_rms.to(f32), c=_c_arg(c))
+
+
+def _pcg_ds_cond(s, a, niters: int):
+    return (s["it"] < niters) & (s["r_rms"] >= a["tolf"])
+
+
+def _pcg_ds_start(a, h: float, c, tol: float, cfg: MGConfig, dots: str):
+    """(the first carry, step) of mg_pcg_ds on its device arguments a;
+    step(carry) -> (the next carry, dict(z, s1, s2, beta, pAp, alpha)): one
+    iteration, with the values a reference inspects."""
+    f32 = torch.float32
+    f_ds = a["f"]
+    _, ny, nx = f_ds.shape
+    cc = c if a["c"] is None else a["c"]
     stk = _stk_eligible(cfg)
     c_zero = not isinstance(c, torch.Tensor) and float(c) == 0.0
+    inv_h2 = f_ds.new_full((), 1.0 / (float(h) * float(h)))
+    C = dsm.defect_scalars(cc, h, f_ds.device)
 
     def dot(a, b):
         return _rowsum64(a * b) if dots == "rowsum64" else torch.sum(a * b)
 
-    def solve(a):
-        f_ds, tolf = a["f"], a["tolf"]
-        c = c0 if a["c"] is None else a["c"]
-        inv_h2 = f_ds.new_full((), 1.0 / (float(h) * float(h)))
-        C = dsm.defect_scalars(c, h, f_ds.device)
+    def precond(r):
+        if stk:
+            L = torch.empty((2, ny, nx), dtype=f32, device=r.device)
+            L[1] = r
+            L, _ = vcycle_stk(L, h, cc, tol, cfg, assume_zero_u=True)
+            return L[0]
+        return vcycle_rp(None, r, h, cc, tol, cfg, assume_zero_u=True)[0]
 
-        def precond(r):
-            if stk:
-                L = torch.empty((2, ny, nx), dtype=f32, device=r.device)
-                L[1] = r
-                L, _ = vcycle_stk(L, h, c, tol, cfg, assume_zero_u=True)
-                return L[0]
-            return vcycle_rp(None, r, h, c, tol, cfg, assume_zero_u=True)[0]
+    def curvature(p):
+        """p.Ap = -(sum (dx p)^2 + sum (dy p)^2)/h^2 - c sum p^2 for p zero
+        on the boundary: only same-sign terms, no cancellation
+        (krylov.py:252-277).  Each difference is squared in place and summed
+        before the next is formed: one field of temporaries."""
+        ddx = p[:, 1:] - p[:, :-1]
+        qx = _rowsum64(ddx.mul_(ddx))
+        del ddx
+        ddy = p[1:, :] - p[:-1, :]
+        quad = (qx + _rowsum64(ddy.mul_(ddy))) * inv_h2
+        del ddy
+        if c_zero:
+            return -quad
+        return -(quad + stencil2d.as_scalar(cc, p) * _rowsum64(p * p))
 
-        def curvature(p):
-            """p.Ap = -(sum (dx p)^2 + sum (dy p)^2)/h^2 - c sum p^2 for p zero
-            on the boundary: only same-sign terms, no cancellation
-            (krylov.py:252-277)."""
-            ddx = p[:, 1:] - p[:, :-1]
-            ddy = p[1:, :] - p[:-1, :]
-            quad = (_rowsum64(ddx * ddx) + _rowsum64(ddy * ddy)) * inv_h2
-            if c_zero:
-                return -quad
-            return -(quad + stencil2d.as_scalar(c, p) * _rowsum64(p * p))
+    def step(s):
+        r = s["r"]
+        z = precond(r)
+        s1, s2 = dot(z, r), dot(z, s["r_old"])
+        beta = (s1 - s2) / s["rz_old"]
+        p = z + beta * s["p"]
+        pAp = curvature(p) if dots == "rowsum64" else stencil_pass.matvec_dot_rp(p, h, cc)
+        alpha = s1 / pAp
+        u_ds, r_new, r_rms = dsm.defect_pass(s["u"], f_ds, p, alpha, h, cc, C=C)
+        return (dict(u=u_ds, r=r_new, r_old=r, p=p, rz_old=s1, r_rms=r_rms, it=s["it"] + 1),
+                dict(z=z, s1=s1, s2=s2, beta=beta, pAp=pAp, alpha=alpha))
 
-        def cond(s):
-            return (s["it"] < niters) & (s["r_rms"] >= tolf)
+    # r_old = r0 makes the first beta exactly 0 with p = 0, so the first
+    # direction is z; the initial rz_old is never consumed
+    r0 = -f_ds[0]
+    s = dict(u=torch.zeros((2, ny, nx), dtype=f32, device=f_ds.device), r=r0, r_old=r0,
+             p=torch.zeros((ny, nx), dtype=f32, device=f_ds.device),
+             rz_old=f_ds.new_full((), 1.0), r_rms=a["f_rms"], it=_int0(f_ds))
+    return s, step
 
-        def body(s):
-            r, p = s["r"], s["p"]
-            z = precond(r)
-            s1, s2 = dot(z, r), dot(z, s["r_old"])
-            p = z + ((s1 - s2) / s["rz_old"]) * p
-            pAp = curvature(p) if dots == "rowsum64" else stencil_pass.matvec_dot_rp(p, h, c)
-            alpha = s1 / pAp
-            u_ds, r_new, r_rms = dsm.defect_pass(s["u"], f_ds, p, alpha, h, c, C=C)
-            return dict(u=u_ds, r=r_new, r_old=r, p=p, rz_old=s1, r_rms=r_rms, it=s["it"] + 1)
 
-        # r_old = r0 makes the first beta exactly 0 with p = 0, so the first
-        # direction is z; the initial rz_old is never consumed
-        r0 = -f_ds[0]
-        s = loops.while_loop(cond, body, dict(
-            u=torch.zeros((2, ny, nx), dtype=f32, device=f_ds.device), r=r0, r_old=r0,
-            p=torch.zeros((ny, nx), dtype=f32, device=f_ds.device),
-            rz_old=f_ds.new_full((), 1.0), r_rms=a["f_rms"], it=_int0(f_ds)))
-        return s["u"], s["r_rms"], s["it"]
-
-    c0 = c
-    u_ds, r_rms, it = loops.device_call(
-        solve, dict(f=f_ds, tolf=tolf, f_rms=f_rms.to(f32), c=_c_arg(c)),
-        key=("mg_pcg_ds", float(h), _c_key(c), float(tol), niters, cfg, dots))
-    it = int(it)  # the host's one read
-    _warn_unconverged("mg_pcg_ds", r_rms, tolf, it, niters)
-    if return_pair:
-        return (u_ds[0], u_ds[1]), r_rms, it
-    return u_ds[0].to(f.dtype) + u_ds[1].to(f.dtype), r_rms.to(f.dtype), it
+def _mg_pcg_ds_history(f, h: float, c, tol: float, niters: int, cfg: MGConfig = MGConfig(),
+                       dots: str = "rowsum64"):
+    """mg_pcg_ds's iterations one at a time, outside any graph, with the
+    loop's test read on the host: yields (carry, dict(z, s1, s2, beta, pAp,
+    alpha)) after each, for a reference that inspects every iteration (the
+    tests, ``chip_smoke.py``).  The same step as the solve's, so under
+    ``loops.host_loops()`` its carries are the host loop's."""
+    a = _pcg_ds_args(f, c, tol)
+    s, step = _pcg_ds_start(a, h, c, tol, cfg, dots)
+    while bool(_pcg_ds_cond(s, a, niters)):
+        s, d = step(s)
+        yield s, d
 
 
 # JAX's benchmark entry point (krylov.mg_pcg_ds_jit): mg_pcg_ds, which

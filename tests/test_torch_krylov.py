@@ -112,3 +112,41 @@ def test_mg_pcg_ds_pair_and_arguments():
     assert u.dtype == r2.dtype == torch.float64 and it2 == it
     with pytest.raises(ValueError, match="dots"):
         tkry.mg_pcg_ds(b, 1.0 / 32, 0.0, 1e-5, 20, dots="flat")
+
+
+EPS32 = float(np.finfo(np.float32).eps)
+
+
+@pytest.mark.parametrize("n", [129, 257])
+def test_mg_pcg_ds_iterations_keep_their_invariants(legs_on, n):
+    """Every iteration of mg_pcg_ds (``_mg_pcg_ds_history``, the solve's own
+    step one at a time): z = M r is zero on the boundary ring, which the
+    gradient form of the curvature assumes; that curvature equals the
+    float64 sum p.(A p) of the same float32 p within n EPS32 (each row
+    summed in float32: n same-sign terms); s1 = z.r and p.Ap are negative
+    (A and the V-cycle are negative definite in this sign convention), so
+    the step length is positive.  The last iterate is the solve's, bitwise,
+    and JAX's mg_pcg_ds on the same seed takes as many iterations to the
+    same u within the solve's tolerance."""
+    h = 1.0 / (n - 1)
+    b = rhs(n, 11, np.float32)
+    cfg = MGConfig(coarse_size=17)
+    history = list(tkry._mg_pcg_ds_history(torch.tensor(b), h, 0.0, 1e-6, 30, cfg))
+    for s, d in history:
+        z, p = d["z"], s["p"].double()
+        assert not torch.cat([z[0], z[-1], z[:, 0], z[:, -1]]).any()
+        want = float(torch.sum(p * stencil2d.matvec(p, h, h, 0.0)))
+        assert abs(float(d["pAp"]) - want) <= n * EPS32 * abs(want)
+        assert float(d["s1"]) < 0 and float(d["pAp"]) < 0 and float(d["alpha"]) > 0
+    (th, tl), rt, it = tkry.mg_pcg_ds(torch.tensor(b), h, 0.0, 1e-6, 30, cfg=cfg,
+                                      return_pair=True)
+    last = history[-1][0]
+    assert len(history) == it < 30
+    assert torch.equal(last["u"][0], th) and torch.equal(last["u"][1], tl)
+    assert torch.equal(last["r_rms"], rt)
+    (jh, jl), _, ij = jkry.mg_pcg_ds(jnp.asarray(b), h, 0.0, 1e-6, 30, cfg=JMG(coarse_size=17),
+                                     return_pair=True)
+    assert int(ij) == it
+    uj = np.asarray(jh, np.float64) + np.asarray(jl, np.float64)
+    ut = th.double() + tl.double()
+    assert np.abs(ut.numpy() - uj).max() <= 1e-6 * np.abs(uj).max()
