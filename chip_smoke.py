@@ -168,12 +168,14 @@ Phases, in order; the first failure stops the run with a non-zero exit:
     curvature within n float32 eps of the float64 p.(A p) and negative;
     logged: s1 = z.r (and the first iteration where it is not negative, so
     alpha is not positive) and the preconditioner's contraction
-    rms(A z - r) / rms(r) in float64; one float32 V-cycle against the float64
-    V-cycle on the rhs at 8193^2 and 16385^2.  Each part's peak card
-    memory and each graph's pool bytes are printed beside the card's name
-    and power limit.  ``python3 chip_smoke.py --16385 [PART ...]`` runs
-    phases 1, 2 and the named parts of 24 (``PARTS_24``) alone, each part
-    in a process of its own when called once a part.
+    rms(A z - r) / rms(r) in float64; JAX's recurrence written again in
+    float64 apart from the port (``pcg_witness``): at 8193^2 it converges
+    within one iteration of ``mg_pcg_ds``, at 16385^2 the port's r_rms is
+    within WITNESS_REL of it in each of the 10 iterations, and with z
+    float32 it stays above rms(f) while a float64 z converges; one float32
+    V-cycle against the float64 V-cycle on the rhs at 8193^2 and 16385^2.
+    Each part's peak card memory and each graph's pool bytes are printed
+    beside the card's name and power limit.
 
 Phase 3 holds the legs K2/K3 (one launch of the leg kernel a call) bitwise
 at the MG row's levels with ns=5, timed at 2049x513 ns=3 and at 4097^2
@@ -2679,11 +2681,6 @@ def phase_oracles_and_entry_points(n_fine=513, n_f64=257, n_3d=64, n_ds=4097, n_
     log("H through checkpoint.save and volume_slices.load_field: bitwise")
 
 
-PHASE_24 = "--16385"
-# phase 24's parts, in the order it runs them
-PARTS_24 = ("ds", "graph", "reclaim", "host", "history", "precond")
-
-
 def gib(nbytes) -> str:
     return "none" if nbytes is None else f"{nbytes / 2**30:.2f} GiB"
 
@@ -2710,15 +2707,15 @@ def rms64(a) -> float:
     return float(torch.linalg.vector_norm(a, dtype=torch.float64)) / a.numel() ** 0.5
 
 
-def phase_16385(smi, parts=PARTS_24, n=16385, n_hist=10, niters=60, tol=1e-6, ds_outers=6):
+def phase_16385(smi, n=16385, n_hist=10, niters=60, tol=1e-6, ds_outers=6):
     """Phase 24: the sweep's largest grid (``mg_workprec_k14``) in one
     process, no ``clear_cache``: ``mg_solve_ds`` (6 outers), ``mg_pcg_ds``
     as a graph, the same under ``loops.host_loops()`` (bitwise: u pair,
     r_rms, count), the first n_hist iterations of its step as host loops
-    and through the plain versions in lockstep, and the float32
+    and through the plain versions in lockstep, the same recurrence written
+    again apart from the port (``phase_16385_witness``), and the float32
     preconditioner against the float64 V-cycle at 8193^2 and 16385^2.  Each
-    part's peak card memory, each graph's pool.  parts: a subset of
-    PARTS_24 (``chip_smoke.py --16385 PART ...`` runs one part a process)."""
+    part's peak card memory, each graph's pool."""
     import torch
 
     from fpr_tpu_torch.core import loops
@@ -2726,7 +2723,7 @@ def phase_16385(smi, parts=PARTS_24, n=16385, n_hist=10, niters=60, tol=1e-6, ds
     from fpr_tpu_torch.solvers import krylov, multigrid
     from fpr_tpu_torch.solvers.poisson import true_rel_residual
 
-    log(f"== phase 24: {n}^2 in one process, no clear_cache ({', '.join(parts)})  [{smi}]")
+    log(f"== phase 24: {n}^2 in one process, no clear_cache  [{smi}]")
     h = 1.0 / (n - 1)
     cfg = MGConfig(coarse_size=513, coarse_solver=CoarseSolver.DST, pre_smooth=5, post_smooth=5)
     b = poisson_rhs(n, "float32")
@@ -2743,46 +2740,36 @@ def phase_16385(smi, parts=PARTS_24, n=16385, n_hist=10, niters=60, tol=1e-6, ds
             f"{loops.stats['reclaimed'] - reclaimed}")
         return out
 
-    def pcg(n_it=niters):
-        return krylov.mg_pcg_ds(b, h, 0.0, tol, n_it, cfg=cfg, return_pair=True)
+    def pcg():
+        return krylov.mg_pcg_ds(b, h, 0.0, tol, niters, cfg=cfg, return_pair=True)
 
-    if "ds" in parts:
-        (uh, ul), r, it = graph_call(f"mg_solve_ds {n}^2", lambda: multigrid.mg_solve_ds(
-            None, b, h, 0.0, tol, 30, cfg=cfg, return_pair=True))
-        rel = true_rel_residual(uh, ul, b, h)
-        log(f"mg_solve_ds {n}^2: {it} outers, r_rms {float(r):.4e}, true f64 r_rms/f_rms "
-            f"{rel:.4e}")
-        require(it == ds_outers and rel <= tol,
-                f"mg_solve_ds {n}^2: {it} outers (not {ds_outers}), residual {rel:.3e}")
-        ds_u = uh, ul
-        del uh, ul, r
-    graph = None
-    if "graph" in parts:
-        graph = graph_call(f"mg_pcg_ds {n}^2 as a graph", pcg)
-        (gh, gl), gr, git = graph
-        log(f"mg_pcg_ds {n}^2 as a graph: {git} iterations, r_rms {float(gr):.4e} against tol "
-            f"rms(f) {tolf:.4e} (r_rms at the start {rms64(b):.4e}), true f64 r_rms/f_rms "
-            f"{true_rel_residual(gh, gl, b, h):.4e}")
-    if "reclaim" in parts and "ds" in parts:
-        phase_16385_reclaim(b, h, cfg, tol, ds_u, ds_outers)
-    ds_u = None
-    if "host" in parts:
-        with loops.host_loops():
-            (hh, hl), hr, hit = graph_call(f"mg_pcg_ds {n}^2 as host loops", pcg)
-        log(f"mg_pcg_ds {n}^2 as host loops: {hit} iterations, r_rms {float(hr):.4e}")
-        if graph is not None:
-            same = torch.equal(gh, hh) and torch.equal(gl, hl) and torch.equal(gr, hr)
-            log(f"graph against host loops: {'bitwise' if same else 'DIFFERENT'}, {git} and "
-                f"{hit} iterations")
-            require(same and git == hit, f"mg_pcg_ds {n}^2: the graph is not the host loops")
-            del gh, gl, gr, graph
-        del hh, hl, hr
-    if "history" in parts:
-        phase_16385_history(b, h, cfg, tol, niters, n_hist, kernels_too="host" in parts)
-    if "precond" in parts:
-        del b
-        for m in (n // 2 + 1, n):
-            phase_16385_precond(m, cfg, tol)
+    (uh, ul), r, it = graph_call(f"mg_solve_ds {n}^2", lambda: multigrid.mg_solve_ds(
+        None, b, h, 0.0, tol, 30, cfg=cfg, return_pair=True))
+    rel = true_rel_residual(uh, ul, b, h)
+    log(f"mg_solve_ds {n}^2: {it} outers, r_rms {float(r):.4e}, true f64 r_rms/f_rms "
+        f"{rel:.4e}")
+    require(it == ds_outers and rel <= tol,
+            f"mg_solve_ds {n}^2: {it} outers (not {ds_outers}), residual {rel:.3e}")
+    del r
+    (gh, gl), gr, git = graph_call(f"mg_pcg_ds {n}^2 as a graph", pcg)
+    log(f"mg_pcg_ds {n}^2 as a graph: {git} iterations, r_rms {float(gr):.4e} against tol "
+        f"rms(f) {tolf:.4e} (r_rms at the start {rms64(b):.4e}), true f64 r_rms/f_rms "
+        f"{true_rel_residual(gh, gl, b, h):.4e}")
+    phase_16385_reclaim(b, h, cfg, tol, (uh, ul), ds_outers)
+    del uh, ul
+    with loops.host_loops():
+        (hh, hl), hr, hit = graph_call(f"mg_pcg_ds {n}^2 as host loops", pcg)
+    log(f"mg_pcg_ds {n}^2 as host loops: {hit} iterations, r_rms {float(hr):.4e}")
+    same = torch.equal(gh, hh) and torch.equal(gl, hl) and torch.equal(gr, hr)
+    log(f"graph against host loops: {'bitwise' if same else 'DIFFERENT'}, {git} and "
+        f"{hit} iterations")
+    require(same and git == hit, f"mg_pcg_ds {n}^2: the graph is not the host loops")
+    del gh, gl, gr, hh, hl, hr
+    port = phase_16385_history(b, h, cfg, tol, niters, n_hist)
+    phase_16385_witness(b, h, cfg, tol, n_hist, port)
+    del b
+    for m in (n // 2 + 1, n):
+        phase_16385_precond(m, cfg, tol)
 
 
 def phase_16385_reclaim(b, h, cfg, tol, want_u, want_it, room=6 * 2**30):
@@ -2818,16 +2805,17 @@ def phase_16385_reclaim(b, h, cfg, tol, want_u, want_it, room=6 * 2**30):
             f"reclaim: {closed} graphs closed, {it} outers, bitwise {same}")
 
 
-def phase_16385_history(b, h, cfg, tol, niters, n_hist, kernels_too=True):
+def phase_16385_history(b, h, cfg, tol, niters, n_hist):
     """Phase 24's history: the first n_hist iterations of ``mg_pcg_ds``'s
-    step (``krylov._mg_pcg_ds_history``) through the plain versions and,
-    with kernels_too, as host loops in lockstep: every field and scalar
-    bitwise, r_rms within REL_SUM (the kernels sum in another order).  Each
+    step (``krylov._mg_pcg_ds_history``) through the plain versions and as
+    host loops in lockstep: every field and scalar bitwise, r_rms within
+    REL_SUM (the kernels sum in another order).  Each
     iteration: z's boundary ring zero, the curvature within n EPS32 of the
     float64 sum p.(A p) of the same p, and p.Ap < 0; logged: s1 = z.r,
     negative while the float32 V-cycle is negative definite on r as M is in
     exact arithmetic (alpha > 0), the first iteration where it is not, and
-    the preconditioner's contraction rms(A z - r) / rms(r) in float64."""
+    the preconditioner's contraction rms(A z - r) / rms(r) in float64.
+    Returns each iteration's scalars and r_rms."""
     import numpy as np
     import torch
 
@@ -2845,7 +2833,7 @@ def phase_16385_history(b, h, cfg, tol, niters, n_hist, kernels_too=True):
     def run():
         out = []
         with loops.host_loops():
-            plain, kern = history(), history() if kernels_too else None
+            plain, kern = history(), history()
             prev, first_s1 = float("inf"), None
             for i in range(1, n_hist + 1):
                 with plain_kernels():
@@ -2853,16 +2841,15 @@ def phase_16385_history(b, h, cfg, tol, niters, n_hist, kernels_too=True):
                 if step is None:  # converged
                     break
                 sp, dp = step
-                if kern is not None:
-                    sk, dk = next(kern)
-                    same = (all(torch.equal(sk[k], sp[k]) for k in ("u", "r", "p"))
-                            and torch.equal(dk["z"], dp["z"])
-                            and all(torch.equal(dk[k], dp[k]) for k in scalars))
-                    rk, rp = float(sk["r_rms"]), float(sp["r_rms"])
-                    require(same and abs(rk - rp) <= REL_SUM * rp,
-                            f"history {n}^2 iteration {i}: the host loops' fields or scalars "
-                            f"differ from the plain versions' (r_rms {rk!r} vs {rp!r})")
-                    del sk, dk
+                sk, dk = next(kern)
+                same = (all(torch.equal(sk[k], sp[k]) for k in ("u", "r", "p"))
+                        and torch.equal(dk["z"], dp["z"])
+                        and all(torch.equal(dk[k], dp[k]) for k in scalars))
+                rk, rp = float(sk["r_rms"]), float(sp["r_rms"])
+                require(same and abs(rk - rp) <= REL_SUM * rp,
+                        f"history {n}^2 iteration {i}: the host loops' fields or scalars "
+                        f"differ from the plain versions' (r_rms {rk!r} vs {rp!r})")
+                del sk, dk
                 z, p, r_new = dp["z"], sp["p"], sp["r"]
                 ring = float(torch.cat([z[0], z[-1], z[:, 0], z[:, -1]]).abs().max())
                 p64 = p.double()
@@ -2879,7 +2866,7 @@ def phase_16385_history(b, h, cfg, tol, niters, n_hist, kernels_too=True):
                     f"  s1 {v['s1']:.4e}  s2 {v['s2']:.4e}  beta {v['beta']:.4e}  pAp "
                     f"{v['pAp']:.4e} (f64 {pap64:.4e}, rel {rel:.1e})  alpha {v['alpha']:.4e}  "
                     f"max|z| on the ring {ring}  M: rms(A z - r)/rms(r) {contr:.4e}"
-                    + ("  host loops = plain" if kernels_too else ""))
+                    "  host loops = plain")
                 require(ring == 0.0, f"history {n}^2 iteration {i}: z is {ring} on the ring")
                 require(rel <= bound, f"history {n}^2 iteration {i}: curvature {v['pAp']!r} "
                                       f"vs float64 {pap64!r}")
@@ -2888,16 +2875,134 @@ def phase_16385_history(b, h, cfg, tol, niters, n_hist, kernels_too=True):
                 require(v["pAp"] < 0, f"history {n}^2 iteration {i}: pAp {v['pAp']!r}")
                 if v["s1"] >= 0 and first_s1 is None:
                     first_s1 = i
-                out.append(r_rms)
+                out.append(dict(v, r_rms=r_rms))
                 prev = r_rms
                 del sp, dp, z, p, r_new, step
         return out, first_s1
 
     (rs, first_s1), peak, secs = peak_of(run)
-    log(f"history {n}^2: {len(rs)} iterations through the plain versions"
-        + (" and as host loops" if kernels_too else "")
-        + f" in {secs:.2f} s, peak {gib(peak)}; r_rms {[f'{r:.4e}' for r in rs]}; the first "
-        f"iteration with s1 >= 0 (alpha <= 0): {first_s1}")
+    r_rms = ", ".join(f"{d['r_rms']:.4e}" for d in rs)
+    log(f"history {n}^2: {len(rs)} iterations through the plain versions and as host "
+        f"loops in {secs:.2f} s, peak {gib(peak)}; r_rms [{r_rms}]; the first iteration "
+        f"with s1 >= 0 (alpha <= 0): {first_s1}")
+    return rs
+
+
+def lap64(v, h):
+    """The 5-point Laplacian of v on the interior, 0 on the ring."""
+    import torch
+
+    out = torch.zeros_like(v)
+    c = out[1:-1, 1:-1]
+    c.copy_(v[1:-1, 2:]).add_(v[1:-1, :-2]).add_(v[2:, 1:-1]).add_(v[:-2, 1:-1])
+    c.sub_(v[1:-1, 1:-1], alpha=4.0).mul_(1.0 / (h * h))
+    return out
+
+
+# the port's r_rms against pcg_witness's in the iterations they share: a
+# float64 recurrence against the port's double-single one and float32
+# scalars (1.5e-4 apart at 16385^2, an NVIDIA H100 80GB HBM3 at 700 W)
+WITNESS_REL = 1e-3
+# what pcg_witness keeps in float32, as mg_pcg_ds does, by variant
+WITNESS = {"z, p": ("z", "p"), "z": ("z",), "none": ()}
+
+
+def pcg_witness(b, h, cfg, tol, iters, variant):
+    """JAX's ``mg_pcg_ds`` (``fpr_tpu/solvers/krylov.py:279-310``) written
+    again from its source in plain float64 PyTorch, none of the port's step
+    in it (no ``krylov`` code, defect pass, curvature form or row sums): u,
+    r = A u - f (``lap64``), every dot and scalar in float64.  variant
+    (``WITNESS``): what stays float32 as the method keeps it: "z, p" (z the
+    float32 ``vcycle_stk`` of r rounded to float32, p rounded to float32
+    once formed), "z" (p float64), "none" (z the float64 ``vcycle`` of r).
+    Yields dict(r_rms, s1, s2, beta, pAp, alpha) an iteration, up to iters
+    or r_rms < tol rms(f)."""
+    import torch
+
+    from fpr_tpu_torch.solvers import multigrid
+
+    f32 = WITNESS[variant]
+    f = b.double()
+    tolf = tol * rms64(f)
+    u = torch.zeros_like(f)
+    r = -f
+    r_old, p, rz_old = r, torch.zeros_like(f), 1.0
+    for _ in range(iters):
+        if "z" in f32:
+            L = torch.empty((2,) + r.shape, dtype=torch.float32, device=r.device)
+            L[1] = r
+            z = multigrid.vcycle_stk(L, h, 0.0, tol, cfg, assume_zero_u=True)[0][0].double()
+            del L
+        else:
+            z = multigrid.vcycle(torch.zeros_like(r), r, h, 0.0, tol, cfg)[0]
+        s1, s2 = float(torch.sum(z * r)), float(torch.sum(z * r_old))
+        beta = (s1 - s2) / rz_old
+        p = z.add_(p, alpha=beta)
+        del z
+        if "p" in f32:
+            p = p.float().double()
+        pAp = float(torch.sum(p * lap64(p, h)))
+        alpha = s1 / pAp
+        u.sub_(p, alpha=alpha)
+        r_old, r, rz_old = r, lap64(u, h).sub_(f), s1
+        d = dict(r_rms=rms64(r), s1=s1, s2=s2, beta=beta, pAp=pAp, alpha=alpha)
+        yield d
+        if d["r_rms"] < tolf:
+            return
+
+
+def phase_16385_witness(b, h, cfg, tol, n_hist, port, cap=60):
+    """Phase 24's witness of ``mg_pcg_ds``'s recurrence, apart from the
+    port's: ``pcg_witness`` at 16385^2 for n_hist iterations in each
+    variant beside the port's history (port), and, "z, p", at 8193^2 to
+    convergence beside the port's ``mg_pcg_ds`` there.  Held: at 8193^2
+    both converge, within one iteration of each other; at 16385^2 the
+    port's r_rms within WITNESS_REL of the "z, p" witness's in every
+    iteration, both float32-z variants still above rms(f) after n_hist
+    iterations and the float64-z one below tol rms(f): the stagnation is
+    the float32 z's, whoever runs the recurrence."""
+    from fpr_tpu_torch.solvers import krylov
+
+    n = b.shape[0]
+    m = n // 2 + 1
+    bm = poisson_rhs(m, "float32")
+    hm = 1.0 / (m - 1)
+    (_, _), rm, itm = krylov.mg_pcg_ds(bm, hm, 0.0, tol, cap, cfg=cfg, return_pair=True)
+    wm = list(pcg_witness(bm, hm, cfg, tol, cap, "z, p"))
+    tolm = tol * rms64(bm)
+    log(f"witness {m}^2 (z, p float32): {len(wm)} iterations, r_rms {wm[-1]['r_rms']:.4e} "
+        f"against tol rms(f) {tolm:.4e}; the port's mg_pcg_ds {itm} iterations, "
+        f"r_rms {float(rm):.4e}")
+    require(wm[-1]["r_rms"] < tolm and float(rm) < tolm and abs(len(wm) - itm) <= 1,
+            f"witness {m}^2: {len(wm)} iterations to r_rms {wm[-1]['r_rms']!r}, the port's "
+            f"{itm} to {float(rm)!r}")
+    del bm, rm
+    runs = {}
+    for variant in WITNESS:
+        t0 = time.perf_counter()
+        runs[variant] = list(pcg_witness(b, h, cfg, tol, n_hist, variant))
+        log(f"witness {n}^2 ({variant or 'nothing'} float32): {len(runs[variant])} "
+            f"iterations in {time.perf_counter() - t0:.2f} s")
+    for i, d in enumerate(port):
+        row = [f"port r_rms {d['r_rms']:.4e} s1 {d['s1']:.3e} alpha {d['alpha']:.3e}"]
+        for variant, ws in runs.items():
+            if i < len(ws):
+                w = ws[i]
+                row.append(f"[{variant}] r_rms {w['r_rms']:.4e} s1 {w['s1']:.3e} "
+                           f"beta {w['beta']:.3e} alpha {w['alpha']:.3e}")
+        log(f"{n}^2 iteration {i + 1}: " + "; ".join(row))
+    for i, (d, w) in enumerate(zip(port, runs["z, p"])):
+        require(len(runs["z, p"]) == len(port)
+                and abs(d["r_rms"] - w["r_rms"]) <= WITNESS_REL * w["r_rms"],
+                f"witness {n}^2 iteration {i + 1}: r_rms {w['r_rms']!r}, the port's "
+                f"{d['r_rms']!r}")
+    f_rms, tolf = rms64(b), tol * rms64(b)
+    last = {variant: ws[-1]["r_rms"] for variant, ws in runs.items()}
+    require(last["z, p"] > f_rms and last["z"] > f_rms and last["none"] < tolf,
+            f"witness {n}^2: r_rms after the last iteration {last}, rms(f) {f_rms!r}, "
+            f"tol rms(f) {tolf!r}")
+    log(f"witness {n}^2: the port within {WITNESS_REL} of the witness (z, p float32) in "
+        f"{len(port)} iterations; r_rms after them {last} against rms(f) {f_rms:.4e}")
 
 
 def phase_16385_precond(n, cfg, tol):
@@ -3247,21 +3352,6 @@ def main() -> int:
         return 3
     if sys.argv[1:] == [LAUNCH_COUNTS]:
         print(json.dumps(launch_counts()))
-        return 0
-    if sys.argv[1:2] == [PHASE_24]:
-        parts = tuple(sys.argv[2:]) or PARTS_24
-        if not set(parts) <= set(PARTS_24):
-            log(f"chip_smoke {PHASE_24}: parts are {PARTS_24}, got {parts}")
-            return 2
-        try:
-            smi = phase_env()
-            phase_build()
-            phase_16385(smi, parts)
-        except Failed as exc:
-            log(f"chip_smoke FAILED: {exc}")
-            return 1
-        log(f"chip_smoke: phases 1, 2 and 24 ({', '.join(parts)}) passed in "
-            f"{time.perf_counter() - T0:.0f} s")
         return 0
     try:
         smi = phase_env()

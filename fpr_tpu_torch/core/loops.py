@@ -253,12 +253,16 @@ def _reclaiming(call, keep=None):
     """call(); each time it runs out of card memory, close the least
     recently used cached graph other than keep, free what the closed graphs
     and the allocator's cache hold, and call again.  Raises the error once
-    no such graph is left and memory has been freed since."""
+    no such graph is left and memory has been freed since.  A call that
+    runs out of memory counts no launch: the launches that a build's warm-up
+    pass added before it failed are taken back."""
     freed = False
     while True:
+        mark = dict(kernels.launches)
         try:
             return call()
         except torch.cuda.OutOfMemoryError:
+            kernels.launches.update(mark)
             victim = next((k for k, g in _cache.items() if g is not keep), None)
             if victim is None and freed:
                 raise

@@ -24,7 +24,6 @@ rows fill with a TPU time amortized over chained solves, stays empty.
 from __future__ import annotations
 
 import argparse
-import gc
 import math
 import sys
 
@@ -32,7 +31,6 @@ import numpy as np
 import torch
 
 from fpr_tpu_torch.solvers.poisson import poisson_rhs
-from fpr_tpu_torch.core import loops
 from fpr_tpu_torch.core.config import CoarseSolver, MGConfig
 from fpr_tpu_torch.experiments import RESULTS
 from fpr_tpu_torch.solvers import krylov, multigrid
@@ -47,15 +45,6 @@ def timed(fn, reps: int = 3):
     r = fn()
     float(r[1])
     return timed_stats(lambda: float(fn()[1]), reps=reps), r
-
-
-def _release(dev) -> None:
-    """Free the configuration's card memory: its cached graphs' pools too,
-    once the collector has dropped the captures' reference cycles."""
-    if dev.type == "cuda":
-        loops.clear_cache()
-        gc.collect()
-        torch.cuda.empty_cache()
 
 
 def converged(b, tol: float, r_rms, it: int, niters: int) -> bool:
@@ -111,7 +100,6 @@ def workprec(args, dev, backend, name) -> int:
                 continue
             finally:
                 b = r = None
-                _release(dev)
             if not ok:
                 print(f"k={k} {solver}: NOT converged in {niters} iterations, no row")
                 failed += 1
@@ -170,7 +158,6 @@ def sweep(args, dev, backend, name) -> int:
                     continue
                 finally:
                     b = fn = r = None
-                    _release(dev)
                 if not ok:
                     print(f"k={k} l={l} {coarse.value} {solver}: NOT converged in 30 "
                           "cycles, no row")

@@ -79,7 +79,9 @@ def device_seconds(fn, device="cuda") -> float:
     event.  Work queued before the call is finished first.  The profiler
     does not see the kernels inside a CUDA graph's conditional nodes, so
     fn's loops run as host loops here (``core.loops.host_loops``): the
-    same kernels on the same data, launched one by one."""
+    same kernels on the same data, launched one by one.  Entering
+    ``host_loops`` closes every cached graph of the process, so the
+    caller's next ``device_call`` of a key builds its graph again."""
     from torch.profiler import ProfilerActivity, profile
 
     from fpr_tpu_torch.core import loops

@@ -7,6 +7,8 @@ For each 2^K + 1 grid, one V-cycle from zero on the MG rows' rhs (DST-513,
 V(5,5)): ``vcycle_stk`` in float32 (the legs' kernels on CUDA, their plain
 versions on the CPU) and ``vcycle`` in float64.  Prints rms(z32 - z64) /
 rms(z64) and each one's contraction rms(A z - r) / rms(r) in float64.
+On the CPU, K = 10-12 are the readings that PERF.md's prediction for
+16385^2 was extrapolated from.
 """
 
 import argparse

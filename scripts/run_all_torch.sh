@@ -48,20 +48,14 @@ row error_tol $PY -m $EX.part1_error_experiments --mode tol --n 128 \
     --out "$RESULTS/error_vs_tolerance.csv"
 
 echo "== multigrid sweep =="
-# k = 14 (16385^2) in a process of its own: after the smaller grids the
-# card's memory is too fragmented for it
 MG="$RESULTS/bench_multigrid.csv"
 row mg_k12 $PY -m $EX.multigrid_bench --max-k 12 --dst --out "$MG"
-row mg_ds_k13 $PY -m $EX.multigrid_bench --solvers ds --min-k 10 --max-k 13 --dst --out "$MG"
-row mg_ds_k14 $PY -m $EX.multigrid_bench --solvers ds --min-k 14 --max-k 14 --dst --out "$MG"
+row mg_ds $PY -m $EX.multigrid_bench --solvers ds --min-k 10 --max-k 14 --dst --out "$MG"
 # deep-smoothed rows (labelled ds_v55; the V(2,2) rows above stay)
-row mg_ds_v55_k13 $PY -m $EX.multigrid_bench --solvers ds --min-k 10 --max-k 13 --max-l 2 \
-    --dst --smooths 5 --out "$MG"
-row mg_ds_v55_k14 $PY -m $EX.multigrid_bench --solvers ds --min-k 14 --max-k 14 --max-l 2 \
+row mg_ds_v55 $PY -m $EX.multigrid_bench --solvers ds --min-k 10 --max-k 14 --max-l 2 \
     --dst --smooths 5 --out "$MG"
 WP="$RESULTS/mg_workprecision.csv"
-row mg_workprec_k13 $PY -m $EX.multigrid_bench --workprec --max-k 13 --out "$WP"
-row mg_workprec_k14 $PY -m $EX.multigrid_bench --workprec --min-k 14 --max-k 14 --out "$WP"
+row mg_workprec $PY -m $EX.multigrid_bench --workprec --max-k 14 --out "$WP"
 
 echo "== NS timestepping (full 2049x513 scale), the fast loop =="
 # solver labels fast and fast_stol100 (the relaxed streamfunction tolerance)

@@ -27,6 +27,7 @@ import torch
 from fpr_tpu.core.config import InitScheme as JInit
 from fpr_tpu.core.config import NSConfig as JNS
 from fpr_tpu.models import navier_stokes as jns
+from fpr_tpu_torch import kernels
 from fpr_tpu_torch.core import loops
 from fpr_tpu_torch.core.config import (CoarseSolver, DiffusionConfig, ExecutionPolicy,
                                        InitScheme, MGConfig, NSConfig, Restriction, Smoother)
@@ -197,6 +198,23 @@ def test_reclaiming_never_closes_the_graph_it_launches(fake_graphs):
     with pytest.raises(torch.cuda.OutOfMemoryError):
         loops._reclaiming(full, keep=fake_graphs["b"])
     assert list(fake_graphs) == ["b"] and calls == [1, 1]
+
+
+def test_a_build_that_runs_out_of_memory_counts_no_launch(fake_graphs, monkeypatch):
+    """The launches of a build's warm-up pass are taken back when the build
+    runs out of card memory: only the build that fits counts its own."""
+
+    class WarmGraph(_FakeGraph):
+        def __init__(self, fn, leaves, spec, dev, name="new"):
+            kernels.launches["defect"] += 1  # the warm-up pass's launch
+            super().__init__(fn, leaves, spec, dev, name)
+
+    monkeypatch.setattr(loops, "_Graph", WarmGraph)
+    monkeypatch.setattr(kernels, "launches", dict.fromkeys(kernels.KERNELS, 0))
+    _FakeGraph.room = 1
+    loops.device_call(lambda leaves: leaves[0] + 1, [torch.ones(2)], key=("k",))
+    assert _FakeGraph.closed == ["a", "b"]  # two builds ran out, the third fit
+    assert kernels.launches == dict(dict.fromkeys(kernels.KERNELS, 0), defect=1)
 
 
 def test_host_loops_close_the_cache(fake_graphs):
