@@ -84,8 +84,13 @@ Phases, in order; the first failure stops the run with a non-zero exit:
     card's name and power limit); MG 4097^2, 4 outers at a true float64
     residual within 1e-6; NS semi-implicit (37 timed steps) and implicit
     (within IMPLICIT_BAND) at 2049x513 with one rep each; then ``python -m
-    fpr_tpu_torch bench --quick`` in a subprocess, its last line parsed and
-    naming the card.
+    fpr_tpu_torch bench --quick`` in a subprocess (each component in a
+    process of its own), its last line parsed and naming the card, with a
+    canary inside the bench's healthy envelope and
+    ``aliased_kernel_check`` true; then ``bench --component aliased`` (the
+    kernel-agreement check at bench.py's shapes) and ``--component
+    canary_post`` run directly, their payloads printed: the check passed,
+    the canary inside the envelope.
 20. checkpoints through ``fpr_tpu_torch.cli.main``: ``ns --fast`` at
     2049x513 saved at 200 steps and resumed to 400, bitwise equal to a
     straight 400 (T, W, S_hi, S_lo, w_sumsq, t_hi, t_lo, step); a host-loop
@@ -2132,6 +2137,27 @@ def phase_bench(smi):
             f"bench --quick names {name!r}, not the card {card_name()!r}")
     require(line["extras"]["mg_outer_iterations"] >= 1 and line["value"] > 0,
             "bench --quick: no MG count or no T_eff")
+    lo, hi = bench.CANARY_ENVELOPE_MS
+    canary = line["extras"]["canary"].get("ms_per_iter")
+    require(canary is not None and lo <= canary <= hi and "env_degraded" not in line,
+            f"bench --quick: canary {line['extras']['canary']} outside [{lo}, {hi}] ms")
+    require(line["extras"]["aliased_kernel_check"] is True,
+            f"bench --quick: aliased_kernel_check {line['extras']['aliased_kernel_check']}")
+    for name in ("aliased", "canary_post"):
+        t0 = time.perf_counter()
+        p = subprocess.run([sys.executable, "-m", "fpr_tpu_torch", "bench", "--component", name,
+                            "--device", DEVICE], cwd=here, capture_output=True, text=True,
+                           timeout=bench._TIMEOUTS[name])
+        payload = bench._payload_of(p.stdout, name)
+        log(f"bench --component {name} in {time.perf_counter() - t0:.1f} s: {payload}  [{smi}]")
+        require(p.returncode == 0 and payload is not None,
+                f"bench --component {name}: exit {p.returncode}\n{(p.stdout + p.stderr)[-2000:]}")
+        if name == "aliased":
+            require(payload["passed"] is True and not payload["mismatches"],
+                    f"the kernel-agreement check failed: {payload['mismatches']}")
+        else:
+            require(lo <= payload["ms_per_iter"] <= hi,
+                    f"canary_post {payload['ms_per_iter']} ms outside [{lo}, {hi}] ms")
 
 
 def card_name():

@@ -101,13 +101,13 @@ def f32_pair(x: float):
     return hi, float(np.float32(x - hi))
 
 
-def to_ds(a: torch.Tensor) -> torch.Tensor:
+def to_ds(x: torch.Tensor) -> torch.Tensor:
     """An (ny, nx) field as a (2, ny, nx) float32 hi/lo pair (ds.to_ds): a
     float64 field split so that hi + lo keeps ~48 bits, any other (hi, 0)."""
-    hi = a.to(torch.float32)
-    if a.dtype != torch.float64:
+    hi = x.to(torch.float32)
+    if x.dtype != torch.float64:
         return torch.stack([hi, torch.zeros_like(hi)])
-    return torch.stack([hi, (a - hi.to(torch.float64)).to(torch.float32)])
+    return torch.stack([hi, (x - hi.to(torch.float64)).to(torch.float32)])
 
 
 def from_ds(hi, lo, dtype=torch.float64):

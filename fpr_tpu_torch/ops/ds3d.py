@@ -156,13 +156,13 @@ def to_ds_padded(H: np.ndarray) -> np.ndarray:
     return pad3d_ds(hi, (H - hi.astype(H.dtype)).astype(np.float32))
 
 
-def from_ds_padded(H_ds: np.ndarray, shape, dtype=np.float64) -> np.ndarray:
+def from_ds_padded(Hds: np.ndarray, shape, dtype=np.float64) -> np.ndarray:
     """The physical field of a ds-padded state in dtype, read from interior
     planes only: kernel outputs leave the z-ghost planes unspecified
     (ds3d.from_ds_padded)."""
     nz, ny, nx = shape
-    return (H_ds[0, 1:1 + nz, :ny, :nx].astype(dtype)
-            + H_ds[1, 1:1 + nz, :ny, :nx].astype(dtype))
+    return (Hds[0, 1:1 + nz, :ny, :nx].astype(dtype)
+            + Hds[1, 1:1 + nz, :ny, :nx].astype(dtype))
 
 
 def state_from_jax(a, shape, layout: str = "padded") -> torch.Tensor:

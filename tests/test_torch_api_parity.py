@@ -345,3 +345,67 @@ def test_missing_public_names_are_the_by_design_list():
         if gone:
             missing[rel] = gone
     assert missing == BY_DESIGN
+
+
+# fpr_tpu functions whose positional parameters the port changes by design:
+# the row-padded layout's ny, nx and br (with its *_rp buffers), the shard
+# hooks as Rows/Cols objects in place of row_off/ny_mask/col_off/nx_mask,
+# the GSPMD constrain hook, the sharded tiers' block lists and mesh in place
+# of shard_map's local block and axis names, and init_field's seed in place
+# of a JAX key
+SIGNATURES_BY_DESIGN = {
+    "models/navier_stokes.py": {"init_field", "ns_step"},
+    "ops/ds.py": {"defect_pass", "defect_pass_stk"},
+    "ops/reductions.py": {"dist_norm_l2", "dist_sumsq"},
+    "parallel/halo.py": {"exchange_faces", "mask_bounds", "refresh_ghosts_ext",
+                         "refresh_ghosts_zk"},
+    "solvers/multigrid.py": {"mg_solve", "mg_solve_ds_rp", "vcycle", "vcycle_rp", "vcycle_stk"},
+}
+
+
+def _positional_names(path: Path) -> dict:
+    """Each public top-level function's positional parameter names."""
+    return {node.name: [a.arg for a in node.args.posonlyargs + node.args.args]
+            for node in ast.parse(path.read_text()).body
+            if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef))
+            and not node.name.startswith("_")}
+
+
+def test_positional_parameter_names_match_jax():
+    """Every public function that both packages define under the same module
+    and name takes JAX's positional parameters under JAX's names, first and
+    in JAX's order (a keyword call that works in JAX works in the port; the
+    port may add parameters after them: a device, a row hook, argv), apart
+    from SIGNATURES_BY_DESIGN."""
+    drift = {}
+    for path in sorted((REPO / "fpr_tpu").rglob("*.py")):
+        rel = path.relative_to(REPO / "fpr_tpu").as_posix()
+        if not (REPO / "fpr_tpu_torch" / rel).exists():
+            continue
+        jax_fns = _positional_names(path)
+        port_fns = _positional_names(REPO / "fpr_tpu_torch" / rel)
+        bad = {n for n in set(jax_fns) & set(port_fns)
+               if port_fns[n][:len(jax_fns[n])] != jax_fns[n]}
+        if bad:
+            drift[rel] = bad
+    assert drift == SIGNATURES_BY_DESIGN
+
+
+def _bench_names(path: Path, pkg: str) -> set:
+    """A bench file's public names, with the names it imports from its
+    package at the top level (JAX's bench re-exports its tunnel probe)."""
+    imported = {a.asname or a.name for node in ast.parse(path.read_text()).body
+                if isinstance(node, ast.ImportFrom) and (node.module or "").startswith(pkg)
+                for a in node.names}
+    return _public_names(path) | {n for n in imported if not n.startswith("_")}
+
+
+def test_bench_public_names_are_ported():
+    """The root bench.py (the JAX package's benchmark) against the port's
+    fpr_tpu_torch/bench.py: every public name has its counterpart (bench_ns
+    is the port's bench_ns_row, one NS row a call) but the tunnel probe."""
+    renamed = {"bench_ns": "bench_ns_row"}
+    port = _bench_names(REPO / "fpr_tpu_torch" / "bench.py", "fpr_tpu_torch")
+    missing = {n for n in _bench_names(REPO / "bench.py", "fpr_tpu")
+               if renamed.get(n, n) not in port}
+    assert missing == {"measure_tunnel_overhead"}

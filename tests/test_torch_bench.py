@@ -10,6 +10,7 @@ exits non-zero.
 
 import argparse
 import json
+import sys
 
 import numpy as np
 import pytest
@@ -103,6 +104,28 @@ def _tiny(monkeypatch, relaxed_steps=None, fail=None):
                                                                                device="cpu"))
     monkeypatch.setattr(bench, "bench_mg", lambda n, **kw: real_mg(65, reps=1, device="cpu"))
     monkeypatch.setattr(bench, "bench_ns_row", ns_row)
+    return _in_process(monkeypatch)
+
+
+def _in_process(monkeypatch, payloads=None):
+    """Run the bench's components in this process (``_component_payload``),
+    where the patched row functions reach them; a raising component gives
+    the error payload of a child that failed.  payloads: name -> the
+    payloads that its runs return in turn instead.  Returns the names run,
+    in order."""
+    runs = []
+
+    def run_component(name, quick, device, tries=2):
+        runs.append(name)
+        if payloads and payloads.get(name):
+            return payloads[name].pop(0)
+        try:
+            return bench._component_payload(name, quick, device)
+        except Exception as exc:
+            return {"error": f"{type(exc).__name__}: {exc}"}
+
+    monkeypatch.setattr(bench, "_run_component", run_component)
+    return runs
 
 
 def _line(capsys):
@@ -170,3 +193,149 @@ def test_no_card_no_fallback(capsys):
     with pytest.raises(SystemExit, match="no CUDA device"):
         bench.run(argparse.Namespace(device="cuda", quick=True, skip_mg=True, skip_ns=True))
     assert capsys.readouterr().out == ""
+
+
+# ---------------------------------------------------------------------------
+# the orchestration: a process and a time limit a component, the canary gate,
+# the kernel-agreement check
+# ---------------------------------------------------------------------------
+
+RUN_COMPONENT = bench._run_component  # the real one, which _tiny replaces
+HEALTHY = {"ms_per_iter": bench.CANARY_ENVELOPE_MS[0]}
+BREACH = {"ms_per_iter": 10 * bench.CANARY_HEALTHY_MS}
+
+
+def _stand_in(monkeypatch, code, limit=60):
+    """Every component's child runs ``python -c code`` under ``limit`` s."""
+    monkeypatch.setattr(bench, "_command", lambda name, quick, device: [sys.executable, "-c",
+                                                                         code])
+    monkeypatch.setattr(bench, "_TIMEOUTS", dict.fromkeys(bench.COMPONENTS, limit))
+
+
+@pytest.mark.parametrize("code,error", [("import time; time.sleep(60)", "timeout after 2 s"),
+                                        ("print('a log line'); raise SystemExit(3)",
+                                         "exit 3 with no payload")])
+def test_a_failed_child_is_retried_then_recorded(monkeypatch, capsys, tmp_path, code, error):
+    """The MG row's child hangs past its limit, or exits with no payload:
+    it runs twice, each time in a fresh process, and the line carries
+    mg_error (the failure and the end of the child's output); the other
+    components run in this process."""
+    _tiny(monkeypatch)
+    in_process = bench._run_component
+    runs = tmp_path / "runs"
+    _stand_in(monkeypatch, f"open({str(runs)!r}, 'a').write('x'); {code}", limit=2)
+    monkeypatch.setattr(bench, "_run_component", lambda name, *a, **kw: (
+        RUN_COMPONENT if name == "mg" else in_process)(name, *a, **kw))
+    assert bench.main(["--device", "cpu", "--quick"]) == 1
+    ex = _line(capsys)["extras"]
+    assert ex["mg_error"].startswith(error) and runs.read_text() == "xx"
+    assert "mg_grid" not in ex and "diffusion_grid" in ex
+    if "exit" in error:
+        assert "a log line" in ex["mg_error"]
+
+
+def test_a_payload_after_other_lines_is_taken(monkeypatch):
+    line = json.dumps({"component": "mg", "payload": {"grid": "65^2"}})
+    _stand_in(monkeypatch, f"print('warning'); print({json.dumps({'component': 'x'})!r}); "
+                           f"print({line!r}); print('trailing log')")
+    assert bench._run_component("mg", False, "cpu") == {"grid": "65^2"}
+
+
+def test_canary_breaches_twice_no_numbers(monkeypatch, capsys):
+    _tiny(monkeypatch)
+    runs = _in_process(monkeypatch, {"canary": [BREACH, BREACH]})
+    assert bench.main(["--device", "cpu", "--skip-ns"]) == 1
+    line = _line(capsys)
+    assert line["value"] is None and line["vs_baseline"] is None
+    assert line["env_degraded"] is True and runs == ["canary", "canary"]
+    ex = line["extras"]
+    assert ex["canary"] == BREACH and ex["canary_healthy_envelope_ms"] == list(
+        bench.CANARY_ENVELOPE_MS)
+    assert not any(k.startswith(("diffusion_", "mg_", "ns_", "aliased")) for k in ex)
+
+
+def test_canary_breaches_once_then_rows_run(monkeypatch, capsys):
+    _tiny(monkeypatch)
+    runs = _in_process(monkeypatch, {"canary": [BREACH, HEALTHY]})
+    assert bench.main(["--device", "cpu", "--quick"]) == 0
+    line = _line(capsys)
+    assert runs == ["canary", "canary", "aliased", "diffusion", "mg"]
+    assert "env_degraded" not in line and line["value"] > 0
+    assert line["extras"]["canary"] == HEALTHY and "mg_grid" in line["extras"]
+
+
+def test_canary_post_breach_fails_the_bench(monkeypatch, capsys):
+    _tiny(monkeypatch)
+    runs = _in_process(monkeypatch, {"canary": [HEALTHY], "canary_post": [BREACH, BREACH]})
+    assert bench.main(["--device", "cpu", "--skip-ns", "--skip-mg"]) == 1
+    ex = _line(capsys)["extras"]
+    assert ex["env_degraded_after"] is True and ex["canary_post"] == BREACH
+    assert runs[-2:] == ["canary_post", "canary_post"] and "diffusion_grid" in ex
+
+
+def test_kernel_mismatch_fails_the_bench_rows_still_run(monkeypatch, capsys):
+    _tiny(monkeypatch)
+    bad = {"passed": False, "checks": 26,
+           "mismatches": [{"what": "3D K=4: #10 vs #9, field", "cells": 3, "max_abs_diff": 1.0}]}
+    _in_process(monkeypatch, {"aliased": [bad]})
+    assert bench.main(["--device", "cpu", "--quick"]) == 1
+    ex = _line(capsys)["extras"]
+    assert ex["aliased_kernel_check"] is False
+    assert ex["aliased_kernel_check_mismatches"] == bad["mismatches"]
+    assert {"diffusion_grid", "mg_grid"} <= set(ex)
+
+
+def test_cpu_skips_the_canaries_and_the_check(monkeypatch, capsys):
+    runs = _tiny(monkeypatch)
+    assert bench.main(["--device", "cpu", "--skip-ns"]) == 0
+    ex = _line(capsys)["extras"]
+    assert ex["canary"] == ex["canary_post"] == {"skipped": "not cuda"}
+    assert ex["aliased_kernel_check"] is None and "env_degraded_after" not in ex
+    assert runs == ["canary", "aliased", "diffusion", "mg", "canary_post"]
+
+
+def test_one_real_child_process():
+    assert bench._run_component("canary", False, "cpu") == {"skipped": "not cuda"}
+
+
+def test_canary_is_the_diffusion_row(monkeypatch):
+    """bench_canary: bench_diffusion's 512^3 K=3 row, ms an iteration."""
+    sizes, real = [], bench.bench_diffusion
+    monkeypatch.setattr(bench, "bench_diffusion", lambda n, cap, reps=3, device="cuda": (
+        sizes.append((n, cap, reps)) or real(16, cap, reps, device="cpu")))
+    got = bench.bench_canary(9, device="cpu")
+    assert sizes == [(512, 9, 3)]
+    assert set(got) == {"ms_per_iter", "iqr_ms_per_iter", "iterations", "reps"}
+    assert got["iterations"] == 9 and got["reps"] == 3 and got["ms_per_iter"] > 0
+
+
+def test_aliased_check_tiny():
+    got = bench.check_aliased_kernels("cpu", n=16, iters=2, ny=65, nx=33)
+    assert got == {"passed": True, "checks": 26, "mismatches": []}
+
+
+@pytest.mark.parametrize("route", ["dual_time_stepk_padded", "corr_smooth2_raw"])
+def test_aliased_check_made_to_fail(monkeypatch, route):
+    """One route's result with one cell changed: the check names the
+    comparisons that see it, with the cell count and the difference."""
+    from fpr_tpu_torch.ops import dual_time, vcycle_legs
+
+    mod = dual_time if route.startswith("dual") else vcycle_legs
+    real = getattr(mod, route)
+
+    def off_by_one_cell(*a, **kw):
+        out, norm = real(*a, **kw)
+        out = out.clone()
+        out.view(-1)[out.numel() // 2] += 1.0
+        return out, norm
+
+    monkeypatch.setattr(mod, route, off_by_one_cell)
+    got = bench.check_aliased_kernels("cpu", n=16, iters=2, ny=65, nx=33)
+    assert got["passed"] is False and got["checks"] == 26
+    what = {m["what"] for m in got["mismatches"]}
+    if route.startswith("dual"):
+        assert {"3D K=3: #10 vs #9, field", "3D K=4: #10 vs #9, field"} <= what
+    else:
+        assert {f"2D V({d},{d}) elim={e}: split vs stacked, u"
+                for d, e in ((2, False), (5, False), (3, True))} == what
+    assert all(m["cells"] >= 1 and m["max_abs_diff"] > 0 for m in got["mismatches"])
