@@ -2364,12 +2364,18 @@ def median_seconds(fn, reps=5):
     return out, sorted(ts)[reps // 2]
 
 
-def built(what):
-    """Log the last graph's build (``loops.stats``)."""
+def last_graph():
+    """(name, table row) of the graph built last (``loops.graphs``)."""
     from fpr_tpu_torch.core import loops
 
-    log(f"{what}: graph built in {loops.stats['build_s']:.3f} s (warm-up pass, capture, "
-        f"instantiation), {loops.stats['nodes']} nodes")
+    return next(reversed(loops.graphs.items()))
+
+
+def built(what):
+    """Log the last graph's build (``loops.graphs``)."""
+    name, g = last_graph()
+    log(f"{what}: graph {name} built in {g['build_s']:.3f} s (warm-up pass, capture, "
+        f"instantiation), {g['nodes']} nodes")
 
 
 def phase_device_loops(smi, explicit, semi, mixed, ns_ten):
@@ -2760,7 +2766,7 @@ def phase_16385(smi, n=16385, n_hist=10, niters=60, tol=1e-6, ds_outers=6):
         cached graphs closed to make room."""
         captures, reclaimed = loops.stats["captures"], loops.stats["reclaimed"]
         out, peak, secs = peak_of(fn)
-        pool = loops.stats["pool_bytes"] if loops.stats["captures"] > captures else None
+        pool = last_graph()[1]["pool_bytes"] if loops.stats["captures"] > captures else None
         log(f"{what}: {secs:.3f} s (build and solve), peak {gib(peak)}, graph pool "
             f"{gib(pool)}, cached graphs closed for memory "
             f"{loops.stats['reclaimed'] - reclaimed}")
@@ -2825,7 +2831,7 @@ def phase_16385_reclaim(b, h, cfg, tol, want_u, want_it, room=6 * 2**30):
         f"{gib(room)} of the card's {gib(total)} free; mg_solve_ds with another key: "
         f"{closed} cached graphs closed for memory, {it} outers, "
         f"{'bitwise' if same else 'DIFFERENT'} to the cached graph's result; the last "
-        f"graph's pool {gib(loops.stats['pool_bytes'])}")
+        f"graph's pool {gib(last_graph()[1]['pool_bytes'])}")
     del ballast
     require(closed >= 1 and same and it == want_it,
             f"reclaim: {closed} graphs closed, {it} outers, bitwise {same}")

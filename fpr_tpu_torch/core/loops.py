@@ -58,6 +58,21 @@ free by then.
 capture launches nothing, so its count is taken back and added again per
 run of the graph, times the passes of the loop it sits in, which the
 set-condition kernel counts on the device (``kernels.sync_launches``).
+
+The same device counters name the loops' work.  A loop's name is its
+``name=`` under the ``trace.span`` scopes open where it runs or is
+captured (``ns.S`` + ``outer``: ``ns.S.outer``).  ``passes[name]`` counts
+its body passes (with ``unroll=2`` the WHILE's and the IF's): directly on
+the host, folded from the graph's counters by ``kernels.sync_launches`` on
+CUDA.  ``nodes_run[name]`` is the nodes its body holds (its own, a nested
+loop's node counted once) times its passes, and ``nodes_run[<graph>]`` the
+graph's top-level nodes times its launches.  A warm-up pass and a capture
+count nothing.  ``graphs[<graph>]`` holds each graph name's builds,
+launches, and the nodes, build seconds and pool bytes of its newest build;
+a graph's name is its key's first string (``ns_fast``, ``diffusion3d``,
+``mg_solve_ds_rp``), a bare ``while_loop``'s its loop's name.  The
+outermost ``device_call`` on CUDA is the span ``graph:<name>``
+(``trace.launch``) when tracing is on.
 """
 
 from __future__ import annotations
@@ -74,16 +89,21 @@ import weakref
 import torch
 
 from fpr_tpu_torch import kernels
+from fpr_tpu_torch.core import trace
 
 # cached graphs, least recently used first out
 CACHE_SIZE = 8
 # graph launches and captures since the process started, and the cached
-# graphs closed to free card memory; the nodes of the last graph built
+# graphs closed to free card memory
+stats = {"launches": 0, "captures": 0, "reclaimed": 0}
+# by graph name: builds, launches, and of the newest build its nodes
 # (captured nodes, conditional and set nodes), the seconds its warm-up pass,
 # capture and instantiation took, and the bytes its memory pool reserved
 # (torch.cuda.memory_reserved after its capture less before)
-stats = {"launches": 0, "captures": 0, "reclaimed": 0, "nodes": 0, "build_s": 0.0,
-         "pool_bytes": 0}
+graphs: dict = {}
+# by loop name: body passes, and nodes run (see the module docstring)
+passes: collections.Counter = collections.Counter()
+nodes_run: collections.Counter = collections.Counter()
 
 _IF, _WHILE = 0, 1
 
@@ -117,6 +137,14 @@ def host_loops():
     _free_memory()
     with host_mode():
         yield
+
+
+def counters() -> dict:
+    """Copies of ``passes``, ``nodes_run`` and ``graphs`` with every graph
+    run so far folded in (one sync, ``kernels.sync_launches``)."""
+    kernels.sync_launches()
+    return {"passes": dict(passes), "nodes_run": dict(nodes_run),
+            "graphs": {k: dict(v) for k, v in graphs.items()}}
 
 
 def host_mode():
@@ -199,27 +227,35 @@ def _mode(leaves):
     return "graph"
 
 
-def while_loop(cond, body, carry, *, unroll: int = 1, donate: bool = False):
+def while_loop(cond, body, carry, *, unroll: int = 1, donate: bool = False,
+               name: str = "loop"):
     """Run body while cond holds (jax.lax.while_loop); see the module
     docstring.  unroll (1 or 2): body passes per graph pass on CUDA;
-    donate: the graph's loop may overwrite the carry's tensors.  Neither
-    changes a result."""
+    donate: the graph's loop may overwrite the carry's tensors; name: the
+    loop's name in ``passes`` and ``nodes_run``, under the open spans'
+    scopes.  None of them changes a result."""
     if unroll not in (1, 2):
         raise ValueError(f"unroll must be 1 or 2, got {unroll!r}")
     leaves, spec = _flatten(carry, "while_loop")
     mode = _mode(leaves)
     if mode == "capture":
-        return _state.capture.loop(cond, body, carry, unroll, donate)
+        return _state.capture.loop(cond, body, carry, unroll, donate, trace.scoped(name))
     if mode == "host":
+        full = trace.scoped(name)
         while bool(cond(carry)):
             new = body(carry)
             _check_body(leaves, spec, new)
+            passes[full] += 1
             carry = new
         return carry
     if mode == "warm":
         cond(carry)
         return _unflatten(_check_body(leaves, spec, body(carry)), spec)
-    return device_call(lambda c: while_loop(cond, body, c, unroll=unroll, donate=donate), carry)
+
+    def whole(c):
+        return while_loop(cond, body, c, unroll=unroll, donate=donate, name=name)
+    whole.graph_name = trace.scoped(name)
+    return device_call(whole, carry)
 
 
 def device_call(fn, carry, key=None):
@@ -231,22 +267,40 @@ def device_call(fn, carry, key=None):
     dev = leaves[0].device
     if any(t.device != dev for t in leaves):
         raise ValueError(f"device_call: the carry spans {sorted({str(t.device) for t in leaves})}")
-    if key is None:
-        graph = _reclaiming(lambda: _Graph(fn, leaves, spec, dev))
-        try:
-            return graph.run(leaves)
-        finally:
-            graph.close()
-    full = (key, _signature(leaves, spec), dev, _route())
-    graph = _cache.get(full)
-    if graph is None:
-        graph = _reclaiming(lambda: _Graph(fn, leaves, spec, dev))
-        _cache[full] = graph
-        while len(_cache) > CACHE_SIZE:
-            _cache.popitem(last=False)[1].close()
-    else:
-        _cache.move_to_end(full)
-    return graph.run(leaves)
+    name = str(key[0]) if isinstance(key, tuple) and key else getattr(fn, "graph_name",
+                                                                       "graph")
+    with trace.launch(name):
+        if key is None:
+            graph = _new_graph(fn, leaves, spec, dev, name)
+            try:
+                return _run_graph(graph, leaves, name)
+            finally:
+                graph.close()
+        full = (key, _signature(leaves, spec), dev, _route())
+        graph = _cache.get(full)
+        if graph is None:
+            graph = _new_graph(fn, leaves, spec, dev, name)
+            _cache[full] = graph
+            while len(_cache) > CACHE_SIZE:
+                _cache.popitem(last=False)[1].close()
+        else:
+            _cache.move_to_end(full)
+        return _run_graph(graph, leaves, name)
+
+
+def _new_graph(fn, leaves, spec, dev, name):
+    """A new _Graph of fn, entered in ``graphs`` (its name last)."""
+    graph = _reclaiming(lambda: _Graph(fn, leaves, spec, dev, name=name))
+    g = graphs.pop(name, None) or dict(builds=0, launches=0)
+    graphs[name] = dict(g, builds=g["builds"] + 1, nodes=graph.nodes, build_s=graph.build_s,
+                        pool_bytes=graph.pool_bytes)
+    return graph
+
+
+def _run_graph(graph, leaves, name):
+    out = graph.run(leaves)
+    graphs[name]["launches"] += 1
+    return out
 
 
 def _reclaiming(call, keep=None):
@@ -313,10 +367,11 @@ kernels._device_counts.append(_fold_all)
 
 
 class _Cond:
-    """A conditional node (IF or WHILE) on pred, with its body's items."""
+    """A conditional node (IF or WHILE) on pred, with its body's items and
+    its pass counter."""
 
     def __init__(self, kind, pred):
-        self.kind, self.pred, self.body = kind, pred, []
+        self.kind, self.pred, self.body, self.counter = kind, pred, [], None
 
 
 class _Set:
@@ -363,6 +418,10 @@ class _Capture:
         self.root_counts = dict.fromkeys(kernels.KERNELS, 0)
         self.counts = [self.root_counts]
         self.counted = []             # launches of each loop or IF body (its pass counter)
+        self.names = []               # the loop each counter belongs to
+        self.body_passes = []         # whether the counter's passes are body passes
+        self.own = []                 # each body's own nodes (set by assemble)
+        self.root_nodes = 0
         self.graph = None
         self.mark = None
 
@@ -404,18 +463,21 @@ class _Capture:
         if self.mark is not None:
             kernels.launches.update(self.mark)
 
-    def _open(self, cond):
+    def _open(self, cond, name, body_passes):
         """Make cond's body the place of the next items; returns its counter."""
         self.seqs.append(cond.body)
         self.counts.append(dict.fromkeys(kernels.KERNELS, 0))
         self.counted.append(self.counts[-1])
-        return len(self.counted) - 1
+        self.names.append(name)
+        self.body_passes.append(body_passes)
+        cond.counter = len(self.counted) - 1
+        return cond.counter
 
     def _close(self):
         self.seqs.pop()
         self.counts.pop()
 
-    def loop(self, cond, body, carry, unroll, donate):
+    def loop(self, cond, body, carry, unroll, donate, name):
         leaves, spec = _flatten(carry, "while_loop")
         bufs = _own(leaves) if donate else [t.clone(memory_format=torch.contiguous_format)
                                             for t in leaves]
@@ -426,7 +488,7 @@ class _Capture:
         self.end()
         loop = _Cond(_WHILE, pred)
         self.seqs[-1].append(loop)
-        counter = self._open(loop)
+        counter = self._open(loop, name, True)
         self.begin()
         new = _check_body(bufs, spec, body(c))
         if unroll == 1:
@@ -440,7 +502,7 @@ class _Capture:
             self.end()
             second = _Cond(_IF, p1)
             self.seqs[-1].append(second)
-            counter2 = self._open(second)
+            counter2 = self._open(second, name, True)
             self.begin()
             _store(bufs, _check_body(bufs, spec, body(_unflatten(first, spec))))
             more.copy_(_pred(cond(c)))
@@ -454,7 +516,7 @@ class _Capture:
         if unroll == 2:  # an odd last pass left the carry in `first`
             fix = _Cond(_IF, odd)
             self.seqs[-1].append(fix)
-            counter3 = self._open(fix)
+            counter3 = self._open(fix, name, False)
             self.begin()
             _store(bufs, first)
             self.end()
@@ -467,10 +529,12 @@ class _Capture:
         """The graph of the captured items and its executable."""
         lib = kernels.lib()
         self.nodes = 0
+        self.own = [0] * len(self.counted)
         graph = ctypes.c_void_p()
         kernels.check(lib.fpr_graph_create(ctypes.byref(graph)), "fpr_graph_create")
         try:
             self._emit(lib, graph.value, self.root, passes, {})
+            self.root_nodes = self.nodes - sum(self.own)
             exe = ctypes.c_void_p()
             kernels.check(lib.fpr_graph_instantiate(graph, ctypes.byref(exe)),
                           "fpr_graph_instantiate")
@@ -479,10 +543,12 @@ class _Capture:
             raise
         return graph.value, exe.value
 
-    def _emit(self, lib, graph, seq, passes, handles):
+    def _emit(self, lib, graph, seq, passes, handles, owner=None):
         """Add seq's items to graph, one after another; returns the last
-        node.  A method, not a recursive closure, which would be a
-        reference cycle holding the capture and its pool after close."""
+        node.  owner: the counter of the body seq is (None: the root), whose
+        own nodes the items add to.  A method, not a recursive closure,
+        which would be a reference cycle holding the capture and its pool
+        after close."""
         last = None
         for item in seq:
             node = ctypes.c_void_p()
@@ -492,6 +558,8 @@ class _Capture:
                 n = ctypes.c_size_t()
                 kernels.check(lib.fpr_graph_nodes(raw, ctypes.byref(n)), "fpr_graph_nodes")
                 self.nodes += n.value - 1
+                if owner is not None:
+                    self.own[owner] += n.value
                 if n.value == 0:
                     continue
                 kernels.check(lib.fpr_graph_add_child(graph, last, raw, ctypes.byref(node)),
@@ -502,8 +570,12 @@ class _Capture:
                     graph, last, item.kind, item.pred.data_ptr(), ctypes.byref(node),
                     ctypes.byref(body), ctypes.byref(handle)), "fpr_graph_add_cond")
                 handles[id(item)] = handle.value
-                self._emit(lib, body.value, item.body, passes, handles)
+                if owner is not None:
+                    self.own[owner] += 1
+                self._emit(lib, body.value, item.body, passes, handles, item.counter)
             else:
+                if owner is not None:
+                    self.own[owner] += 1
                 kernels.check(lib.fpr_graph_add_set(
                     graph, last, handles[id(item.target)], item.pred.data_ptr(),
                     passes.data_ptr() + 8 * item.counter, ctypes.byref(node)),
@@ -522,19 +594,19 @@ def _capture_end(graph):
 class _Graph:
     """fn captured as one executable graph with its input buffers."""
 
-    def __init__(self, fn, leaves, spec, device):
+    def __init__(self, fn, leaves, spec, device, name="graph"):
         t0 = time.perf_counter()
-        self.device, self.graph, self.exe = device, None, None
+        self.device, self.graph, self.exe, self.name = device, None, None, name
         self.inputs = [torch.empty(t.shape, dtype=t.dtype, device=device) for t in leaves]
         for b, t in zip(self.inputs, leaves):
             b.copy_(t)
         carry = _unflatten(self.inputs, spec)
-        with _use(mode="warm"):
+        with _use(mode="warm"), trace.quiet():
             fn(carry)
         torch.cuda.synchronize(device)
         reserved = torch.cuda.memory_reserved(device)
         cap = _Capture(device)
-        with _use(capture=cap):
+        with _use(capture=cap), trace.quiet():
             out = cap.run(fn, carry)
         pool_bytes = torch.cuda.memory_reserved(device) - reserved
         self.out_leaves, self.out_spec = _flatten(out, "device_call result")
@@ -543,8 +615,7 @@ class _Graph:
         self.seen = [0] * len(cap.counted)
         self.graph, self.exe = cap.assemble(self.passes)
         stats["captures"] += 1
-        stats["nodes"], stats["build_s"] = cap.nodes, time.perf_counter() - t0
-        stats["pool_bytes"] = pool_bytes
+        self.nodes, self.build_s, self.pool_bytes = cap.nodes, time.perf_counter() - t0, pool_bytes
         _live.add(self)
 
     def run(self, leaves):
@@ -562,19 +633,25 @@ class _Graph:
         kernels.check(lib.fpr_graph_launch(self.exe, torch.cuda.current_stream(self.device)
                                            .cuda_stream), "fpr_graph_launch")
         stats["launches"] += 1
+        nodes_run[self.name] += self.cap.root_nodes
         for k, v in self.cap.root_counts.items():
             kernels.launches[k] += v
 
     def fold(self):
-        """Add the launches of the loops' passes since the last fold."""
+        """Add the launches, passes and nodes of the loops' passes since the
+        last fold."""
         if not self.seen or self.exe is None:
             return
         now = self.passes.tolist()
-        for i, (n, counts) in enumerate(zip(now, self.cap.counted)):
+        cap = self.cap
+        for i, (n, counts) in enumerate(zip(now, cap.counted)):
             d, self.seen[i] = n - self.seen[i], n
             if d:
                 for k, v in counts.items():
                     kernels.launches[k] += v * d
+                if cap.body_passes[i]:
+                    passes[cap.names[i]] += d
+                nodes_run[cap.names[i]] += cap.own[i] * d
 
     def close(self):
         if self.exe is None:

@@ -34,7 +34,7 @@ import numpy as np
 import torch
 
 from fpr_tpu_torch import kernels
-from fpr_tpu_torch.core import bc, loops
+from fpr_tpu_torch.core import bc, loops, trace
 from fpr_tpu_torch.core.config import DiffusionConfig, ExecutionPolicy
 from fpr_tpu_torch.core.grid import Grid3D, outer_steps, pseudo_timestep
 from fpr_tpu_torch.ops import ds3d, dual_time, stencil3d
@@ -103,7 +103,7 @@ def _physical_step(a: dict, cfg: DiffusionConfig, kw: dict, K: int) -> dict:
     Htau, err, it = loops.while_loop(
         cond, body, (Htau, Ht.new_full((), float("inf")),
                      torch.zeros((), dtype=torch.int32, device=Ht.device)),
-        unroll=unroll, donate=True)
+        unroll=unroll, donate=True, name="diffusion.pseudo_time")
     Ht = Htau if cfg.policy is ExecutionPolicy.JNP else Ht.copy_(Htau)
     return dict(Ht=Ht, err=err, it=it)
 
@@ -113,6 +113,7 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+@trace.spanned("diffusion.solve")
 def solve(cfg: DiffusionConfig = DiffusionConfig(), dtype=torch.float32,
           verbose: bool = False, *, device="cuda") -> DiffusionResult:
     """Single-device solve with the reference's 3-step timing warm-up
@@ -121,7 +122,10 @@ def solve(cfg: DiffusionConfig = DiffusionConfig(), dtype=torch.float32,
     dtype: float32 or float64 for JNP; the PALLAS tier on CUDA takes float32
     only (its kernel does), and PALLAS_DS keeps float32 hi/lo pairs whatever
     dtype says (float64 on CUDA is refused there too).  device: where to run;
-    the CPU runs the kernels' plain PyTorch versions.
+    the CPU runs the kernels' plain PyTorch versions.  Spans (``core.trace``):
+    ``diffusion.solve`` around the call, and inside it
+    ``diffusion.init_fields``, ``diffusion.host_read`` (a step) and
+    ``diffusion.copy_out``.
     """
     dev = torch.device(device)
     policy = cfg.policy
@@ -138,10 +142,11 @@ def solve(cfg: DiffusionConfig = DiffusionConfig(), dtype=torch.float32,
     nt = outer_steps(cfg.ttot, cfg.dt)
     kw = dict(dt=cfg.dt, dtau=pseudo_timestep(grid.dx, grid.dy, grid.dz, cfg.D),
               dx=grid.dx, dy=grid.dy, dz=grid.dz, D=cfg.D)
-    H0 = bc.dirichlet_faces_3d(
-        stencil3d.init_gaussian(grid, torch.float64 if ds_tier else dtype, device=dev))
-    Ht = ds3d.to_ds(H0) if ds_tier else H0
-    del H0  # the ds tier's float64 field is not kept on the device
+    with trace.span("diffusion.init_fields"):
+        H0 = bc.dirichlet_faces_3d(
+            stencil3d.init_gaussian(grid, torch.float64 if ds_tier else dtype, device=dev))
+        Ht = ds3d.to_ds(H0) if ds_tier else H0
+        del H0  # the ds tier's float64 field is not kept on the device
     physical_step = functools.partial(_physical_step, cfg=cfg, kw=kw, K=K)
     key = ("diffusion3d", cfg, Ht.dtype)
 
@@ -157,7 +162,8 @@ def solve(cfg: DiffusionConfig = DiffusionConfig(), dtype=torch.float32,
         Ht = out["Ht"]
         # the host's one read a physical step: err (in the field's dtype,
         # exact in float64) and the iterations
-        err, it = torch.stack([out["err"].double(), out["it"].double()]).tolist()
+        with trace.span("diffusion.host_read"):
+            err, it = torch.stack([out["err"].double(), out["it"].double()]).tolist()
         it = int(it)
         iters_total += it
         timed_iters += it
@@ -168,7 +174,8 @@ def solve(cfg: DiffusionConfig = DiffusionConfig(), dtype=torch.float32,
     _sync(dev)
     delta_t = time.perf_counter() - tic
 
-    H = (ds3d.from_ds(Ht) if ds_tier else Ht).cpu().numpy()
+    with trace.span("diffusion.copy_out"):
+        H = (ds3d.from_ds(Ht) if ds_tier else Ht).cpu().numpy()
     bench = diffusion_bench_results(
         delta_t, timed_iters, cfg.nx, cfg.ny, cfg.nz,
         word_bytes=8 if ds_tier else Ht.element_size(),

@@ -61,7 +61,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from fpr_tpu_torch.core import bc, loops
+from fpr_tpu_torch.core import bc, loops, trace
 from fpr_tpu_torch.core.config import CoarseSolver, InitScheme, MGConfig, NSConfig
 from fpr_tpu_torch.ops import ds as dsm
 from fpr_tpu_torch.ops import stencil2d as ops
@@ -405,10 +405,11 @@ def _fast_step(TW, S_ds, w_sumsq, cfg: NSConfig, defect=None):
     if defect is not None:
         r32, r_rms, ex0 = defect
         solve_kw = dict(r0=(r32, r_rms), extras0=ex0)
-    S_ds, _, _, (ax, ay, _) = mg_solve_ds_rp(
-        S_ds, TW[1:2], tolf, h, 0.0, cfg.niters, cfg=cfg.mg, inner_cycles=1,
-        tol=cfg.tol, velocity_max=True, **solve_kw,
-    )
+    with trace.span("ns.S", scope=True):
+        S_ds, _, _, (ax, ay, _) = mg_solve_ds_rp(
+            S_ds, TW[1:2], tolf, h, 0.0, cfg.niters, cfg=cfg.mg, inner_cycles=1,
+            tol=cfg.tol, velocity_max=True, **solve_kw,
+        )
 
     # adaptive dt (part2.jl:76-87)
     h_t = _full(ax, h)
@@ -426,15 +427,17 @@ def _fast_step(TW, S_ds, w_sumsq, cfg: NSConfig, defect=None):
         )
         zeros = torch.zeros_like(TW[0])
         tolT = cfg.tol * torch.sqrt(trhs_ss / n_cells)
-        T_ds, _, _ = mg_solve_ds_rp(
-            torch.stack([TW[0], zeros]), rhs[0:1], tolT, h, cT, cfg.niters,
-            cfg=cfg.mg, inner_cycles=1, apply_bcs=True, tol=cfg.tol,
-        )
+        with trace.span("ns.T", scope=True):
+            T_ds, _, _ = mg_solve_ds_rp(
+                torch.stack([TW[0], zeros]), rhs[0:1], tolT, h, cT, cfg.niters,
+                cfg=cfg.mg, inner_cycles=1, apply_bcs=True, tol=cfg.tol,
+            )
         tolW = cfg.tol * torch.sqrt(wrhs_ss / n_cells)
-        W_ds, _, _ = mg_solve_ds_rp(
-            torch.stack([TW[1], zeros]), rhs[1:2], tolW, h, cW, cfg.niters,
-            cfg=cfg.mg, inner_cycles=1, tol=cfg.tol,
-        )
+        with trace.span("ns.W", scope=True):
+            W_ds, _, _ = mg_solve_ds_rp(
+                torch.stack([TW[1], zeros]), rhs[1:2], tolW, h, cW, cfg.niters,
+                cfg=cfg.mg, inner_cycles=1, tol=cfg.tol,
+            )
         TW = torch.stack([T_ds[0], W_ds[0]])
         return TW, S_ds, torch.sum(TW[1] * TW[1]), dt
     # the operator pass also gives the next step's initial S defect
@@ -486,7 +489,7 @@ def _fast_chunk(st: dict, cfg: NSConfig) -> dict:
                                                  defect=c["dfc"])
             return advance(c, TW, S_ds, w_ss, dt, dfc=dfc)
 
-    out = loops.while_loop(cond, body, carry, donate=True)
+    out = loops.while_loop(cond, body, carry, donate=True, name="ns.step")
     out.pop("dfc", None)
     return dict(out, limit=limit)
 
@@ -548,6 +551,7 @@ def _fields(h: dict):
             h["S_hi"].double().numpy() + h["S_lo"].double().numpy())
 
 
+@trace.spanned("ns.simulate")
 def simulate_fast(cfg: NSConfig = NSConfig(), W0=None, T0=None,
                   max_steps: Optional[int] = None, verbose: bool = False,
                   seed: int = 0, chunk_steps: int = 20_000, snapshot_steps: int = 0,
@@ -564,7 +568,9 @@ def simulate_fast(cfg: NSConfig = NSConfig(), W0=None, T0=None,
     S, sim_time, step) every that many steps and at the end (chunks end on
     its multiples).  state0: a previous result.state (or state_from_jax of
     a JAX one); the run continues it exactly, with max_steps the total step
-    budget.
+    budget.  Spans (``core.trace``): ``ns.simulate`` around the call, and
+    inside it ``ns.init_fields``, ``ns.clock_read`` (a chunk),
+    ``ns.snapshot`` and ``ns.copy_out``.
     """
     check_chunk_steps(chunk_steps)
     cfg = fast_mg_default(cfg)
@@ -584,13 +590,14 @@ def simulate_fast(cfg: NSConfig = NSConfig(), W0=None, T0=None,
                   tl=on("t_lo").reshape(()), step=int32(state0["step"]))
         start_step = int(state0["step"])
     else:
-        T, W = (init_field(cfg, scheme, seed, device=dev) if a is None else
-                init_field(cfg, InitScheme.FROM_ARRAY, array=a, device=dev)
-                for scheme, a in ((cfg.T_init, T0), (cfg.W_init, W0)))
-        st = dict(TW=torch.stack([T, W]),
-                  S_ds=torch.zeros((2, ny, nx), dtype=F32, device=dev),
-                  w_ss=torch.sum(W * W), th=torch.zeros((), dtype=F32, device=dev),
-                  tl=torch.zeros((), dtype=F32, device=dev), step=int32(0))
+        with trace.span("ns.init_fields"):
+            T, W = (init_field(cfg, scheme, seed, device=dev) if a is None else
+                    init_field(cfg, InitScheme.FROM_ARRAY, array=a, device=dev)
+                    for scheme, a in ((cfg.T_init, T0), (cfg.W_init, W0)))
+            st = dict(TW=torch.stack([T, W]),
+                      S_ds=torch.zeros((2, ny, nx), dtype=F32, device=dev),
+                      w_ss=torch.sum(W * W), th=torch.zeros((), dtype=F32, device=dev),
+                      tl=torch.zeros((), dtype=F32, device=dev), step=int32(0))
         start_step = 0
     hard_cap = max_steps if max_steps is not None else 1_000_000
     snapshots = [] if snapshot_steps else None
@@ -607,22 +614,25 @@ def simulate_fast(cfg: NSConfig = NSConfig(), W0=None, T0=None,
             # when snapshot_steps > chunk_steps
             limit = torch.minimum(limit, (step // snapshot_steps + 1) * snapshot_steps)
         st = _fast_loop(dict(st, limit=limit.to(torch.int32)), cfg)
-        sim_time, step, limit = _clock(st)  # the sync that stops the clock
+        with trace.span("ns.clock_read"):
+            sim_time, step, limit = _clock(st)  # the sync that stops the clock
         # the loop stopped short of its limit only when its ds time test
         # said done, even if the float64 sum disagrees in the last bits
         done = sim_time >= cfg.ttot or step >= hard_cap or step < limit
         if done:
             break
         if snapshots is not None and step % snapshot_steps == 0:
-            snapshots.append((*_fields(_host_state(st)), sim_time, step))
+            with trace.span("ns.snapshot"):
+                snapshots.append((*_fields(_host_state(st)), sim_time, step))
         if verbose:
             print(f"time, steps: {sim_time} {step}")
     t_elapsed = time.perf_counter() - tic
 
     if verbose:
         print(f"time, steps: {sim_time} {step}")
-    state = _host_state(st)
-    T, W, S = _fields(state)
+    with trace.span("ns.copy_out"):
+        state = _host_state(st)
+        T, W, S = _fields(state)
     if snapshots is not None:
         snapshots.append((T, W, S, sim_time, step))
     state["step"] = step

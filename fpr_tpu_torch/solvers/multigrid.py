@@ -552,7 +552,8 @@ def _ds_outer(a, h, c, niters, cfg, inner_cycles, apply_bcs, tol, velocity_max,
                     it=s["it"] + 1)
 
     s = loops.while_loop(cond, body, dict(u=u_ds, s=L if stk else r32, r_rms=r_rms,
-                                          ex=tuple(extras), it=_int0(f_ds)), donate=True)
+                                          ex=tuple(extras), it=_int0(f_ds)), donate=True,
+                         name="outer")
     return s["u"], s["r_rms"], s["it"], s["ex"]
 
 

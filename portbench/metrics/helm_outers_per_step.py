@@ -1,0 +1,10 @@
+"""helm_outers_per_step.<part>: outer iterations of the semi-implicit step's
+two Helmholtz solves (``loops.passes["ns.T.outer"]`` and ``["ns.W.outer"]``,
+counted on the card) over the window's physical steps.  Reads
+``ctx["trace"]``; None without it."""
+
+
+def read(ctx, part):
+    t, steps = ctx.get("trace"), sum(u["steps"] for u in ctx["units"])
+    n = t["passes"].get("ns.T.outer", 0) + t["passes"].get("ns.W.outer", 0) if t else 0
+    return n / steps if steps and n else None

@@ -20,8 +20,7 @@ after a warm-up run, and two diffusion solves at 128^3 (K=1 to tol 1e-6,
 ds to 1e-10, ttot 0.4).  It prints per window the wall time (the run
 unprofiled), the summed device time (kernels and memory copies, profiled as
 host loops: the profiler sees no kernel inside a CUDA graph's conditional
-node), the device busy share (that time over the wall), the device time of the
-copy kernels (the halo exchange's face copies, and casts), the device
+node), the device time of the copy kernels (the halo exchange's face copies, and casts), the device
 launches (every kernel and copy the profiler saw), the kernel launch
 counts of the port's CUDA wrappers, and the top device kernels and
 copies.
@@ -77,8 +76,8 @@ def window(label, fn, top=12):
     kernels from the profiler.  The profiler sees no kernel inside a CUDA
     graph's conditional node, so it profiles the same work as host loops
     (``loops.host_loops()``: the same kernels on the same data, launched
-    one by one); busy is that device time over the wall time of the run as
-    it runs, unprofiled."""
+    one by one).  That device time is not set against the wall of the run
+    as it runs: the two run in different modes."""
     if OPTS.only is not None and not any(label.startswith(t) for t in OPTS.only):
         return
     fn()
@@ -96,10 +95,10 @@ def window(label, fn, top=12):
     counts = getattr(kernels, "sync_launches", lambda: dict(kernels.launches))()
     evs = [e for e in prof.key_averages()
            if e.device_type.name == "CUDA" and (e.device_time_total or 0) > 0]
-    busy = sum(e.device_time_total for e in evs) / 1e6
+    device = sum(e.device_time_total for e in evs) / 1e6
     copies = sum(e.device_time_total for e in evs if "copy" in e.key.lower()) / 1e6
-    print(f"[{label}] wall {wall:.4f} s  device time (kernels + copies) {busy:.4f} s  "
-          f"busy {busy / wall:.3f}  (host loops, profiled: wall {eager:.4f} s)  copy kernels "
+    print(f"[{label}] wall {wall:.4f} s  device time (kernels + copies) {device:.4f} s  "
+          f"(host loops, profiled: wall {eager:.4f} s)  copy kernels "
           f"{copies:.4f} s  device launches {sum(e.count for e in evs)}  wrapper launches "
           f"{ {k: v for k, v in counts.items() if v} }")
     for e in sorted(evs, key=lambda e: -e.device_time_total)[:top]:

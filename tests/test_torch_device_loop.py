@@ -125,6 +125,7 @@ class _FakeGraph:
     while more than ``room`` graphs are open, and closing one is recorded."""
 
     room, open, closed = 3, [], []
+    nodes, build_s, pool_bytes = 0, 0.0, 0
 
     def __init__(self, fn, leaves, spec, dev, name="new"):
         if len(_FakeGraph.open) > _FakeGraph.room:
