@@ -17,8 +17,17 @@ multiplying by a reciprocal.
 
 from __future__ import annotations
 
+import collections
+
 import numpy as np
 import torch
+
+# init_gaussian's builds by route: "gaussian.card" (on a CUDA device) and
+# "gaussian.host" (numpy)
+builds: collections.Counter = collections.Counter()
+
+# the card build's float64 scratch a slab: 128 planes at 512^3
+GAUSSIAN_SLAB_BYTES = 256 << 20
 
 
 def dual_time_step(Ht, Htau, dt, dtau, dx, dy, dz, D, with_norm=True):
@@ -115,14 +124,53 @@ def dual_time_step_overlap_z(Ht, H_local, ghost_lo, ghost_hi, dt, dtau, dx, dy, 
     return new, sumsq
 
 
+def _centred(grid, x0, y0, z0):
+    """The cell centres along x, y and z, each plus its offset and minus the
+    box's centre: three float64 numpy vectors."""
+    return ((grid.coords1d("x") + (x0 or 0.0)) - grid.lx / 2,
+            (grid.coords1d("y") + (y0 or 0.0)) - grid.ly / 2,
+            (grid.coords1d("z") + (z0 or 0.0)) - grid.lz / 2)
+
+
+def _on_card(device, dtype) -> bool:
+    """init_gaussian's route: float32 fields on a CUDA device are built there.
+    Elsewhere, and in float64 (whose last bit the card's exp changes in ~8 %
+    of the cells at 512^3), the numpy build runs."""
+    return torch.device(device).type == "cuda" and dtype == torch.float32
+
+
+def gaussian_slabs(grid, dtype, x0=None, y0=None, z0=None, *, device,
+                   slab_bytes: int = GAUSSIAN_SLAB_BYTES) -> torch.Tensor:
+    """The numpy build's formula in float64 torch ops on ``device``, a slab
+    of z planes (about slab_bytes of float64 scratch) at a time, each slab
+    rounded to dtype.  Every step but exp is exact or the same IEEE
+    operation in the same order: the squares as x*x, (x^2 + y^2) + z^2,
+    negate, exp, times 2."""
+    dx, dy, dz = _centred(grid, x0, y0, z0)
+    sx, sy, sz = (torch.as_tensor(d * d, dtype=torch.float64, device=device)
+                  for d in (dx, dy, dz))
+    rows = sx.view(1, 1, -1) + sy.view(1, -1, 1)
+    out = torch.empty((grid.nz, grid.ny, grid.nx), dtype=dtype, device=device)
+    step = max(1, slab_bytes // (8 * grid.ny * grid.nx))
+    for k in range(0, grid.nz, step):
+        out[k:k + step] = (rows + sz[k:k + step].view(-1, 1, 1)).neg_().exp_().mul_(2.0)
+    return out
+
+
 def init_gaussian(grid, dtype=torch.float32, x0=None, y0=None, z0=None, *,
                   device) -> torch.Tensor:
-    """H = 2 exp(-|x - centre|^2) at the cell centres (stencil3d.init_gaussian),
-    built in float64 numpy and then cast, as the JAX function does.
-    x0, y0, z0: offsets added to the coordinates (a shard's global origin)."""
-    cx, cy, cz = grid.lx / 2, grid.ly / 2, grid.lz / 2
-    X = (grid.coords1d("x") + (x0 or 0.0)).reshape(1, 1, -1)
-    Y = (grid.coords1d("y") + (y0 or 0.0)).reshape(1, -1, 1)
-    Z = (grid.coords1d("z") + (z0 or 0.0)).reshape(-1, 1, 1)
-    H = 2.0 * np.exp(-((X - cx) ** 2 + (Y - cy) ** 2 + (Z - cz) ** 2))
+    """H = 2 exp(-|x - centre|^2) at the cell centres (stencil3d.init_gaussian).
+    A float32 field on a CUDA device is built there (``gaussian_slabs``);
+    every other is built in float64 numpy and then cast, as the JAX
+    function does.  Both gave the same float32 bits at 128^3 and 512^3 on
+    an H100 (``tests/test_torch_gaussian.py``).  x0, y0, z0: offsets
+    added to the coordinates (a shard's global origin).  Each build counts
+    in ``builds`` under its route."""
+    if _on_card(device, dtype):
+        builds["gaussian.card"] += 1
+        return gaussian_slabs(grid, dtype, x0, y0, z0, device=device)
+    builds["gaussian.host"] += 1
+    dx, dy, dz = _centred(grid, x0, y0, z0)
+    H = 2.0 * np.exp(-(dx.reshape(1, 1, -1) ** 2 + dy.reshape(1, -1, 1) ** 2
+                       + dz.reshape(-1, 1, 1) ** 2))
     return torch.tensor(H, dtype=dtype, device=device)
