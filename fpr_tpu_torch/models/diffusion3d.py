@@ -125,7 +125,9 @@ def solve(cfg: DiffusionConfig = DiffusionConfig(), dtype=torch.float32,
     the CPU runs the kernels' plain PyTorch versions.  Spans (``core.trace``):
     ``diffusion.solve`` around the call, and inside it
     ``diffusion.init_fields``, ``diffusion.host_read`` (a step) and
-    ``diffusion.copy_out``.
+    ``diffusion.copy_out``; on PALLAS_DS ``diffusion.to_ds`` (the hi/lo
+    split) inside ``diffusion.init_fields`` and ``diffusion.from_ds`` (the
+    float64 join) inside ``diffusion.copy_out``.
     """
     dev = torch.device(device)
     policy = cfg.policy
@@ -143,10 +145,11 @@ def solve(cfg: DiffusionConfig = DiffusionConfig(), dtype=torch.float32,
     kw = dict(dt=cfg.dt, dtau=pseudo_timestep(grid.dx, grid.dy, grid.dz, cfg.D),
               dx=grid.dx, dy=grid.dy, dz=grid.dz, D=cfg.D)
     with trace.span("diffusion.init_fields"):
-        H0 = bc.dirichlet_faces_3d(
+        Ht = bc.dirichlet_faces_3d(
             stencil3d.init_gaussian(grid, torch.float64 if ds_tier else dtype, device=dev))
-        Ht = ds3d.to_ds(H0) if ds_tier else H0
-        del H0  # the ds tier's float64 field is not kept on the device
+        if ds_tier:  # the float64 field is not kept on the device
+            with trace.span("diffusion.to_ds"):
+                Ht = ds3d.to_ds(Ht)
     physical_step = functools.partial(_physical_step, cfg=cfg, kw=kw, K=K)
     key = ("diffusion3d", cfg, Ht.dtype)
 
@@ -175,7 +178,10 @@ def solve(cfg: DiffusionConfig = DiffusionConfig(), dtype=torch.float32,
     delta_t = time.perf_counter() - tic
 
     with trace.span("diffusion.copy_out"):
-        H = (ds3d.from_ds(Ht) if ds_tier else Ht).cpu().numpy()
+        if ds_tier:
+            with trace.span("diffusion.from_ds"):
+                Ht = ds3d.from_ds(Ht)
+        H = Ht.cpu().numpy()
     bench = diffusion_bench_results(
         delta_t, timed_iters, cfg.nx, cfg.ny, cfg.nz,
         word_bytes=8 if ds_tier else Ht.element_size(),

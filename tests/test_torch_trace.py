@@ -4,7 +4,9 @@ the counters of fpr_tpu_torch/core/loops.py) on the CPU.
 - Off, the entries make no timing event and keep no record.
 - The named passes equal what the entries and solvers return: the
   pseudo-time loop's passes times K are a solve's iterations, the MG outer
-  loop's passes its outer count, the NS step loop's passes the steps.
+  loop's passes its outer count, the NS step loop's passes the steps.  On
+  the ds route kernel #11's launches are the iterations too, and its hi/lo
+  split and join are spans of their own.
 - A captured ``unroll=2`` loop counts its WHILE and its IF passes, not the
   odd-pass fix; a warm-up pass and a capture count nothing.
 - On a fake timeline (stand-in events on a clock the test moves): totals,
@@ -20,10 +22,12 @@ import numpy as np
 import pytest
 import torch
 
+from fpr_tpu_torch import kernels
 from fpr_tpu_torch.core import loops, trace
 from fpr_tpu_torch.core.config import DiffusionConfig, ExecutionPolicy, MGConfig, NSConfig
 from fpr_tpu_torch.models import diffusion3d
 from fpr_tpu_torch.models import navier_stokes as tns
+from fpr_tpu_torch.ops import ds3d
 from fpr_tpu_torch.solvers import multigrid
 
 NS_TINY = dict(nx=129, ny=33, Pr=0.01, ttot=0.0015)
@@ -97,6 +101,53 @@ def test_pseudo_time_passes_times_k_are_the_iterations(policy, k):
     r, d = passes_of(lambda: _diffusion(policy, k))
     kk = k if policy is ExecutionPolicy.PALLAS else 1
     assert d["diffusion.pseudo_time"] * kk == r.iters_total > 0
+
+
+@pytest.mark.parametrize("policy,k", [(ExecutionPolicy.PALLAS, 1), (ExecutionPolicy.PALLAS, 3),
+                                      (ExecutionPolicy.PALLAS_DS, 1)])
+def test_ds_conversions_have_spans_of_their_own(policy, k):
+    """The ds route's hi/lo split and float64 join are spans inside the
+    entry's field set-up and copy-out; the float32 routes keep their spans."""
+    trace.enable("cpu", event=Tick)
+    _diffusion(policy, k)
+    s = trace.read()["spans"]
+    entry = {"diffusion.solve", "diffusion.init_fields", "diffusion.host_read",
+             "diffusion.copy_out"}
+    if policy is ExecutionPolicy.PALLAS_DS:
+        assert set(s) == entry | {"diffusion.to_ds", "diffusion.from_ds"}
+        assert s["diffusion.to_ds"]["parents"] == ["diffusion.init_fields"]
+        assert s["diffusion.from_ds"]["parents"] == ["diffusion.copy_out"]
+        assert s["diffusion.to_ds"]["count"] == s["diffusion.from_ds"]["count"] == 1
+    else:
+        assert set(s) == entry
+
+
+def test_ds_launches_are_the_iterations(monkeypatch):
+    """The ds route through kernel #11's CUDA wrapper, its launch replaced
+    by the plain version on CPU tensors: one ``kernels.launches["ds3d"]`` and
+    one pseudo-time pass an iteration, and the plain route's result."""
+    plain, tensors = ds3d.ds3d_step_plain, {}
+
+    def via_wrapper(Ht, Htau, cp, out):
+        partials = torch.zeros(4)
+        tensors.update((t.data_ptr(), t) for t in (Ht, Htau, out, partials))
+        return ds3d._ds3d_cuda(Ht, Htau, cp, out, partials)
+
+    def launch(ht, htau, out, partials, n, *rest):
+        _, s = plain(tensors[ht], tensors[htau], rest[:10], tensors[out])
+        tensors[partials].zero_()[0] = s
+        return 0
+
+    want = _diffusion(ExecutionPolicy.PALLAS_DS, 1)
+    monkeypatch.setattr(ds3d, "ds3d_step_plain", via_wrapper)
+    monkeypatch.setattr(kernels, "lib", lambda: types.SimpleNamespace(fpr_ds3d=launch))
+    monkeypatch.setattr(kernels, "require_cuda_f32", lambda *tensors: None)
+    monkeypatch.setattr(kernels, "stream", lambda t: 0)
+    before = kernels.sync_launches()["ds3d"]
+    r, d = passes_of(lambda: _diffusion(ExecutionPolicy.PALLAS_DS, 1))
+    assert kernels.sync_launches()["ds3d"] - before == d["diffusion.pseudo_time"] == \
+        r.iters_total == want.iters_total > 0
+    np.testing.assert_array_equal(r.H, want.H)
 
 
 def test_mg_outer_passes_equal_the_returned_count():
