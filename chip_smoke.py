@@ -409,6 +409,12 @@ def plain_kernels():
              (dual_time, "_dual_timek_cuda",
               lambda Ht, Htau, K, cf, scratch=None, partials=None:
               dual_time.dual_time_stepk_plain(Ht, Htau, K, cf, scratch)),
+             (dual_time, "_dual_time_tested_cuda",
+              lambda Ht, Htau, cf, test, out=None, partials=None: dual_time.loop_test_plain(
+                  dual_time.dual_time_step_plain(Ht, Htau, cf, out), test)),
+             (ds3d, "_ds3d_tested_cuda",
+              lambda Ht, Htau, cp, test, out=None, partials=None: dual_time.loop_test_plain(
+                  ds3d.ds3d_step_plain(Ht, Htau, cp, out), test)),
              (dual_time, "_dual_time_box_cuda", dual_time.dual_time_box_plain),
              (dual_time, "_dual_time_stepk_padded_cuda", dual_time.dual_time_stepk_padded_plain),
              (ds3d, "_ds3d_cuda",
@@ -1086,6 +1092,62 @@ def phase_kernels_3d(kc: KernelCheck):
             kc.timed("ds3d", lambda: ds3d._ds3d_cuda(Ht, Hs, cp, out, part),
                      lambda: ds3d.ds3d_step_plain(Ht, Hs, cp, out), (Ht, Hs), shape,
                      ["ds3d_kernel"], flops=190 * cells)
+    torch.cuda.synchronize()
+    phase_kernels_tested(kc, rng, ragged)
+
+
+def phase_kernels_tested(kc: KernelCheck, rng, ragged):
+    """#8 and #11 in their tested form (the loop test finished in the
+    launch) against the untested launch: the field bitwise, the sum within
+    REL_SUM, err, it and go torch's formula of that sum, reruns bitwise;
+    at 128^3 both forms of #8 timed, and #11's tested one (still phase 3)."""
+    import numpy as np
+    import torch
+
+    from fpr_tpu_torch import kernels
+    from fpr_tpu_torch.ops import ds3d, dual_time
+
+    dev = torch.device("cuda", 0)
+
+    def test_of(like, tol):
+        return dual_time.LoopTest(
+            like.new_full((), float("inf")), torch.full((), 5, dtype=torch.int32, device=dev),
+            torch.ones((), dtype=torch.int32, device=dev), dt=0.2, sqrt_n=1000.0, tol=tol,
+            iter_max=100000)
+
+    for shape in ((128, 128, 128), ragged):
+        cells = int(np.prod(shape))
+        H = torch.tensor(rng.random(shape), device=dev)
+        Hs64 = H + 1e-3 * torch.tensor(rng.standard_normal(shape), device=dev)
+        for name, Ht, Hs, cf, untested, tested, plain, flops in (
+                ("dual_time", H.float(), Hs64.float(), dual_time.coeffs(**diffusion_kw(shape)),
+                 dual_time._dual_time_cuda, dual_time._dual_time_tested_cuda,
+                 dual_time.dual_time_step_plain, 27 * cells),
+                ("ds3d", ds3d.to_ds(H), ds3d.to_ds(Hs64), ds3d.ds_coeffs(**diffusion_kw(shape)),
+                 ds3d._ds3d_cuda, ds3d._ds3d_tested_cuda, ds3d.ds3d_step_plain, 190 * cells)):
+            want, s_want = untested(Ht, Hs, cf)
+            for tol in (0.0, 1e30):
+                test, ref = test_of(Ht, tol), test_of(Ht, tol)
+                got, s = tested(Ht, Hs, cf, test)
+                kc.fields(f"{name}_tested", (got,), (want,), f"{shape} tol {tol}")
+                kc.sums(f"{name}_tested", (s,), (s_want,), f"{shape} sumsq")
+                dual_time.loop_test_plain((None, s), ref)
+                for a, b in ((test.err, ref.err), (test.it, ref.it), (test.go, ref.go)):
+                    require(torch.equal(a, b), f"{name}_tested {shape} tol {tol}: loop test "
+                            f"{[float(t) for t in (test.err, test.it, test.go)]} against torch's "
+                            f"{[float(t) for t in (ref.err, ref.it, ref.go)]}")
+            same_bits(f"{name}_tested", f"{shape}", lambda: tested(Ht, Hs, cf, test_of(Ht, 0.0)))
+            if shape != ragged:
+                out, part, test = torch.empty_like(Hs), kernels.partials_3d(shape, dev), \
+                    test_of(Ht, 0.0)
+                if name == "dual_time":
+                    kc.timed("dual_time_128", lambda: untested(Ht, Hs, cf, out, part),
+                             lambda: plain(Ht, Hs, cf, out), (Ht, Hs), shape,
+                             ["dual_time_kernel"], flops=flops)
+                kc.timed(f"{name}_tested", lambda: tested(Ht, Hs, cf, test, out, part),
+                         lambda: dual_time.loop_test_plain(plain(Ht, Hs, cf, out), test),
+                         (Ht, Hs), shape, [f"{name}_kernel"], flops=flops)
+            del Ht, Hs
     torch.cuda.synchronize()
 
 

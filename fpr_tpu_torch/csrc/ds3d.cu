@@ -14,8 +14,11 @@
 // with b* = D/d*^2, inv_dt = 1/dt and dtau as ds pairs split from float64
 // on the host (ds3d.py:201-207), and, when partials is not null, per-block
 // partial sums of dH_hi^2 in float32 (ds3d.py:182), added by the caller in
-// a fixed order.  The error-free transforms of fpr_common.cuh need the
-// build's -fmad=false.
+// a fixed order; or, in the tested form (a LoopTest given), that float32
+// sum finished in the launch and the pseudo-time loop's test after it, on
+// as many blocks as the card holds at once, as csrc/dual_time.cu's tested
+// form does.  The error-free transforms of fpr_common.cuh need the build's
+// -fmad=false.
 //
 // Bound on the H100: memory bandwidth.  A cell reads Htau and Ht hi/lo and
 // writes Htau' hi/lo, 24 bytes, against about 190 float32 operations: one
@@ -25,6 +28,9 @@
 // Design: as csrc/dual_time.cu, one thread per cell with its neighbours
 // from global memory, and out a buffer other than htau (the caller
 // ping-pongs two pairs; the TPU kernel DMA'd into a separate output too).
+#include <algorithm>
+#include <atomic>
+
 #include "fpr_common.cuh"
 
 namespace {
@@ -42,14 +48,16 @@ struct DsConsts {
     float inv_dt_h, inv_dt_l, bx_h, bx_l, by_h, by_l, bz_h, bz_l, dtau_h, dtau_l;
 };
 
-__global__ void __launch_bounds__(FPR_THREADS)
-ds3d_kernel(const float* __restrict__ ht, const float* __restrict__ htau,
-            float* __restrict__ out, float* __restrict__ partials, DsConsts k, int nz,
-            int ny, int nx) {
-    __shared__ float sh[FPR_BY];
-    const int x = blockIdx.x * FPR_BX + threadIdx.x;
-    const int y = blockIdx.y * FPR_BY + threadIdx.y;
-    const int z = blockIdx.z;
+// One thread's cell of the launch grid's tile (bx, by, bz): out written,
+// dH_hi^2 returned (0 on the faces and outside the field).
+__device__ __forceinline__ float update_cell(const float* __restrict__ ht,
+                                             const float* __restrict__ htau,
+                                             float* __restrict__ out, const DsConsts& k, int nz,
+                                             int ny, int nx, unsigned bx, unsigned by,
+                                             unsigned bz) {
+    const int x = bx * FPR_BX + threadIdx.x;
+    const int y = by * FPR_BY + threadIdx.y;
+    const int z = bz;
     float dsq = 0.0f;
 
     if (x < nx && y < ny) {
@@ -90,10 +98,36 @@ ds3d_kernel(const float* __restrict__ ht, const float* __restrict__ htau,
         out[i] = nh;
         out[n + i] = nl;
     }
+    return dsq;
+}
 
-    if (partials != nullptr) {  // the same for every block of the launch
-        dsq = fpr::block_sum(dsq, sh);
-        if (fpr::block_leader()) partials[fpr::block_id()] = dsq;
+// The untested form: one block a tile of the (nx/32, ny/8, nz) grid, its
+// partial sum into partials (if not null).  The tested form: blocks that
+// take the tiles in turn (fpr::Tiles), each thread adding its cells' dH_hi^2
+// in that order, the sum and the loop test finished in the launch.
+template <bool TESTED>
+__global__ void __launch_bounds__(FPR_THREADS)
+ds3d_kernel(const float* __restrict__ ht, const float* __restrict__ htau,
+            float* __restrict__ out, float* __restrict__ partials, DsConsts k, int nz,
+            int ny, int nx, fpr::Tiles tiles, fpr::LoopTest test) {
+    __shared__ float sh[FPR_BY];
+    if constexpr (TESTED) {
+        const int it_prev = fpr::block_leader() ? *test.it : 0;
+        float v[1] = {0.0f};
+        fpr::for_tiles(tiles, [&](unsigned bx, unsigned by, unsigned bz) {
+            v[0] += update_cell(ht, htau, out, k, nz, ny, nx, bx, by, bz);
+        });
+        if (fpr::finish_launch<FPR_THREADS, 1>(v, 0u, partials, test.ticket, sh,
+                                               threadIdx.y * FPR_BX + threadIdx.x)) {
+            fpr::finish_test(test, v[0], it_prev);
+        }
+    } else {
+        float dsq = update_cell(ht, htau, out, k, nz, ny, nx, blockIdx.x, blockIdx.y,
+                                blockIdx.z);
+        if (partials != nullptr) {  // the same for every block of the launch
+            dsq = fpr::block_sum(dsq, sh);
+            if (fpr::block_leader()) partials[fpr::block_id()] = dsq;
+        }
     }
 }
 
@@ -102,21 +136,32 @@ ds3d_kernel(const float* __restrict__ ht, const float* __restrict__ htau,
 extern "C" {
 
 // One ds iteration on (2, nz, ny, nx) hi/lo state.  The ten constants are
-// the (hi, lo) pairs of 1/dt, D/dx^2, D/dy^2, D/dz^2 and dtau.  partials as
-// for fpr_dual_time.  Returns the launch's cudaError_t.
+// the (hi, lo) pairs of 1/dt, D/dx^2, D/dy^2, D/dz^2 and dtau.  partials and
+// test as for fpr_dual_time.  Returns the launch's cudaError_t.
 int fpr_ds3d(const float* ht, const float* htau, float* out, float* partials,
              int n_partials, float inv_dt_h, float inv_dt_l, float bx_h, float bx_l,
              float by_h, float by_l, float bz_h, float bz_l, float dtau_h, float dtau_l,
-             int nz, int ny, int nx, cudaStream_t stream) {
+             int nz, int ny, int nx, const fpr::LoopTest* test, cudaStream_t stream) {
     const dim3 grid = fpr::grid_of_3d(nz, ny, nx);
-    if (nz > 65535 || (partials != nullptr &&
-                       static_cast<long long>(n_partials) !=
-                           static_cast<long long>(grid.x) * grid.y * grid.z)) {
+    const long long tiles = static_cast<long long>(grid.x) * grid.y * grid.z;
+    if (nz > 65535 || (partials != nullptr && n_partials != tiles) ||
+        (test != nullptr && partials == nullptr)) {
         return static_cast<int>(cudaErrorInvalidValue);
     }
     const DsConsts k{inv_dt_h, inv_dt_l, bx_h, bx_l, by_h, by_l, bz_h, bz_l, dtau_h, dtau_l};
-    ds3d_kernel<<<grid, dim3(FPR_BX, FPR_BY), 0, stream>>>(ht, htau, out, partials, k, nz,
-                                                            ny, nx);
+    const fpr::Tiles tl{grid.x, grid.y, static_cast<unsigned>(tiles)};
+    if (test != nullptr) {
+        static std::atomic<int> slots_cached{0};
+        int slots = 0;
+        const cudaError_t err = fpr::card_slots(ds3d_kernel<true>, slots_cached, slots);
+        if (err != cudaSuccess) return static_cast<int>(err);
+        ds3d_kernel<true><<<static_cast<unsigned>(std::min<long long>(tiles, slots)),
+                            dim3(FPR_BX, FPR_BY), 0, stream>>>(ht, htau, out, partials, k, nz,
+                                                               ny, nx, tl, *test);
+    } else {
+        ds3d_kernel<false><<<grid, dim3(FPR_BX, FPR_BY), 0, stream>>>(
+            ht, htau, out, partials, k, nz, ny, nx, tl, fpr::LoopTest{});
+    }
     return static_cast<int>(cudaGetLastError());
 }
 

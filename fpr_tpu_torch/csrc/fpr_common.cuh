@@ -12,6 +12,8 @@
 
 #include <cuda_runtime.h>
 
+#include <atomic>
+
 // One thread per cell; a block covers FPR_BY rows of FPR_BX columns, so a
 // warp reads one contiguous 128-byte row segment.
 #define FPR_BX 32
@@ -175,18 +177,19 @@ __device__ __forceinline__ void block_reduce_n(T (&v)[NQ], unsigned max_mask, T*
     }
 }
 
-// The sums of a launch finished in the launch, in float (K1, K4) or double
-// (#5 in float64): every block reduces its NQ values (block_reduce_n);
-// thread 0 writes them to partials[q * nb + b], makes them visible
-// device-wide and takes a ticket from *counter; the block that takes the
-// last ticket adds the partials (thread t folds blocks t, t + NT, ... in
-// order, then block_reduce_n), so a rerun gives the same bits, and re-arms
-// *counter to 0 for the next launch.  Returns true in thread 0 of the last
-// block only, with the launch's totals in v.  Every thread of every block
-// must call it; the counter must not be used by two launches at once.  On
-// an H100 this form was the fastest of those tried (PERF.md §6): a ticket
-// with acquire semantics empties the SM's L1 under the other blocks' feet,
-// and a fold by one warp lengthens the launch's tail.
+// The sums of a launch finished in the launch, in float (K1, K4, the
+// tested #8 and #11) or double (#5 in float64): every block reduces its NQ
+// values (block_reduce_n); thread 0 writes them to partials[q * nb + b],
+// makes them visible device-wide and takes a ticket from *counter; the
+// block that takes the last ticket adds the partials (thread t folds
+// blocks t, t + NT, ... in order, then block_reduce_n), so a rerun gives
+// the same bits, and re-arms *counter to 0 for the next launch.  Returns
+// true in thread 0 of the last block only, with the launch's totals in v.
+// Every thread of every block must call it; the counter must not be used
+// by two launches at once.  On an H100 this form was the fastest of those
+// tried (PERF.md §6): a ticket with acquire semantics empties the SM's L1
+// under the other blocks' feet, and a fold by one warp lengthens the
+// launch's tail.
 template <int NT, int NQ, typename T>
 __device__ __forceinline__ bool finish_launch(T (&v)[NQ], unsigned max_mask, T* partials,
                                               unsigned* counter, T* sh, int tid) {
@@ -220,6 +223,87 @@ __device__ __forceinline__ bool finish_launch(T (&v)[NQ], unsigned max_mask, T* 
 #pragma unroll
     for (int q = 0; q < NQ; ++q) v[q] = acc[q];
     return true;
+}
+
+// The (gx, gy, nz) tile grid of a 3D launch (grid_of_3d), n = gx gy nz tiles,
+// for blocks that take the tiles in turn: tile t is (t % gx, t / gx % gy,
+// t / (gx gy)).
+struct Tiles {
+    unsigned gx, gy, n;
+};
+
+// f(bx, by, bz) for the tiles blockIdx.x, blockIdx.x + gridDim.x, ... < n of
+// a 1D grid, in that order, the coordinates stepped with carries instead of
+// three divisions a tile.
+template <typename F>
+__device__ __forceinline__ void for_tiles(const Tiles& tl, F&& f) {
+    const unsigned plane = tl.gx * tl.gy, step = gridDim.x;
+    const unsigned sx = step % tl.gx, sy = step / tl.gx % tl.gy, sz = step / plane;
+    unsigned bx = blockIdx.x % tl.gx, by = blockIdx.x / tl.gx % tl.gy, bz = blockIdx.x / plane;
+    for (unsigned t = blockIdx.x; t < tl.n; t += step) {
+        f(bx, by, bz);
+        bx += sx;
+        if (bx >= tl.gx) {
+            bx -= tl.gx;
+            ++by;
+        }
+        by += sy;
+        if (by >= tl.gy) {
+            by -= tl.gy;
+            ++bz;
+        }
+        bz += sz;
+    }
+}
+
+// The blocks of FPR_THREADS threads of kernel that the current card holds at
+// once (SMs x resident blocks), read from the runtime at the first call and
+// kept in cached: the grid of a launch whose blocks take the tiles in turn.
+template <typename Kernel>
+cudaError_t card_slots(Kernel kernel, std::atomic<int>& cached, int& slots) {
+    slots = cached.load();
+    if (slots > 0) return cudaSuccess;
+    int dev = 0, n = 0, r = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess) {
+        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&r, kernel, FPR_THREADS, 0);
+    }
+    if (err != cudaSuccess) return err;
+    if (n < 1 || r < 1) return cudaErrorInvalidConfiguration;
+    slots = n * r;
+    cached.store(slots);
+    return cudaSuccess;
+}
+
+// Part 1's pseudo-time loop test, finished in the launch of the iteration
+// that makes its sum (#8, #11): the caller's carry scalars and constants.
+// Laid out as fpr_tpu_torch/kernels' LoopTestArgs.
+struct LoopTest {
+    unsigned* ticket;              // finish_launch's ticket word, 0 between launches
+    float* sumsq;                  // the launch's sum of dH^2
+    float* err;                    // sqrt(sumsq) * dt / sqrt_n
+    int* it;                       // the iteration count, one more a launch
+    int* go;                       // the loop's predicate: err > tol && it < iter_max
+    unsigned long long* tested;    // launches that finished the test, one more a launch
+    float dt, sqrt_n, tol;
+    int iter_max;
+};
+
+// The loop test from the launch's sum, in thread 0 of the block that
+// finish_launch returned true in, with it_prev the count read at the
+// block's start (before its ticket, so before this launch writes it): each
+// operation rounded on its own, in the order of the untested loop body's
+// torch operations (sqrt, times dt, over sqrt_n; then it + 1 and the
+// predicate), so err, it and go are what that body makes of the same sum.
+__device__ __forceinline__ void finish_test(const LoopTest& t, float sumsq, int it_prev) {
+    const float err = sqrtf(sumsq) * t.dt / t.sqrt_n;
+    const int it = it_prev + 1;
+    *t.sumsq = sumsq;
+    *t.err = err;
+    *t.it = it;
+    *t.go = err > t.tol && it < t.iter_max ? 1 : 0;
+    *t.tested += 1ull;
 }
 
 // Row-major block index over a 2D or 3D grid (blockIdx.z is 0 on a 2D one).

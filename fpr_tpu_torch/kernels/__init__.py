@@ -31,6 +31,13 @@ legs of the row-padded V-cycle, which launch the leg kernel of
 ``ns_fused_helm`` counts the NS operator kernel's launches in its
 Helmholtz-defect mode, ``ns_fused`` the others.
 
+``tested_launches`` counts apart, per kernel of ``TESTED`` (#8 and #11),
+the launches of its tested form, which finishes part 1's pseudo-time loop
+test in the launch (``LoopTestArgs``); ``launches`` counts them under the
+kernel's own name as well, one launch each.  The launch itself adds one on
+the device, so a graph's passes count without any capture bookkeeping;
+``sync_launches`` folds the device counts in.
+
 A wrapper called while ``core/loops.py`` captures a CUDA graph launches
 nothing: the graph launches its kernel each time it runs, as often as its
 loops go round.  ``core/loops.py`` takes such calls out of ``launches``
@@ -97,10 +104,10 @@ _SIGNATURES = {
     "fpr_leg_blocks": [_I, _I, _I, _I, ctypes.POINTER(_I)],
     "fpr_ns_fused": [*[_P] * 7, *[_F] * 9, *[_I] * 9, *[_P] * 8],
     "fpr_ns_fill": [_I, ctypes.POINTER(_I), ctypes.POINTER(_I)],
-    "fpr_dual_time": [_P, _P, _P, _P, _I, *[_F] * 6, *[_I] * 11, _P],
+    "fpr_dual_time": [_P, _P, _P, _P, _I, *[_F] * 6, *[_I] * 11, _P, _P],
     "fpr_dual_timek": [_P, _P, _P, _P, _I, *[_F] * 6, *[_I] * 7, _P, *[_I] * 4, _P],
     "fpr_dual_timek_blocks": [_I, _I, _I, _I, ctypes.POINTER(_I)],
-    "fpr_ds3d": [_P, _P, _P, _P, _I, *[_F] * 10, _I, _I, _I, _P],
+    "fpr_ds3d": [_P, _P, _P, _P, _I, *[_F] * 10, _I, _I, _I, _P, _P],
     "fpr_stencil_f32": [_P, _P, _P, *[_F] * 4, *[_I] * 5, *[_P] * 5],
     "fpr_stencil_f64": [_P, _P, _P, *[_D] * 4, *[_I] * 5, *[_P] * 5],
     "fpr_stencil_fill": [_I, ctypes.POINTER(_I), ctypes.POINTER(_I)],
@@ -137,6 +144,8 @@ def reset_launches() -> None:
     sync_launches()
     for name in KERNELS:
         launches[name] = 0
+    for name in TESTED:
+        tested_launches[name] = 0
 
 
 def _nvcc() -> str:
@@ -271,25 +280,73 @@ def n_tiles(ny: int, nx: int, S: int) -> int:
 _counters: dict = {}
 
 
-def launch_counter(t: torch.Tensor) -> torch.Tensor:
-    """The ticket word of the in-launch sums of K1, K4 and #5 for launches
-    on t's device: one int32, 0 between launches (the last block of each
-    launch re-arms it).  One word per device serves every stream, the side
-    stream a graph is captured on included: the port launches these three,
-    eagerly or in a graph, on the device's current stream only, one launch
-    after another (``parallel/mesh.py`` makes no streams: every shard of a
-    virtual mesh launches on its device's current stream; the one side
-    stream, ``parallel/dist_diffusion.py``'s, carries part 1's face copies
-    only).  The word is made outside any capture (a graph's
-    warm-up pass makes it), never in a graph's memory pool."""
-    key = t.device.index
+def launch_counter(t: torch.Tensor, name: str = "sums") -> torch.Tensor:
+    """The ticket word of in-launch sums for launches on t's device: one
+    int32, 0 between launches (the last block of each launch re-arms it).
+    ``"sums"`` serves K1, K4 and #5, ``"loop_test"`` the tested #8 and #11
+    (``loop_test_args``).  One word per device and name serves every
+    stream, the side stream a graph is captured on included: the port
+    launches these kernels, eagerly or in a graph, on the device's current
+    stream only, one launch after another (``parallel/mesh.py`` makes no
+    streams: every shard of a virtual mesh launches on its device's current
+    stream; the one side stream, ``parallel/dist_diffusion.py``'s, carries
+    part 1's face copies only).  The word is made outside any capture (a
+    graph's warm-up pass makes it), never in a graph's memory pool."""
+    key = (t.device.index, name)
     word = _counters.get(key)
     if word is None:
-        if torch.cuda.is_current_stream_capturing():
-            raise RuntimeError("launch_counter: the first K1/K4/#5 launch on a device is "
-                               "being captured; run the body once before capturing it")
+        _refuse_capture(f"launch_counter({name!r})")
         word = _counters[key] = torch.zeros(1, dtype=torch.int32, device=t.device)
     return word
+
+
+def _refuse_capture(what: str) -> None:
+    if torch.cuda.is_available() and torch.cuda.is_current_stream_capturing():
+        raise RuntimeError(f"{what}: the first launch on a device that uses it is being "
+                           "captured; run the body once before capturing it")
+
+
+# the kernels with a tested form (#8, #11), and their launches of it
+TESTED = ("dual_time", "ds3d")
+tested_launches = dict.fromkeys(TESTED, 0)
+# by device index: the device's tested-launch counts (int64, one a kernel
+# of TESTED) and the counts folded so far
+_tested: dict = {}
+
+
+class LoopTestArgs(ctypes.Structure):
+    """csrc/fpr_common.cuh's fpr::LoopTest."""
+    _fields_ = [("ticket", _P), ("sumsq", _P), ("err", _P), ("it", _P), ("go", _P),
+                ("tested", _P), ("dt", _F), ("sqrt_n", _F), ("tol", _F), ("iter_max", _I)]
+
+
+def loop_test_args(kernel: str, t: torch.Tensor, sumsq: torch.Tensor, test) -> LoopTestArgs:
+    """The fpr::LoopTest of a tested launch of ``kernel`` (one of TESTED) on
+    t's device: the ticket word ``launch_counter(t, "loop_test")``, the
+    launch's sum into sumsq, test's err, it and go buffers and constants
+    (``ops.dual_time.LoopTest``), and the kernel's device count of tested
+    launches.  The words are made outside any capture, as launch_counter's."""
+    entry = _tested.get(t.device.index)
+    if entry is None:
+        _refuse_capture("loop_test_args")
+        entry = _tested[t.device.index] = [
+            torch.zeros(len(TESTED), dtype=torch.int64, device=t.device), [0] * len(TESTED)]
+    return LoopTestArgs(
+        launch_counter(t, "loop_test").data_ptr(), sumsq.data_ptr(), test.err.data_ptr(),
+        test.it.data_ptr(), test.go.data_ptr(),
+        entry[0].data_ptr() + entry[0].element_size() * TESTED.index(kernel), test.dt,
+        test.sqrt_n, test.tol, min(int(test.iter_max), 2**31 - 1))
+
+
+def _fold_tested() -> None:
+    for counts, seen in _tested.values():
+        now = counts.tolist()
+        for i, name in enumerate(TESTED):
+            tested_launches[name] += now[i] - seen[i]
+        seen[:] = now
+
+
+_device_counts.append(_fold_tested)
 
 
 def num_blocks_3d(nz: int, ny: int, nx: int) -> int:

@@ -22,6 +22,14 @@ convergence is the host's.  Iterations advance by K per call; convergence
 is err <= tol, not the count.  The kernel tiers iterate on a ping-pong pair
 of buffers (each call writes the one it does not read, two calls a graph
 pass, so no pass copies a field); the commit Ht <- Htau is a device copy.
+
+The tiers that test every iteration with a kernel (PALLAS with check_every
+1, PALLAS_DS; ``_tested``) carry the loop's predicate too, (Htau, err, it,
+go), and their body is the iteration's tested form (``dual_time.LoopTest``):
+on the card one launch of #8 or #11 that also finishes the sum, err, it
+and go in the carry's own buffers, so that a loop pass is that launch and
+cond reads go; on the CPU the same values from the plain sum.  JNP and the
+fused K-sweep (check_every > 1, #10) keep the untested body.
 """
 
 from __future__ import annotations
@@ -53,9 +61,18 @@ class DiffusionResult:
     converged: bool
 
 
+def _tested(cfg: DiffusionConfig) -> bool:
+    """Whether cfg's tier runs the loop test in its kernel's launch: a K=1
+    kernel tier (PALLAS with check_every 1, or PALLAS_DS)."""
+    return (cfg.policy is ExecutionPolicy.PALLAS_DS
+            or (cfg.policy is ExecutionPolicy.PALLAS and cfg.check_every == 1))
+
+
 def _stepper(cfg: DiffusionConfig, kw: dict, Ht: torch.Tensor):
     """(Htau, step, unroll) for cfg.policy: the first Htau (a copy of Ht),
-    step(Ht, Htau) -> (Htau', sumsq), and the unroll of the loop around it."""
+    step(Ht, Htau) -> (Htau', sumsq), and the unroll of the loop around it.
+    The K=1 kernel tiers' step takes a ``dual_time.LoopTest`` as an optional
+    third argument."""
     if cfg.policy is ExecutionPolicy.JNP:
         def step(Ht, Htau):
             return stencil3d.dual_time_step(Ht, Htau, **kw)
@@ -71,12 +88,13 @@ def _stepper(cfg: DiffusionConfig, kw: dict, Ht: torch.Tensor):
         return bufs[1] if Htau is bufs[0] else bufs[0]
 
     if cfg.policy is ExecutionPolicy.PALLAS_DS:
-        def step(Ht, Htau):
-            return ds3d.dual_time_step_ds(Ht, Htau, **kw, out=other(Htau), partials=partials)
+        def step(Ht, Htau, test=None):
+            return ds3d.dual_time_step_ds(Ht, Htau, **kw, out=other(Htau), partials=partials,
+                                          test=test)
     elif not fused:
-        def step(Ht, Htau):
+        def step(Ht, Htau, test=None):
             return dual_time.dual_time_step(Ht, Htau, **kw, out=other(Htau),
-                                            partials=partials)
+                                            partials=partials, test=test)
     else:
         def step(Ht, Htau):
             return dual_time.dual_time_stepk(Ht, Htau, cfg.check_every, **kw,
@@ -90,20 +108,34 @@ def _physical_step(a: dict, cfg: DiffusionConfig, kw: dict, K: int) -> dict:
     the last err and the iterations."""
     Ht = a["Ht"]
     Htau, step, unroll = _stepper(cfg, kw, Ht)
-    tol, dt, sqrt_n = (Ht.new_full((), v) for v in (cfg.tol, cfg.dt, float(np.sqrt(
-        cfg.nx * cfg.ny * cfg.nz))))
+    sqrt_n = float(np.sqrt(cfg.nx * cfg.ny * cfg.nz))
+    tol = Ht.new_full((), cfg.tol)
+    carry = (Htau, Ht.new_full((), float("inf")),
+             torch.zeros((), dtype=torch.int32, device=Ht.device))
 
     def cond(s):
         return (s[1] > tol) & (s[2] < cfg.iter_max)
 
-    def body(s):
-        Htau, sumsq = step(Ht, s[0])
-        return Htau, torch.sqrt(sumsq) * dt / sqrt_n, s[2] + K
+    if _tested(cfg):
+        test = functools.partial(dual_time.LoopTest, dt=cfg.dt, sqrt_n=sqrt_n, tol=cfg.tol,
+                                 iter_max=cfg.iter_max)
+        carry = (*carry, cond(carry).to(torch.int32))
 
-    Htau, err, it = loops.while_loop(
-        cond, body, (Htau, Ht.new_full((), float("inf")),
-                     torch.zeros((), dtype=torch.int32, device=Ht.device)),
-        unroll=unroll, donate=True, name="diffusion.pseudo_time")
+        def loop_cond(s):
+            return s[3]
+
+        def body(s):
+            return (step(Ht, s[0], test(*s[1:]))[0], *s[1:])
+    else:
+        dt, sqrt_n = Ht.new_full((), cfg.dt), Ht.new_full((), sqrt_n)
+        loop_cond = cond
+
+        def body(s):
+            Htau, sumsq = step(Ht, s[0])
+            return Htau, torch.sqrt(sumsq) * dt / sqrt_n, s[2] + K
+
+    Htau, err, it, *_ = loops.while_loop(loop_cond, body, carry, unroll=unroll, donate=True,
+                                         name="diffusion.pseudo_time")
     Ht = Htau if cfg.policy is ExecutionPolicy.JNP else Ht.copy_(Htau)
     return dict(Ht=Ht, err=err, it=it)
 

@@ -16,8 +16,10 @@ the host (``ds.f32_pair``), so a spacing like 10/127 keeps full precision.
 The operation order is the JAX kernel's (ds3d.py:120-182).
 
 A CPU tensor runs ``ds3d_step_plain``; a CUDA tensor the kernel
-(csrc/ds3d.cu) or an error.  As in ``ops/dual_time.py`` the output is a
-buffer other than the input.
+(csrc/ds3d.cu) or an error.  With ``test=`` (``dual_time.LoopTest``) the
+pseudo-time loop's test follows the iteration, in the kernel's launch on
+the card (its tested form), as ``dual_time.dual_time_step``'s does.  As in
+``ops/dual_time.py`` the output is a buffer other than the input.
 
 ``to_ds_padded``/``from_ds_padded``/``pad3d_ds`` build the JAX kernel's
 padded ds layout in numpy, and ``state_from_jax``/``state_to_jax`` convert
@@ -26,11 +28,13 @@ between it and the port's pairs.
 
 from __future__ import annotations
 
+import ctypes
+
 import numpy as np
 import torch
 
 from fpr_tpu_torch import kernels
-from fpr_tpu_torch.ops.dual_time import _pad_yx
+from fpr_tpu_torch.ops.dual_time import _pad_yx, _require_test, loop_test_plain
 from fpr_tpu_torch.ops.ds import ds_add, ds_mul_ds, f32_pair, two_sum
 
 
@@ -95,22 +99,45 @@ def ds3d_step_plain(Ht_ds, Htau_ds, cp, out=None):
     return out, torch.sum(dh_h * dh_h)
 
 
+def _launch_ds(Ht_ds, Htau_ds, cp, out, partials, test=None):
+    """One launch of #11 (its tested form when test, a
+    ``kernels.LoopTestArgs``, is given); the buffers as the callers make
+    them."""
+    _, nz, ny, nx = Htau_ds.shape
+    err = kernels.lib().fpr_ds3d(
+        Ht_ds.data_ptr(), Htau_ds.data_ptr(), out.data_ptr(), partials.data_ptr(),
+        partials.numel(), *cp, nz, ny, nx, None if test is None else ctypes.addressof(test),
+        kernels.stream(Htau_ds))
+    kernels.check(err, "fpr_ds3d")
+    kernels.launches["ds3d"] += 1
+
+
 def _ds3d_cuda(Ht_ds, Htau_ds, cp, out=None, partials=None):
     """One ds iteration on the card (csrc/ds3d.cu); see ``dual_time_step_ds``."""
     kernels.require_cuda_f32("dual_time_step_ds", Ht_ds, Htau_ds, out, partials)
-    _, nz, ny, nx = Htau_ds.shape
     out = torch.empty_like(Htau_ds) if out is None else out
     if partials is None:
-        partials = kernels.partials_3d((nz, ny, nx), Htau_ds.device)
-    err = kernels.lib().fpr_ds3d(
-        Ht_ds.data_ptr(), Htau_ds.data_ptr(), out.data_ptr(), partials.data_ptr(),
-        partials.numel(), *cp, nz, ny, nx, kernels.stream(Htau_ds))
-    kernels.check(err, "fpr_ds3d")
-    kernels.launches["ds3d"] += 1
+        partials = kernels.partials_3d(Htau_ds.shape[1:], Htau_ds.device)
+    _launch_ds(Ht_ds, Htau_ds, cp, out, partials)
     return out, partials.sum()
 
 
-def dual_time_step_ds(Ht_ds, Htau_ds, dt, dtau, dx, dy, dz, D, *, out=None, partials=None):
+def _ds3d_tested_cuda(Ht_ds, Htau_ds, cp, test, out=None, partials=None):
+    """#11's tested form: one ds iteration and the loop test finished in the
+    launch; see ``dual_time_step_ds``.  The sum lands in a new 0-dim tensor."""
+    kernels.require_cuda_f32("dual_time_step_ds", Ht_ds, Htau_ds, out, partials)
+    _require_test("dual_time_step_ds", test)
+    out = torch.empty_like(Htau_ds) if out is None else out
+    if partials is None:
+        partials = kernels.partials_3d(Htau_ds.shape[1:], Htau_ds.device)
+    sumsq = torch.empty((), dtype=torch.float32, device=Htau_ds.device)
+    _launch_ds(Ht_ds, Htau_ds, cp, out, partials,
+               kernels.loop_test_args("ds3d", Htau_ds, sumsq, test))
+    return out, sumsq
+
+
+def dual_time_step_ds(Ht_ds, Htau_ds, dt, dtau, dx, dy, dz, D, *, out=None, partials=None,
+                      test=None):
     """One ds pseudo-time iteration (#11, ds3d.dual_time_step_ds_padded on
     physical pairs).
 
@@ -118,6 +145,8 @@ def dual_time_step_ds(Ht_ds, Htau_ds, dt, dtau, dx, dy, dz, D, *, out=None, part
     ``out`` (a new tensor if None; never Htau_ds) and returns (out,
     sum(dHdtau_hi^2) over the interior, float32).  partials: a
     ``kernels.partials_3d`` buffer over (nz, ny, nx) to reuse on CUDA.
+    test: None, or a ``dual_time.LoopTest`` whose buffers get the loop test
+    after the iteration, in the launch on the card (its tested form).
     """
     if Htau_ds.dim() != 4 or Htau_ds.shape[0] != 2 or min(Htau_ds.shape[1:]) < 3:
         raise ValueError(f"dual_time_step_ds: expected a (2, nz, ny, nx) pair, got "
@@ -132,7 +161,10 @@ def dual_time_step_ds(Ht_ds, Htau_ds, dt, dtau, dx, dy, dz, D, *, out=None, part
         raise ValueError("dual_time_step_ds: the output buffer must not be Htau_ds")
     cp = ds_coeffs(dt, dtau, dx, dy, dz, D)
     if Htau_ds.device.type == "cpu":
-        return ds3d_step_plain(Ht_ds, Htau_ds, cp, out)
+        result = ds3d_step_plain(Ht_ds, Htau_ds, cp, out)
+        return result if test is None else loop_test_plain(result, test)
+    if test is not None:
+        return _ds3d_tested_cuda(Ht_ds, Htau_ds, cp, test, out, partials)
     return _ds3d_cuda(Ht_ds, Htau_ds, cp, out, partials)
 
 

@@ -13,7 +13,11 @@ with the Pallas kernels' operation order and their constants: 1/dx^2,
 field's dtype (pallas3d.py:223-249).  The JNP tier (``ops/stencil3d.py``)
 divides by dt instead and rounds differently.
 
-- ``dual_time_step``: one iteration and sum(dHdtau^2) (#8).
+- ``dual_time_step``: one iteration and sum(dHdtau^2) (#8); with
+  ``test=LoopTest(...)`` also the pseudo-time loop's test after it (err,
+  the iteration count, the loop's predicate), finished in the kernel's
+  launch on the card (its tested form) and by ``loop_test_plain`` on the
+  CPU.
 - ``dual_time_stepk``: K iterations and the LAST one's sum(dHdtau^2)
   (#10's function).  On the card it runs the K-sweep kernel
   (csrc/dual_timek.cu), which keeps the intermediate sweeps on chip, once
@@ -49,6 +53,7 @@ convert a state between those layouts and the port's physical tensors.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
 import numpy as np
 import torch
@@ -65,6 +70,42 @@ def coeffs(dt, dtau, dx, dy, dz, D) -> tuple:
     the kernel's argument order; each rounds to the field's dtype on use."""
     return (1.0 / (dx * dx), 1.0 / (dy * dy), 1.0 / (dz * dz), 1.0 / dt, float(D),
             float(dtau))
+
+
+@dataclasses.dataclass(frozen=True)
+class LoopTest:
+    """The pseudo-time loop's test after one iteration, as the untested
+    loop body and cond of ``models/diffusion3d.py`` form it from the
+    iteration's sum: err = sqrt(sumsq) dt / sqrt_n, it + 1, and go = (err >
+    tol) & (it < iter_max), written into the 0-dim buffers err (the sum's
+    dtype), it and go (int32).  dt, sqrt_n and tol round to err's dtype, as
+    that body's constants do."""
+    err: torch.Tensor
+    it: torch.Tensor
+    go: torch.Tensor
+    dt: float
+    sqrt_n: float
+    tol: float
+    iter_max: int
+
+
+def loop_test_plain(result, test: LoopTest):
+    """The loop test of an iteration's result (out, sumsq) in torch's
+    operations, in the untested body's order; returns result."""
+    sumsq = result[1]
+    dt, sqrt_n, tol = (sumsq.new_full((), v) for v in (test.dt, test.sqrt_n, test.tol))
+    err = torch.sqrt(sumsq) * dt / sqrt_n
+    test.err.copy_(err)
+    test.it.add_(1)
+    test.go.copy_((err > tol) & (test.it < test.iter_max))
+    return result
+
+
+def _require_test(name, test: LoopTest) -> None:
+    kernels.require_cuda_f32(name, test.err)
+    kernels.require_cuda(name, (torch.int32,), test.it, test.go)
+    if any(t.numel() != 1 for t in (test.err, test.it, test.go)):
+        raise ValueError(f"{name}: the loop test's err, it and go are one-element tensors")
 
 
 def dual_time_step_plain(Ht, Htau, cf, out=None):
@@ -155,14 +196,14 @@ def interior_box(shape) -> tuple:
     return (1, nz - 2, 1, ny - 2, 1, nx - 2)
 
 
-def _launch(Ht, Htau, cf, out, partials, box=None, window=None):
+def _launch(Ht, Htau, cf, out, partials, box=None, window=None, test=None):
     nz, ny, nx = Htau.shape
     w0, w1 = (0, nz - 1) if window is None else window
     box = interior_box(Htau.shape) if box is None else box
     err = kernels.lib().fpr_dual_time(
         Ht.data_ptr(), Htau.data_ptr(), out.data_ptr(), kernels.ptr(partials),
         0 if partials is None else partials.numel(), *cf, nz, ny, nx, w0, w1 - w0 + 1,
-        *box, kernels.stream(Htau))
+        *box, None if test is None else ctypes.addressof(test), kernels.stream(Htau))
     kernels.check(err, "fpr_dual_time")
 
 
@@ -174,6 +215,20 @@ def _dual_time_cuda(Ht, Htau, cf, out=None, partials=None):
     _dual_time_box_cuda(Ht, Htau, cf, interior_box(Htau.shape), (0, Htau.shape[0] - 1), out,
                         partials)
     return out, partials.sum()
+
+
+def _dual_time_tested_cuda(Ht, Htau, cf, test, out=None, partials=None):
+    """#8's tested form: one iteration and the loop test finished in the
+    launch; see ``dual_time_step``.  The sum lands in a new 0-dim tensor."""
+    kernels.require_cuda_f32("dual_time_step", Ht, Htau, out, partials)
+    _require_test("dual_time_step", test)
+    out = torch.empty_like(Htau) if out is None else out
+    partials = kernels.partials_3d(Htau.shape, Htau.device) if partials is None else partials
+    sumsq = torch.empty((), dtype=torch.float32, device=Htau.device)
+    args = kernels.loop_test_args("dual_time", Htau, sumsq, test)
+    _launch(Ht, Htau, cf, out, partials, test=args)
+    kernels.launches["dual_time"] += 1
+    return out, sumsq
 
 
 def _launch_k(Ht, src, cf, out, partials, zboxes, planes, ht_shift):
@@ -215,18 +270,25 @@ def _check(name, Ht, Htau, out):
             raise ValueError(f"{name}: the output buffer must not be Htau")
 
 
-def dual_time_step(Ht, Htau, dt, dtau, dx, dy, dz, D, *, out=None, partials=None):
+def dual_time_step(Ht, Htau, dt, dtau, dx, dy, dz, D, *, out=None, partials=None,
+                   test=None):
     """One pseudo-time iteration (#8, pallas3d.dual_time_step_padded on the
     physical field).
 
     Writes Htau' into ``out`` (a new tensor if None; never Htau) and returns
     (out, sum(dHdtau^2) over the interior) as a 0-dim tensor.  partials: a
-    ``kernels.partials_3d`` buffer to reuse on CUDA.
+    ``kernels.partials_3d`` buffer to reuse on CUDA.  test: None, or a
+    ``LoopTest`` whose buffers get the loop test after the iteration; on
+    the card the kernel's tested form finishes the sum and the test in its
+    launch (the sum's fold in another fixed order than ``partials.sum()``'s).
     """
     _check("dual_time_step", Ht, Htau, out)
     cf = coeffs(dt, dtau, dx, dy, dz, D)
     if Htau.device.type == "cpu":
-        return dual_time_step_plain(Ht, Htau, cf, out)
+        result = dual_time_step_plain(Ht, Htau, cf, out)
+        return result if test is None else loop_test_plain(result, test)
+    if test is not None:
+        return _dual_time_tested_cuda(Ht, Htau, cf, test, out, partials)
     return _dual_time_cuda(Ht, Htau, cf, out, partials)
 
 
