@@ -16,7 +16,8 @@ Phases, in order; the first failure stops the run with a non-zero exit:
    run here too: dual_time at 512^3 and at a ragged 67x45x130, the fused
    K-sweep kernel (dual_timek, #10) at 512^3 K=3 and at the ragged shape
    for K = 1..5 (K = 5 as two passes), with its input unwritten, and ds3d
-   at 128^3 and the ragged shape.
+   at 128^3 and the ragged shape; #8 and #11 in their tested form (part
+   1's loop test finished in the launch) against the untested launch.
 4. the MG row: ``mg_solve_ds`` at 4097^2, DST coarse 513, V(5,5), tol 1e-6,
    with a true float64 residual checked on the card.
 5. NS explicit at 2049x513, Pr=0.01, tol 1e-7, ttot 0.005 (the main path):
@@ -82,7 +83,8 @@ Phases, in order; the first failure stops the run with a non-zero exit:
 19. the port's bench (``fpr_tpu_torch.bench``) rows in-process at full
     size: diffusion 512^3 K=3, 300 iterations (T_eff printed beside the
     card's name and power limit); MG 4097^2, 4 outers at a true float64
-    residual within 1e-6; NS semi-implicit (37 timed steps) and implicit
+    residual within 1e-6, the card time of one more solve from its
+    ``graph:mg_solve_ds`` span; NS semi-implicit (37 timed steps) and implicit
     (within IMPLICIT_BAND) at 2049x513 with one rep each; then ``python -m
     fpr_tpu_torch bench --quick`` in a subprocess (each component in a
     process of its own), its last line parsed and naming the card, with a
@@ -1093,10 +1095,10 @@ def phase_kernels_3d(kc: KernelCheck):
                      lambda: ds3d.ds3d_step_plain(Ht, Hs, cp, out), (Ht, Hs), shape,
                      ["ds3d_kernel"], flops=190 * cells)
     torch.cuda.synchronize()
-    phase_kernels_tested(kc, rng, ragged)
+    phase_kernels_loop_test(kc, rng, ragged)
 
 
-def phase_kernels_tested(kc: KernelCheck, rng, ragged):
+def phase_kernels_loop_test(kc: KernelCheck, rng, ragged):
     """#8 and #11 in their tested form (the loop test finished in the
     launch) against the untested launch: the field bitwise, the sum within
     REL_SUM, err, it and go torch's formula of that sum, reruns bitwise;
@@ -1110,10 +1112,9 @@ def phase_kernels_tested(kc: KernelCheck, rng, ragged):
     dev = torch.device("cuda", 0)
 
     def test_of(like, tol):
-        return dual_time.LoopTest(
+        return dual_time.loop_test(like, 0.2, 1000.0, tol, 100000)(
             like.new_full((), float("inf")), torch.full((), 5, dtype=torch.int32, device=dev),
-            torch.ones((), dtype=torch.int32, device=dev), dt=0.2, sqrt_n=1000.0, tol=tol,
-            iter_max=100000)
+            torch.ones((), dtype=torch.int32, device=dev))
 
     for shape in ((128, 128, 128), ragged):
         cells = int(np.prod(shape))
@@ -2166,8 +2167,10 @@ def phase_bench(smi):
     log(f"MG {mg['grid']}: {mg['outer_iterations']} outers, median {mg['seconds_to_tol']:.4f} s "
         f"of {mg['reps']} (iqr {mg['iqr_s']:.2e}), true f64 r_rms/f_rms "
         f"{mg['true_f64_rel_residual']:.3e}, device time of one solve "
-        f"{mg['profiler_device_seconds_one_solve']}")
+        f"{mg['device_seconds_one_solve']} s (its graph:mg_solve_ds span)")
     require(mg["outer_iterations"] == 4, f"MG row: {mg['outer_iterations']} outers, not 4")
+    require(mg["device_seconds_one_solve"] > 0,
+            f"MG row: device time {mg['device_seconds_one_solve']}")
     require(mg["true_f64_rel_residual"] <= 1e-6,
             f"MG row: true f64 residual {mg['true_f64_rel_residual']:.3e} > 1e-6")
     for k in ("defect", "smooth_down", "corr_up"):

@@ -13,8 +13,9 @@ Rows, each a function of its size:
   GFLOP/s.  T_eff is the headline ``value``.
 - ``bench_mg``: ``mg_solve_ds`` at 4097^2, DST coarse 513, V(5,5), tol
   1e-6: the median of 5 single solves, the outer count, the true float64
-  relative residual of hi + lo (after the timed region), and the summed
-  device time of one solve from torch.profiler.
+  relative residual of hi + lo (after the timed region), and the card
+  time of one more solve's graph launch (its ``graph:mg_solve_ds`` span,
+  ``core.trace``).
 - ``bench_ns_row``: ``simulate_fast`` at 2049x513, Pr 0.01, tol 1e-7, ttot
   0.005, seed 0: explicit at s_tol_factor 1 and 100 (the relaxed row is
   withheld unless its timed steps equal the first row's), semi-implicit
@@ -68,7 +69,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from fpr_tpu_torch.core import bc
+from fpr_tpu_torch.core import bc, trace
 from fpr_tpu_torch.core.config import CoarseSolver, MGConfig, NSConfig
 from fpr_tpu_torch.core.grid import Grid3D, pseudo_timestep
 from fpr_tpu_torch.models.navier_stokes import simulate_fast
@@ -76,7 +77,6 @@ from fpr_tpu_torch.ops import dual_time, stencil3d, transfer, vcycle_legs
 from fpr_tpu_torch.solvers.multigrid import mg_solve_ds
 from fpr_tpu_torch.solvers.poisson import poisson_rhs, true_rel_residual
 from fpr_tpu_torch.utils import device as devinfo
-from fpr_tpu_torch.utils import profiling
 from fpr_tpu_torch.utils.timing import diffusion_bench_results, stats_of, timed_stats
 
 REF_TEFF_GBS = 63.5
@@ -148,7 +148,8 @@ def bench_mg(n: int, tol: float = 1e-6, reps: int = 5, device="cuda") -> dict:
     """``mg_solve_ds`` at n^2, DST coarse min(513, n), V(5,5): the median of
     reps single solves after one warm-up solve, the outer count and the true
     float64 residual of the warm-up's iterate (outside the timed region);
-    on the card also the device time of one solve."""
+    on the card also the card time of one more solve's graph launch, read
+    from its span after the timed reps."""
     dev = torch.device(device)
     cfg = MGConfig(coarse_size=min(513, n), coarse_solver=CoarseSolver.DST, pre_smooth=5,
                    post_smooth=5)
@@ -165,11 +166,18 @@ def bench_mg(n: int, tol: float = 1e-6, reps: int = 5, device="cuda") -> dict:
         float(solve()[1])
 
     stats = timed_stats(run, reps)
-    dev_s = profiling.device_seconds(run, dev) if dev.type == "cuda" else None
+    dev_s = None
+    if dev.type == "cuda":
+        trace.enable(dev)
+        try:
+            run()
+            dev_s = trace.read()["spans"][trace.GRAPH + "mg_solve_ds"]["total_s"]
+        finally:
+            trace.disable()
     return dict(grid=f"{n}^2", seconds_to_tol=stats.median_s, iqr_s=stats.iqr_s,
                 reps=stats.reps, outer_iterations=int(it),
                 true_f64_rel_residual=true_rel_residual(uh, ul, b, h),
-                profiler_device_seconds_one_solve=dev_s)
+                device_seconds_one_solve=dev_s)
 
 
 def bench_ns_row(beta: float, s_tol_factor: float = 1.0, reps: int = 3, nx: int = 2049,
@@ -474,7 +482,7 @@ def run(args) -> int:
                 "mg_seconds_to_tol1e-6": mg["seconds_to_tol"], "mg_iqr_s": mg["iqr_s"],
                 "mg_reps": mg["reps"], "mg_outer_iterations": mg["outer_iterations"],
                 "mg_true_f64_rel_residual": mg["true_f64_rel_residual"],
-                "mg_profiler_device_seconds_one_solve": mg["profiler_device_seconds_one_solve"],
+                "mg_device_seconds_one_solve": mg["device_seconds_one_solve"],
                 "mg_vs_v100_0.154s": REF_MG_S / mg["seconds_to_tol"] if n_mg == 4097 else None,
             })
     if not (args.skip_ns or args.quick):

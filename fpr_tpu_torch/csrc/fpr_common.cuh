@@ -285,7 +285,6 @@ struct LoopTest {
     float* err;                    // sqrt(sumsq) * dt / sqrt_n
     int* it;                       // the iteration count, one more a launch
     int* go;                       // the loop's predicate: err > tol && it < iter_max
-    unsigned long long* tested;    // launches that finished the test, one more a launch
     float dt, sqrt_n, tol;
     int iter_max;
 };
@@ -293,9 +292,10 @@ struct LoopTest {
 // The loop test from the launch's sum, in thread 0 of the block that
 // finish_launch returned true in, with it_prev the count read at the
 // block's start (before its ticket, so before this launch writes it): each
-// operation rounded on its own, in the order of the untested loop body's
-// torch operations (sqrt, times dt, over sqrt_n; then it + 1 and the
-// predicate), so err, it and go are what that body makes of the same sum.
+// operation rounded on its own, in the order of the plain test's torch
+// operations (ops/dual_time.py loop_test_plain: sqrt, times dt, over sqrt_n;
+// then it + 1 and the predicate), so err, it and go are what it makes of the
+// same sum.
 __device__ __forceinline__ void finish_test(const LoopTest& t, float sumsq, int it_prev) {
     const float err = sqrtf(sumsq) * t.dt / t.sqrt_n;
     const int it = it_prev + 1;
@@ -303,7 +303,6 @@ __device__ __forceinline__ void finish_test(const LoopTest& t, float sumsq, int 
     *t.err = err;
     *t.it = it;
     *t.go = err > t.tol && it < t.iter_max ? 1 : 0;
-    *t.tested += 1ull;
 }
 
 // Row-major block index over a 2D or 3D grid (blockIdx.z is 0 on a 2D one).

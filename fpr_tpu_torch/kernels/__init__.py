@@ -30,13 +30,8 @@ legs of the row-padded V-cycle, which launch the leg kernel of
 ``smooth_down`` and ``corr_up`` (one launch a call, all four).
 ``ns_fused_helm`` counts the NS operator kernel's launches in its
 Helmholtz-defect mode, ``ns_fused`` the others.
-
-``tested_launches`` counts apart, per kernel of ``TESTED`` (#8 and #11),
-the launches of its tested form, which finishes part 1's pseudo-time loop
-test in the launch (``LoopTestArgs``); ``launches`` counts them under the
-kernel's own name as well, one launch each.  The launch itself adds one on
-the device, so a graph's passes count without any capture bookkeeping;
-``sync_launches`` folds the device counts in.
+A tested launch of #8 or #11 (part 1's loop test finished in the launch,
+``LoopTestArgs``) is one launch of ``dual_time`` or ``ds3d``, as any other.
 
 A wrapper called while ``core/loops.py`` captures a CUDA graph launches
 nothing: the graph launches its kernel each time it runs, as often as its
@@ -144,8 +139,6 @@ def reset_launches() -> None:
     sync_launches()
     for name in KERNELS:
         launches[name] = 0
-    for name in TESTED:
-        tested_launches[name] = 0
 
 
 def _nvcc() -> str:
@@ -306,47 +299,21 @@ def _refuse_capture(what: str) -> None:
                            "captured; run the body once before capturing it")
 
 
-# the kernels with a tested form (#8, #11), and their launches of it
-TESTED = ("dual_time", "ds3d")
-tested_launches = dict.fromkeys(TESTED, 0)
-# by device index: the device's tested-launch counts (int64, one a kernel
-# of TESTED) and the counts folded so far
-_tested: dict = {}
-
-
 class LoopTestArgs(ctypes.Structure):
     """csrc/fpr_common.cuh's fpr::LoopTest."""
     _fields_ = [("ticket", _P), ("sumsq", _P), ("err", _P), ("it", _P), ("go", _P),
-                ("tested", _P), ("dt", _F), ("sqrt_n", _F), ("tol", _F), ("iter_max", _I)]
+                ("dt", _F), ("sqrt_n", _F), ("tol", _F), ("iter_max", _I)]
 
 
-def loop_test_args(kernel: str, t: torch.Tensor, sumsq: torch.Tensor, test) -> LoopTestArgs:
-    """The fpr::LoopTest of a tested launch of ``kernel`` (one of TESTED) on
-    t's device: the ticket word ``launch_counter(t, "loop_test")``, the
-    launch's sum into sumsq, test's err, it and go buffers and constants
-    (``ops.dual_time.LoopTest``), and the kernel's device count of tested
-    launches.  The words are made outside any capture, as launch_counter's."""
-    entry = _tested.get(t.device.index)
-    if entry is None:
-        _refuse_capture("loop_test_args")
-        entry = _tested[t.device.index] = [
-            torch.zeros(len(TESTED), dtype=torch.int64, device=t.device), [0] * len(TESTED)]
+def loop_test_args(t: torch.Tensor, sumsq: torch.Tensor, test) -> LoopTestArgs:
+    """The fpr::LoopTest of a tested launch (#8, #11) on t's device: the
+    ticket word ``launch_counter(t, "loop_test")``, the launch's sum into
+    sumsq, and test's err, it and go buffers and constants
+    (``ops.dual_time.LoopTest``)."""
     return LoopTestArgs(
         launch_counter(t, "loop_test").data_ptr(), sumsq.data_ptr(), test.err.data_ptr(),
-        test.it.data_ptr(), test.go.data_ptr(),
-        entry[0].data_ptr() + entry[0].element_size() * TESTED.index(kernel), test.dt,
-        test.sqrt_n, test.tol, min(int(test.iter_max), 2**31 - 1))
-
-
-def _fold_tested() -> None:
-    for counts, seen in _tested.values():
-        now = counts.tolist()
-        for i, name in enumerate(TESTED):
-            tested_launches[name] += now[i] - seen[i]
-        seen[:] = now
-
-
-_device_counts.append(_fold_tested)
+        test.it.data_ptr(), test.go.data_ptr(), test.dt, test.sqrt_n, test.tol,
+        min(int(test.iter_max), 2**31 - 1))
 
 
 def num_blocks_3d(nz: int, ny: int, nx: int) -> int:

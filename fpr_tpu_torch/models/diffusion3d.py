@@ -13,23 +13,24 @@ then Ht <- Htau.  ``cfg.policy`` picks the tier of the iteration: JNP
 iterations per call) or PALLAS_DS (``ops/ds3d.py``).
 
 The loop over iterations is a ``core.loops.while_loop`` over (Htau, err,
-it), as JAX's ``lax.while_loop``: on CUDA one launch of a cached CUDA
-graph a physical step, the host reading the iteration count and err once
-per physical step, as JAX does.  err = sqrt(sumsq) dt / sqrt(N) is formed
-on the device in the field's dtype (float32 for the kernel tiers and ds)
-and compared there with tol rounded to that dtype; the float64 test of
-convergence is the host's.  Iterations advance by K per call; convergence
-is err <= tol, not the count.  The kernel tiers iterate on a ping-pong pair
-of buffers (each call writes the one it does not read, two calls a graph
-pass, so no pass copies a field); the commit Ht <- Htau is a device copy.
+it, go), as JAX's ``lax.while_loop`` over (Htau, err, it) with its cond
+carried: on CUDA one launch of a cached CUDA graph a physical step, the
+host reading the iteration count and err once per physical step, as JAX
+does.  Every tier's body is one call of its step, which also writes the
+loop test (``dual_time.LoopTest``) into the carry's err, it and go: err =
+sqrt(sumsq) dt / sqrt_n in the field's dtype (float32 for the kernel tiers
+and ds), it + K, go = (err > tol) & (it < iter_max) with tol rounded to
+that dtype; cond reads go.  The float64 test of convergence is the host's.
+Iterations advance by K per call; convergence is err <= tol, not the
+count.  The kernel tiers iterate on a ping-pong pair of buffers (each call
+writes the one it does not read, two calls a graph pass, so no pass copies
+a field); the commit Ht <- Htau is a device copy.
 
-The tiers that test every iteration with a kernel (PALLAS with check_every
-1, PALLAS_DS; ``_tested``) carry the loop's predicate too, (Htau, err, it,
-go), and their body is the iteration's tested form (``dual_time.LoopTest``):
-on the card one launch of #8 or #11 that also finishes the sum, err, it
-and go in the carry's own buffers, so that a loop pass is that launch and
-cond reads go; on the CPU the same values from the plain sum.  JNP and the
-fused K-sweep (check_every > 1, #10) keep the untested body.
+``_stepper`` is the one place that picks the tier's step: on the card the
+K=1 kernel tiers (PALLAS with check_every 1, PALLAS_DS) finish the test in
+their kernel's launch (#8's or #11's tested form), so that a loop pass is
+that launch; JNP and the fused K-sweep (#10) follow their step with
+``dual_time.loop_test_plain``, as every tier does on the CPU.
 """
 
 from __future__ import annotations
@@ -61,81 +62,58 @@ class DiffusionResult:
     converged: bool
 
 
-def _tested(cfg: DiffusionConfig) -> bool:
-    """Whether cfg's tier runs the loop test in its kernel's launch: a K=1
-    kernel tier (PALLAS with check_every 1, or PALLAS_DS)."""
-    return (cfg.policy is ExecutionPolicy.PALLAS_DS
-            or (cfg.policy is ExecutionPolicy.PALLAS and cfg.check_every == 1))
-
-
 def _stepper(cfg: DiffusionConfig, kw: dict, Ht: torch.Tensor):
     """(Htau, step, unroll) for cfg.policy: the first Htau (a copy of Ht),
-    step(Ht, Htau) -> (Htau', sumsq), and the unroll of the loop around it.
-    The K=1 kernel tiers' step takes a ``dual_time.LoopTest`` as an optional
-    third argument."""
+    step(Ht, Htau, test) -> (Htau', sumsq), which also writes the loop test
+    of its iterations into test (a ``dual_time.LoopTest``), and the unroll
+    of the loop around it."""
     if cfg.policy is ExecutionPolicy.JNP:
-        def step(Ht, Htau):
-            return stencil3d.dual_time_step(Ht, Htau, **kw)
+        def step(Ht, Htau, test):
+            return dual_time.loop_test_plain(stencil3d.dual_time_step(Ht, Htau, **kw), test)
 
         return Ht.clone(), step, 1
 
     bufs = (Ht.clone(), torch.empty_like(Ht))
-    fused = cfg.policy is ExecutionPolicy.PALLAS and cfg.check_every > 1
-    partials = (dual_time.fused_partials(Ht, Ht.shape[0], cfg.check_every) if fused
+    K = cfg.check_every if cfg.policy is ExecutionPolicy.PALLAS else 1
+    partials = (dual_time.fused_partials(Ht, Ht.shape[0], K) if K > 1
                 else kernels.partials_3d(Ht.shape[-3:], Ht.device))
 
     def other(Htau):
         return bufs[1] if Htau is bufs[0] else bufs[0]
 
     if cfg.policy is ExecutionPolicy.PALLAS_DS:
-        def step(Ht, Htau, test=None):
+        def step(Ht, Htau, test):
             return ds3d.dual_time_step_ds(Ht, Htau, **kw, out=other(Htau), partials=partials,
                                           test=test)
-    elif not fused:
-        def step(Ht, Htau, test=None):
+    elif K == 1:
+        def step(Ht, Htau, test):
             return dual_time.dual_time_step(Ht, Htau, **kw, out=other(Htau),
                                             partials=partials, test=test)
     else:
-        def step(Ht, Htau):
-            return dual_time.dual_time_stepk(Ht, Htau, cfg.check_every, **kw,
-                                             scratch=other(Htau), partials=partials)
+        def step(Ht, Htau, test):
+            return dual_time.loop_test_plain(dual_time.dual_time_stepk(
+                Ht, Htau, K, **kw, scratch=other(Htau), partials=partials), test, K)
     return bufs[0], step, 2
 
 
-def _physical_step(a: dict, cfg: DiffusionConfig, kw: dict, K: int) -> dict:
+def _physical_step(a: dict, cfg: DiffusionConfig, kw: dict) -> dict:
     """One physical step on Ht = a["Ht"]: the pseudo-time while_loop, then
     the commit (diffusion3d._step_fn's physical_step).  Returns the new Ht,
     the last err and the iterations."""
     Ht = a["Ht"]
     Htau, step, unroll = _stepper(cfg, kw, Ht)
-    sqrt_n = float(np.sqrt(cfg.nx * cfg.ny * cfg.nz))
-    tol = Ht.new_full((), cfg.tol)
-    carry = (Htau, Ht.new_full((), float("inf")),
-             torch.zeros((), dtype=torch.int32, device=Ht.device))
+    test = dual_time.loop_test(Ht, cfg.dt, float(np.sqrt(cfg.nx * cfg.ny * cfg.nz)), cfg.tol,
+                               cfg.iter_max)
+    it = torch.zeros((), dtype=torch.int32, device=Ht.device)
+    first = test(Ht.new_full((), float("inf")), it, torch.empty_like(it))
+    dual_time.loop_go(first)
 
-    def cond(s):
-        return (s[1] > tol) & (s[2] < cfg.iter_max)
+    def body(s):
+        return (step(Ht, s[0], test(*s[1:]))[0], *s[1:])
 
-    if _tested(cfg):
-        test = functools.partial(dual_time.LoopTest, dt=cfg.dt, sqrt_n=sqrt_n, tol=cfg.tol,
-                                 iter_max=cfg.iter_max)
-        carry = (*carry, cond(carry).to(torch.int32))
-
-        def loop_cond(s):
-            return s[3]
-
-        def body(s):
-            return (step(Ht, s[0], test(*s[1:]))[0], *s[1:])
-    else:
-        dt, sqrt_n = Ht.new_full((), cfg.dt), Ht.new_full((), sqrt_n)
-        loop_cond = cond
-
-        def body(s):
-            Htau, sumsq = step(Ht, s[0])
-            return Htau, torch.sqrt(sumsq) * dt / sqrt_n, s[2] + K
-
-    Htau, err, it, *_ = loops.while_loop(loop_cond, body, carry, unroll=unroll, donate=True,
-                                         name="diffusion.pseudo_time")
+    Htau, err, it, _ = loops.while_loop(lambda s: s[3], body,
+                                        (Htau, first.err, first.it, first.go), unroll=unroll,
+                                        donate=True, name="diffusion.pseudo_time")
     Ht = Htau if cfg.policy is ExecutionPolicy.JNP else Ht.copy_(Htau)
     return dict(Ht=Ht, err=err, it=it)
 
@@ -168,8 +146,7 @@ def solve(cfg: DiffusionConfig = DiffusionConfig(), dtype=torch.float32,
         raise ValueError(f"dtype must be torch.float32 or torch.float64, got {dtype}")
     if dev.type == "cuda" and policy is not ExecutionPolicy.JNP and dtype != torch.float32:
         raise ValueError(f"policy {policy.value} runs float32 CUDA kernels; got {dtype}")
-    K = cfg.check_every if policy is ExecutionPolicy.PALLAS else 1
-    if K < 1:
+    if policy is ExecutionPolicy.PALLAS and cfg.check_every < 1:
         raise ValueError(f"check_every must be >= 1, got {cfg.check_every}")
 
     grid = Grid3D(cfg.nx, cfg.ny, cfg.nz, cfg.lx, cfg.ly, cfg.lz)
@@ -182,7 +159,7 @@ def solve(cfg: DiffusionConfig = DiffusionConfig(), dtype=torch.float32,
         if ds_tier:  # the float64 field is not kept on the device
             with trace.span("diffusion.to_ds"):
                 Ht = ds3d.to_ds(Ht)
-    physical_step = functools.partial(_physical_step, cfg=cfg, kw=kw, K=K)
+    physical_step = functools.partial(_physical_step, cfg=cfg, kw=kw)
     key = ("diffusion3d", cfg, Ht.dtype)
 
     iters_total = timed_iters = 0

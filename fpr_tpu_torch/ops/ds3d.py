@@ -131,8 +131,7 @@ def _ds3d_tested_cuda(Ht_ds, Htau_ds, cp, test, out=None, partials=None):
     if partials is None:
         partials = kernels.partials_3d(Htau_ds.shape[1:], Htau_ds.device)
     sumsq = torch.empty((), dtype=torch.float32, device=Htau_ds.device)
-    _launch_ds(Ht_ds, Htau_ds, cp, out, partials,
-               kernels.loop_test_args("ds3d", Htau_ds, sumsq, test))
+    _launch_ds(Ht_ds, Htau_ds, cp, out, partials, kernels.loop_test_args(Htau_ds, sumsq, test))
     return out, sumsq
 
 

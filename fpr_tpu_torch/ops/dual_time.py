@@ -14,10 +14,11 @@ field's dtype (pallas3d.py:223-249).  The JNP tier (``ops/stencil3d.py``)
 divides by dt instead and rounds differently.
 
 - ``dual_time_step``: one iteration and sum(dHdtau^2) (#8); with
-  ``test=LoopTest(...)`` also the pseudo-time loop's test after it (err,
-  the iteration count, the loop's predicate), finished in the kernel's
-  launch on the card (its tested form) and by ``loop_test_plain`` on the
-  CPU.
+  ``test=`` (a ``LoopTest``) also the pseudo-time loop's test after it
+  (err, the iteration count, the loop's predicate), finished in the
+  kernel's launch on the card (its tested form) and by ``loop_test_plain``
+  on the CPU.  ``loop_test_plain`` is also the test of the tiers without a
+  tested form (JNP, #10).
 - ``dual_time_stepk``: K iterations and the LAST one's sum(dHdtau^2)
   (#10's function).  On the card it runs the K-sweep kernel
   (csrc/dual_timek.cu), which keeps the intermediate sweeps on chip, once
@@ -54,6 +55,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -74,12 +76,13 @@ def coeffs(dt, dtau, dx, dy, dz, D) -> tuple:
 
 @dataclasses.dataclass(frozen=True)
 class LoopTest:
-    """The pseudo-time loop's test after one iteration, as the untested
-    loop body and cond of ``models/diffusion3d.py`` form it from the
-    iteration's sum: err = sqrt(sumsq) dt / sqrt_n, it + 1, and go = (err >
+    """The pseudo-time loop's test after a pass of its body: err =
+    sqrt(sumsq) dt / sqrt_n, it plus the pass's iterations, and go = (err >
     tol) & (it < iter_max), written into the 0-dim buffers err (the sum's
-    dtype), it and go (int32).  dt, sqrt_n and tol round to err's dtype, as
-    that body's constants do."""
+    dtype), it and go (int32) of the loop's carry.  dt, sqrt_n and tol are
+    the tested kernels' arguments, rounded there to float32; ``consts``
+    holds them as 0-dim tensors of err's dtype and device, the plain test's.
+    Make them with ``loop_test``."""
     err: torch.Tensor
     it: torch.Tensor
     go: torch.Tensor
@@ -87,17 +90,33 @@ class LoopTest:
     sqrt_n: float
     tol: float
     iter_max: int
+    consts: tuple
 
 
-def loop_test_plain(result, test: LoopTest):
-    """The loop test of an iteration's result (out, sumsq) in torch's
-    operations, in the untested body's order; returns result."""
-    sumsq = result[1]
-    dt, sqrt_n, tol = (sumsq.new_full((), v) for v in (test.dt, test.sqrt_n, test.tol))
-    err = torch.sqrt(sumsq) * dt / sqrt_n
-    test.err.copy_(err)
-    test.it.add_(1)
-    test.go.copy_((err > tol) & (test.it < test.iter_max))
+def loop_test(like, dt, sqrt_n, tol, iter_max):
+    """The LoopTest maker of a loop on like's dtype and device:
+    ``make(err, it, go)`` on the carry's buffers.  The plain test's
+    constants are made here, once, so that a body captured in a graph makes
+    none a pass."""
+    consts = tuple(like.new_full((), float(v)) for v in (dt, sqrt_n, tol))
+    return functools.partial(LoopTest, dt=dt, sqrt_n=sqrt_n, tol=tol, iter_max=iter_max,
+                             consts=consts)
+
+
+def loop_go(test: LoopTest) -> None:
+    """The loop's predicate from test's err and it, into its go."""
+    torch.logical_and(test.err > test.consts[2], test.it < test.iter_max, out=test.go)
+
+
+def loop_test_plain(result, test: LoopTest, iters: int = 1):
+    """The loop test of a pass's result (out, sumsq) that made ``iters``
+    iterations, in torch's operations and in the tested kernels' order:
+    sqrt, times dt, over sqrt_n, then it + iters and the predicate; returns
+    result."""
+    dt, sqrt_n, _ = test.consts
+    torch.div(torch.sqrt(result[1]).mul_(dt), sqrt_n, out=test.err)
+    test.it.add_(iters)
+    loop_go(test)
     return result
 
 
@@ -225,8 +244,7 @@ def _dual_time_tested_cuda(Ht, Htau, cf, test, out=None, partials=None):
     out = torch.empty_like(Htau) if out is None else out
     partials = kernels.partials_3d(Htau.shape, Htau.device) if partials is None else partials
     sumsq = torch.empty((), dtype=torch.float32, device=Htau.device)
-    args = kernels.loop_test_args("dual_time", Htau, sumsq, test)
-    _launch(Ht, Htau, cf, out, partials, test=args)
+    _launch(Ht, Htau, cf, out, partials, test=kernels.loop_test_args(Htau, sumsq, test))
     kernels.launches["dual_time"] += 1
     return out, sumsq
 

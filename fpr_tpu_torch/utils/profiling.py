@@ -1,12 +1,11 @@
 """Profiling helpers (fpr_tpu/utils/profiling.py): ``trace`` is a
 ``torch.profiler`` window that writes a chrome trace, ``annotate`` a named
 range in it, and ``WallClock`` the reference's warm-up-excluding wall
-clock (part1_kernel_programming.jl:170-176); ``device_seconds`` sums the
-card's time in one call.
+clock (part1_kernel_programming.jl:170-176).  The program's own device
+time is ``core.trace``'s spans on the card's clock.
 
 On a card the window records CUDA activity, and a window that saw no
-device event raises: the profiler is this package's only source of device
-time, so a silent empty trace would read as an idle card.  View a trace
+device event raises: a silent empty trace would read as an idle card.  View a trace
 at ui.perfetto.dev or chrome://tracing.
 """
 
@@ -71,26 +70,3 @@ class WallClock:
     @property
     def elapsed(self) -> float:
         return time.time() - self._tic
-
-
-def device_seconds(fn, device="cuda") -> float:
-    """Summed device time (kernels and copies) of one call of fn on the
-    card, from torch.profiler; RuntimeError if the window saw no device
-    event.  Work queued before the call is finished first.  The profiler
-    does not see the kernels inside a CUDA graph's conditional nodes, so
-    fn's loops run as host loops here (``core.loops.host_loops``): the
-    same kernels on the same data, launched one by one.  Entering
-    ``host_loops`` closes every cached graph of the process, so the
-    caller's next ``device_call`` of a key builds its graph again."""
-    from torch.profiler import ProfilerActivity, profile
-
-    from fpr_tpu_torch.core import loops
-
-    torch.cuda.synchronize(device)
-    with loops.host_loops(), profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize(device)
-    evs = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
-    if not evs:
-        raise RuntimeError(f"device_seconds: the profiler recorded no device event on {device}")
-    return sum(e.device_time_total for e in evs) / 1e6

@@ -54,7 +54,7 @@ from fpr_tpu_torch.core.config import (CoarseSolver, DiffusionConfig,  # noqa: E
                                        ExecutionPolicy, MGConfig, NSConfig)
 from fpr_tpu_torch.core.grid import Grid3D, pseudo_timestep  # noqa: E402
 from fpr_tpu_torch.models import diffusion3d  # noqa: E402
-from fpr_tpu_torch.ops import ds3d, stencil3d  # noqa: E402
+from fpr_tpu_torch.ops import ds3d, dual_time, stencil3d  # noqa: E402
 from fpr_tpu_torch.models.dist_ns import simulate_fast_sharded  # noqa: E402
 from fpr_tpu_torch.models.navier_stokes import simulate, simulate_fast  # noqa: E402
 from fpr_tpu_torch.parallel import dist_diffusion  # noqa: E402
@@ -107,7 +107,8 @@ def window(label, fn, top=12):
 
 def diffusion_loop(cfg, calls):
     """The inner loop of diffusion3d.solve on its initial field: ``calls``
-    step calls, each followed by the host read of its norm."""
+    step calls, each writing the loop test and followed by the host read
+    of its norm."""
     g = Grid3D(cfg.nx, cfg.ny, cfg.nz)
     kw = dict(dt=cfg.dt, dtau=pseudo_timestep(g.dx, g.dy, g.dz, cfg.D), dx=g.dx, dy=g.dy,
               dz=g.dz, D=cfg.D)
@@ -117,10 +118,16 @@ def diffusion_loop(cfg, calls):
     Ht = ds3d.to_ds(H) if ds_tier else H
     Htau, step, _ = diffusion3d._stepper(cfg, kw, Ht)
     state = {"Htau": Htau}
+    test = ()
+    if hasattr(dual_time, "loop_test"):  # a tree whose every step writes the loop test
+        test = (dual_time.loop_test(Ht, cfg.dt, float(np.sqrt(cfg.nx * cfg.ny * cfg.nz)),
+                                    cfg.tol, cfg.iter_max)(
+            Ht.new_full((), float("inf")), torch.zeros((), dtype=torch.int32, device="cuda"),
+            torch.ones((), dtype=torch.int32, device="cuda")),)
 
     def run():
         for _ in range(calls):
-            state["Htau"], sumsq = step(Ht, state["Htau"])
+            state["Htau"], sumsq = step(Ht, state["Htau"], *test)
             float(sumsq)
     return run
 

@@ -55,8 +55,8 @@ def test_diffusion_row():
 def test_mg_row_counts_and_residual():
     row = bench.bench_mg(65, tol=1e-6, reps=3, device="cpu")
     assert set(row) == {"grid", "seconds_to_tol", "iqr_s", "reps", "outer_iterations",
-                        "true_f64_rel_residual", "profiler_device_seconds_one_solve"}
-    assert row["reps"] == 3 and row["profiler_device_seconds_one_solve"] is None
+                        "true_f64_rel_residual", "device_seconds_one_solve"}
+    assert row["reps"] == 3 and row["device_seconds_one_solve"] is None
     assert row["true_f64_rel_residual"] <= 1e-6
     b = poisson.poisson_rhs(65, "cpu")
     cfg = MGConfig(coarse_size=65, coarse_solver=CoarseSolver.DST, pre_smooth=5, post_smooth=5)
