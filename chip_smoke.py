@@ -113,7 +113,8 @@ Phases, in order; the first failure stops the run with a non-zero exit:
     launch a chunk, host syncs counted: warm-up + chunks + end), NS semi
     to its end (phase 6's run, 37), MG ds 4097^2 (4 outers, one graph
     launch a call) and ``mg_pcg_ds`` 4097^2, diffusion 128^3 K=1 (18980),
-    K=3 and ds (41148); the same through the plain versions on both sides
+    K=3 and ds (41148), with the graph nodes a pseudo-time pass (2 on the
+    K=1 tiers' parity route, 12.5 on K=3's); the same through the plain versions on both sides
     (NS 20 and 5 steps, diffusion 50 iterations a step); the device
     launches of K1, K4 and the legs in 20 NS steps as the graphs count
     them, equal to the host loops' and to the profiler's count on the host
@@ -411,12 +412,12 @@ def plain_kernels():
              (dual_time, "_dual_timek_cuda",
               lambda Ht, Htau, K, cf, scratch=None, partials=None:
               dual_time.dual_time_stepk_plain(Ht, Htau, K, cf, scratch)),
-             (dual_time, "_dual_time_tested_cuda",
-              lambda Ht, Htau, cf, test, out=None, partials=None: dual_time.loop_test_plain(
-                  dual_time.dual_time_step_plain(Ht, Htau, cf, out), test)),
-             (ds3d, "_ds3d_tested_cuda",
-              lambda Ht, Htau, cp, test, out=None, partials=None: dual_time.loop_test_plain(
-                  ds3d.ds3d_step_plain(Ht, Htau, cp, out), test)),
+             (dual_time, "_dual_time_pair_cuda",
+              lambda Ht, pair, cf, test, partials=None: dual_time.pair_step_plain(
+                  lambda src: dual_time.dual_time_step_plain(Ht, src, cf), pair, test)),
+             (ds3d, "_ds3d_pair_cuda",
+              lambda Ht, pair, cp, test, partials=None: dual_time.pair_step_plain(
+                  lambda src: ds3d.ds3d_step_plain(Ht, src, cp), pair, test)),
              (dual_time, "_dual_time_box_cuda", dual_time.dual_time_box_plain),
              (dual_time, "_dual_time_stepk_padded_cuda", dual_time.dual_time_stepk_padded_plain),
              (ds3d, "_ds3d_cuda",
@@ -1100,9 +1101,11 @@ def phase_kernels_3d(kc: KernelCheck):
 
 def phase_kernels_loop_test(kc: KernelCheck, rng, ragged):
     """#8 and #11 in their tested form (the loop test finished in the
-    launch) against the untested launch: the field bitwise, the sum within
-    REL_SUM, err, it and go torch's formula of that sum, reruns bitwise;
-    at 128^3 both forms of #8 timed, and #11's tested one (still phase 3)."""
+    launch, the side of the ping-pong pair read picked by the count)
+    against the untested launch, from an odd and an even count: the field
+    bitwise on the other side, the side read unchanged, the sum within
+    REL_SUM, err, it and go torch's formula of that sum, reruns bitwise; at
+    128^3 both forms of #8 timed, and #11's tested one (still phase 3)."""
     import numpy as np
     import torch
 
@@ -1111,10 +1114,20 @@ def phase_kernels_loop_test(kc: KernelCheck, rng, ragged):
 
     dev = torch.device("cuda", 0)
 
-    def test_of(like, tol):
+    def test_of(like, tol, it0=5):
         return dual_time.loop_test(like, 0.2, 1000.0, tol, 100000)(
-            like.new_full((), float("inf")), torch.full((), 5, dtype=torch.int32, device=dev),
+            like.new_full((), float("inf")), torch.full((), it0, dtype=torch.int32, device=dev),
             torch.ones((), dtype=torch.int32, device=dev))
+
+    def on_pair(tested, Ht, Hs, cf, test):
+        """tested on a pair whose side test.it & 1 is Hs, the other NaN: (the
+        side written, the sum)."""
+        side = int(test.it) & 1
+        pair = torch.full((2, *Hs.shape), float("nan"), device=dev)
+        pair[side] = Hs
+        _, s = tested(Ht, pair, cf, test)
+        require(torch.equal(pair[side], Hs), "the tested form wrote the side it reads")
+        return pair[1 - side], s
 
     for shape in ((128, 128, 128), ragged):
         cells = int(np.prod(shape))
@@ -1122,22 +1135,25 @@ def phase_kernels_loop_test(kc: KernelCheck, rng, ragged):
         Hs64 = H + 1e-3 * torch.tensor(rng.standard_normal(shape), device=dev)
         for name, Ht, Hs, cf, untested, tested, plain, flops in (
                 ("dual_time", H.float(), Hs64.float(), dual_time.coeffs(**diffusion_kw(shape)),
-                 dual_time._dual_time_cuda, dual_time._dual_time_tested_cuda,
+                 dual_time._dual_time_cuda, dual_time._dual_time_pair_cuda,
                  dual_time.dual_time_step_plain, 27 * cells),
                 ("ds3d", ds3d.to_ds(H), ds3d.to_ds(Hs64), ds3d.ds_coeffs(**diffusion_kw(shape)),
-                 ds3d._ds3d_cuda, ds3d._ds3d_tested_cuda, ds3d.ds3d_step_plain, 190 * cells)):
+                 ds3d._ds3d_cuda, ds3d._ds3d_pair_cuda, ds3d.ds3d_step_plain, 190 * cells)):
             want, s_want = untested(Ht, Hs, cf)
             for tol in (0.0, 1e30):
-                test, ref = test_of(Ht, tol), test_of(Ht, tol)
-                got, s = tested(Ht, Hs, cf, test)
-                kc.fields(f"{name}_tested", (got,), (want,), f"{shape} tol {tol}")
-                kc.sums(f"{name}_tested", (s,), (s_want,), f"{shape} sumsq")
-                dual_time.loop_test_plain((None, s), ref)
-                for a, b in ((test.err, ref.err), (test.it, ref.it), (test.go, ref.go)):
-                    require(torch.equal(a, b), f"{name}_tested {shape} tol {tol}: loop test "
-                            f"{[float(t) for t in (test.err, test.it, test.go)]} against torch's "
-                            f"{[float(t) for t in (ref.err, ref.it, ref.go)]}")
-            same_bits(f"{name}_tested", f"{shape}", lambda: tested(Ht, Hs, cf, test_of(Ht, 0.0)))
+                for it0 in (5, 6):
+                    test, ref = test_of(Ht, tol, it0), test_of(Ht, tol, it0)
+                    got, s = on_pair(tested, Ht, Hs, cf, test)
+                    what = f"{shape} tol {tol} count {it0}"
+                    kc.fields(f"{name}_tested", (got,), (want,), what)
+                    kc.sums(f"{name}_tested", (s,), (s_want,), f"{what} sumsq")
+                    dual_time.loop_test_plain((None, s), ref)
+                    for a, b in ((test.err, ref.err), (test.it, ref.it), (test.go, ref.go)):
+                        require(torch.equal(a, b), f"{name}_tested {what}: loop test "
+                                f"{[float(t) for t in (test.err, test.it, test.go)]} against "
+                                f"torch's {[float(t) for t in (ref.err, ref.it, ref.go)]}")
+            same_bits(f"{name}_tested", f"{shape}",
+                      lambda: on_pair(tested, Ht, Hs, cf, test_of(Ht, 0.0)))
             if shape != ragged:
                 out, part, test = torch.empty_like(Hs), kernels.partials_3d(shape, dev), \
                     test_of(Ht, 0.0)
@@ -1145,9 +1161,12 @@ def phase_kernels_loop_test(kc: KernelCheck, rng, ragged):
                     kc.timed("dual_time_128", lambda: untested(Ht, Hs, cf, out, part),
                              lambda: plain(Ht, Hs, cf, out), (Ht, Hs), shape,
                              ["dual_time_kernel"], flops=flops)
-                kc.timed(f"{name}_tested", lambda: tested(Ht, Hs, cf, test, out, part),
+                # each call reads the side the last one wrote
+                pair = torch.stack([Hs, Hs])
+                kc.timed(f"{name}_tested", lambda: tested(Ht, pair, cf, test, part),
                          lambda: dual_time.loop_test_plain(plain(Ht, Hs, cf, out), test),
-                         (Ht, Hs), shape, [f"{name}_kernel"], flops=flops)
+                         (Ht, Hs), shape, [f"{name}_kernel"], flops=flops,
+                         result=lambda o: (o[0][0], o[1]))
             del Ht, Hs
     torch.cuda.synchronize()
 
@@ -1495,6 +1514,11 @@ REF_PROBE_F32 = 0.0799870          # 128^3, ttot 2, tol 1e-6 (the reference's va
 # kernel on an H100 (iters_total): the fused kernel's norm adds its dH^2 in
 # another order, so a stop may move by one check (3 iterations)
 K3_ITERS_UNFUSED = 18984
+# graph nodes a pseudo-time pass at 128^3: the K=1 tiers' tested launch and
+# the WHILE's set node; K=3's loop unrolled twice (its odd last pass's
+# copy makes the mean a little off 12.5)
+NODES_A_PASS = {"K=1": 2.0, "K=3": 12.5, "ds": 2.0}
+NODES_A_PASS_ROOM = {"K=1": 0.0, "K=3": 0.05, "ds": 0.0}
 REF_PROBE_DS = 0.07996040957329686  # 128^3, ttot 2, tol 1e-10 (error_vs_tolerance.csv)
 
 
@@ -2571,6 +2595,15 @@ def phase_device_loops(smi, explicit, semi, mixed, ns_ten):
         g, hh = both(lambda: diffusion3d.solve(dcfg, device="cuda"), name, same_h)
         require(g.iters_total == want or name.endswith("K=3"),
                 f"{name}: {g.iters_total} iterations, expected {want}")
+        c0 = loops.counters()
+        diffusion3d.solve(dcfg, device="cuda")
+        c1 = loops.counters()
+        loop, tier = "diffusion.pseudo_time", name.rsplit(" ", 1)[1]
+        per = ((c1["nodes_run"][loop] - c0["nodes_run"].get(loop, 0))
+               / (c1["passes"][loop] - c0["passes"].get(loop, 0)))
+        log(f"{name}: {per!r} graph nodes a pseudo-time pass")
+        require(abs(per - NODES_A_PASS[tier]) <= NODES_A_PASS_ROOM[tier],
+                f"{name}: {per!r} graph nodes a pass, expected {NODES_A_PASS[tier]}")
         walls.append((name, g.bench.delta_t, hh.bench.delta_t))
         both(lambda: diffusion3d.solve(dataclasses.replace(dcfg, iter_max=50), device="cuda"),
              name + ", 50 a step", same_h, plain=True)

@@ -16,8 +16,9 @@
 // partial sums of dH_hi^2 in float32 (ds3d.py:182), added by the caller in
 // a fixed order; or, in the tested form (a LoopTest given), that float32
 // sum finished in the launch and the pseudo-time loop's test after it, on
-// as many blocks as the card holds at once, as csrc/dual_time.cu's tested
-// form does.  The error-free transforms of fpr_common.cuh need the build's
+// as many blocks as the card holds at once, its htau and out a ping-pong
+// pair that the count picks from, as csrc/dual_time.cu's tested form does.
+// The error-free transforms of fpr_common.cuh need the build's
 // -fmad=false.
 //
 // Bound on the H100: memory bandwidth.  A cell reads Htau and Ht hi/lo and
@@ -101,21 +102,32 @@ __device__ __forceinline__ float update_cell(const float* __restrict__ ht,
     return dsq;
 }
 
-// The untested form: one block a tile of the (nx/32, ny/8, nz) grid, its
-// partial sum into partials (if not null).  The tested form: blocks that
-// take the tiles in turn (fpr::Tiles), each thread adding its cells' dH_hi^2
-// in that order, the sum and the loop test finished in the launch.
+// The untested form: one block a tile of the (nx/32, ny/8, nz) grid, htau
+// into out, its partial sum into partials (if not null).  The tested form:
+// blocks that take the tiles in turn (fpr::Tiles), each thread adding its
+// cells' dH_hi^2 in that order, the sum and the loop test finished in the
+// launch; htau into out when the count it starts from is even, htau_odd
+// into out_odd when it is odd, the pair passed twice as in
+// csrc/dual_time.cu.
 template <bool TESTED>
 __global__ void __launch_bounds__(FPR_THREADS)
-ds3d_kernel(const float* __restrict__ ht, const float* __restrict__ htau,
-            float* __restrict__ out, float* __restrict__ partials, DsConsts k, int nz,
-            int ny, int nx, fpr::Tiles tiles, fpr::LoopTest test) {
+ds3d_kernel(const float* __restrict__ ht, const float* __restrict__ htau, float* out,
+            const float* __restrict__ htau_odd, float* out_odd, float* __restrict__ partials,
+            DsConsts k, int nz, int ny, int nx, fpr::Tiles tiles, fpr::LoopTest test) {
     __shared__ float sh[FPR_BY];
     if constexpr (TESTED) {
-        const int it_prev = fpr::block_leader() ? *test.it : 0;
+        // the count the launch starts from, read once a block (before its
+        // ticket, so before the last block writes it) and shared
+        __shared__ int it_shared;
+        if (fpr::block_leader()) it_shared = *test.it;
+        __syncthreads();
+        const int it_prev = it_shared;
+        const bool odd = it_prev & 1;
+        const float* src = odd ? htau_odd : htau;
+        float* dst = odd ? out_odd : out;
         float v[1] = {0.0f};
         fpr::for_tiles(tiles, [&](unsigned bx, unsigned by, unsigned bz) {
-            v[0] += update_cell(ht, htau, out, k, nz, ny, nx, bx, by, bz);
+            v[0] += update_cell(ht, src, dst, k, nz, ny, nx, bx, by, bz);
         });
         if (fpr::finish_launch<FPR_THREADS, 1>(v, 0u, partials, test.ticket, sh,
                                                threadIdx.y * FPR_BX + threadIdx.x)) {
@@ -137,15 +149,16 @@ extern "C" {
 
 // One ds iteration on (2, nz, ny, nx) hi/lo state.  The ten constants are
 // the (hi, lo) pairs of 1/dt, D/dx^2, D/dy^2, D/dz^2 and dtau.  partials and
-// test as for fpr_dual_time.  Returns the launch's cudaError_t.
-int fpr_ds3d(const float* ht, const float* htau, float* out, float* partials,
+// test as for fpr_dual_time, htau and out the tested form's ping-pong pair
+// as there.  Returns the launch's cudaError_t.
+int fpr_ds3d(const float* ht, float* htau, float* out, float* partials,
              int n_partials, float inv_dt_h, float inv_dt_l, float bx_h, float bx_l,
              float by_h, float by_l, float bz_h, float bz_l, float dtau_h, float dtau_l,
              int nz, int ny, int nx, const fpr::LoopTest* test, cudaStream_t stream) {
     const dim3 grid = fpr::grid_of_3d(nz, ny, nx);
     const long long tiles = static_cast<long long>(grid.x) * grid.y * grid.z;
     if (nz > 65535 || (partials != nullptr && n_partials != tiles) ||
-        (test != nullptr && partials == nullptr)) {
+        (test != nullptr && (partials == nullptr || htau == out))) {
         return static_cast<int>(cudaErrorInvalidValue);
     }
     const DsConsts k{inv_dt_h, inv_dt_l, bx_h, bx_l, by_h, by_l, bz_h, bz_l, dtau_h, dtau_l};
@@ -156,11 +169,12 @@ int fpr_ds3d(const float* ht, const float* htau, float* out, float* partials,
         const cudaError_t err = fpr::card_slots(ds3d_kernel<true>, slots_cached, slots);
         if (err != cudaSuccess) return static_cast<int>(err);
         ds3d_kernel<true><<<static_cast<unsigned>(std::min<long long>(tiles, slots)),
-                            dim3(FPR_BX, FPR_BY), 0, stream>>>(ht, htau, out, partials, k, nz,
-                                                               ny, nx, tl, *test);
+                            dim3(FPR_BX, FPR_BY), 0, stream>>>(ht, htau, out, out, htau,
+                                                               partials, k, nz, ny, nx, tl,
+                                                               *test);
     } else {
         ds3d_kernel<false><<<grid, dim3(FPR_BX, FPR_BY), 0, stream>>>(
-            ht, htau, out, partials, k, nz, ny, nx, tl, fpr::LoopTest{});
+            ht, htau, out, htau, out, partials, k, nz, ny, nx, tl, fpr::LoopTest{});
     }
     return static_cast<int>(cudaGetLastError());
 }

@@ -23,11 +23,15 @@
 // (fpr::finish_test): err, the iteration count and the loop's predicate, so
 // that a loop pass is this one launch.  One block a tile would pay the
 // ticket's fence and atomic in each of 8192 blocks at 128^3 (21.1 against
-// 11.7 device us on an H100, PERF.md), and leave 8192 partials to fold.  The box is inclusive, in the field's own coordinates, and lies
-// inside [1, n-2] on every axis, so that every stencil read is in range:
-// a single device's box is the interior, a shard's box comes from its
-// global-edge masks (pallas3d.py:235-246).  Planes outside the window are
-// not written.
+// 11.7 device us on an H100, PERF.md), and leave 8192 partials to fold.
+// Its htau and out are a ping-pong pair that the count picks from on the
+// card: an even count reads htau and writes out, an odd one reads out and
+// writes htau, so that the loop's pass needs no copy and the loop no unroll
+// to know at capture which buffer a launch reads.  The box is inclusive,
+// in the field's own coordinates, and lies inside [1, n-2] on every axis,
+// so that every stencil read is in range: a single device's box is the
+// interior, a shard's box comes from its global-edge masks
+// (pallas3d.py:235-246).  Planes outside the window are not written.
 //
 // Bound on the H100: memory bandwidth.  A cell reads Htau and Ht and writes
 // Htau', 12 bytes, against 27 flops: one 512^3 iteration moves 1.61 GB, at
@@ -83,22 +87,36 @@ __device__ __forceinline__ float update_cell(const float* __restrict__ ht,
     return dsq;
 }
 
-// The untested form: one block a tile of the (nx/32, ny/8, nw) grid, its
-// partial sum into partials (if not null).  The tested form: blocks that
-// take the tiles in turn (fpr::Tiles), each thread adding its cells' dH^2
-// in that order, the sum and the loop test finished in the launch.
+// The untested form: one block a tile of the (nx/32, ny/8, nw) grid, htau
+// into out, its partial sum into partials (if not null).  The tested form:
+// blocks that take the tiles in turn (fpr::Tiles), each thread adding its
+// cells' dH^2 in that order, the sum and the loop test finished in the
+// launch; htau into out when the count it starts from is even, htau_odd
+// into out_odd when it is odd.  The caller passes the pair twice, (htau,
+// out) and swapped, so that either side is read through a const
+// __restrict__ parameter: picking both sides from two plain pointers cost
+// #11's whole 128^3 solves ~5 % on an H100 (PERF.md).
 template <bool TESTED>
 __global__ void __launch_bounds__(FPR_THREADS)
-dual_time_kernel(const float* __restrict__ ht, const float* __restrict__ htau,
-                 float* __restrict__ out, float* __restrict__ partials, float inv_dx2,
-                 float inv_dy2, float inv_dz2, float inv_dt, float D, float dtau, int ny,
-                 int nx, int w0, Box box, fpr::Tiles tiles, fpr::LoopTest test) {
+dual_time_kernel(const float* __restrict__ ht, const float* __restrict__ htau, float* out,
+                 const float* __restrict__ htau_odd, float* out_odd,
+                 float* __restrict__ partials, float inv_dx2, float inv_dy2, float inv_dz2,
+                 float inv_dt, float D, float dtau, int ny, int nx, int w0, Box box,
+                 fpr::Tiles tiles, fpr::LoopTest test) {
     __shared__ float sh[FPR_BY];
     if constexpr (TESTED) {
-        const int it_prev = fpr::block_leader() ? *test.it : 0;
+        // the count the launch starts from, read once a block (before its
+        // ticket, so before the last block writes it) and shared
+        __shared__ int it_shared;
+        if (fpr::block_leader()) it_shared = *test.it;
+        __syncthreads();
+        const int it_prev = it_shared;
+        const bool odd = it_prev & 1;
+        const float* src = odd ? htau_odd : htau;
+        float* dst = odd ? out_odd : out;
         float v[1] = {0.0f};
         fpr::for_tiles(tiles, [&](unsigned bx, unsigned by, unsigned bz) {
-            v[0] += update_cell(ht, htau, out, inv_dx2, inv_dy2, inv_dz2, inv_dt, D, dtau, ny,
+            v[0] += update_cell(ht, src, dst, inv_dx2, inv_dy2, inv_dz2, inv_dt, D, dtau, ny,
                                 nx, w0, box, bx, by, bz);
         });
         if (fpr::finish_launch<FPR_THREADS, 1>(v, 0u, partials, test.ticket, sh,
@@ -127,8 +145,10 @@ extern "C" {
 // partials length that does not fit the grid is refused with
 // cudaErrorInvalidValue.  test: null, or the loop test to finish in the
 // launch (the tested form; needs partials, and its ticket word must not be
-// in use by another launch at once).  Returns the launch's cudaError_t.
-int fpr_dual_time(const float* ht, const float* htau, float* out, float* partials,
+// in use by another launch at once), with htau and out as the ping-pong
+// pair: *test->it even reads htau and writes out, odd reads out and writes
+// htau.  Returns the launch's cudaError_t.
+int fpr_dual_time(const float* ht, float* htau, float* out, float* partials,
                   int n_partials, float inv_dx2, float inv_dy2, float inv_dz2,
                   float inv_dt, float D, float dtau, int nz, int ny, int nx, int w0,
                   int nw, int z0, int z1, int y0, int y1, int x0, int x1,
@@ -140,7 +160,7 @@ int fpr_dual_time(const float* ht, const float* htau, float* out, float* partial
     if (nw < 1 || nw > 65535 || w0 < 0 || w0 + nw > nz || !box_ok ||
         (partials != nullptr && static_cast<long long>(n_partials) !=
                                     static_cast<long long>(grid.x) * grid.y * grid.z) ||
-        (test != nullptr && partials == nullptr)) {
+        (test != nullptr && (partials == nullptr || htau == out))) {
         return static_cast<int>(cudaErrorInvalidValue);
     }
     const Box box{z0, z1, y0, y1, x0, x1};
@@ -152,12 +172,12 @@ int fpr_dual_time(const float* ht, const float* htau, float* out, float* partial
         if (err != cudaSuccess) return static_cast<int>(err);
         dual_time_kernel<true><<<std::min(tl.n, static_cast<unsigned>(slots)),
                                  dim3(FPR_BX, FPR_BY), 0, stream>>>(
-            ht, htau, out, partials, inv_dx2, inv_dy2, inv_dz2, inv_dt, D, dtau, ny, nx, w0,
-            box, tl, *test);
+            ht, htau, out, out, htau, partials, inv_dx2, inv_dy2, inv_dz2, inv_dt, D, dtau, ny,
+            nx, w0, box, tl, *test);
     } else {
         dual_time_kernel<false><<<grid, dim3(FPR_BX, FPR_BY), 0, stream>>>(
-            ht, htau, out, partials, inv_dx2, inv_dy2, inv_dz2, inv_dt, D, dtau, ny, nx, w0,
-            box, tl, fpr::LoopTest{});
+            ht, htau, out, htau, out, partials, inv_dx2, inv_dy2, inv_dz2, inv_dt, D, dtau,
+            ny, nx, w0, box, tl, fpr::LoopTest{});
     }
     return static_cast<int>(cudaGetLastError());
 }

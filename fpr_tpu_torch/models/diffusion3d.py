@@ -22,15 +22,19 @@ sqrt(sumsq) dt / sqrt_n in the field's dtype (float32 for the kernel tiers
 and ds), it + K, go = (err > tol) & (it < iter_max) with tol rounded to
 that dtype; cond reads go.  The float64 test of convergence is the host's.
 Iterations advance by K per call; convergence is err <= tol, not the
-count.  The kernel tiers iterate on a ping-pong pair of buffers (each call
-writes the one it does not read, two calls a graph pass, so no pass copies
-a field); the commit Ht <- Htau is a device copy.
+count.  The kernel tiers iterate on a ping-pong pair of buffers, each call
+writing the one it does not read, so that no pass copies a field.
 
-``_stepper`` is the one place that picks the tier's step: on the card the
-K=1 kernel tiers (PALLAS with check_every 1, PALLAS_DS) finish the test in
-their kernel's launch (#8's or #11's tested form), so that a loop pass is
-that launch; JNP and the fused K-sweep (#10) follow their step with
-``dual_time.loop_test_plain``, as every tier does on the CPU.
+``_stepper`` is the one place that picks the tier's step and loop, from
+the policy and K.  The K=1 kernel tiers (PALLAS with check_every 1,
+PALLAS_DS) carry the pair itself: their step reads the side that the
+carried count picks, writes the other and finishes the loop test (on the
+card all in one launch of #8's or #11's tested form), so that a loop pass
+is that launch and the WHILE's set node, and the commit Ht <- Htau copies
+the side that the last count picks, chosen on the device.  The fused
+K-sweep (#10, K > 1) carries the side a pass reads, known at capture for
+two passes at a time (the loop unrolled twice), and JNP makes a new field
+a pass; both follow their step with ``dual_time.loop_test_plain``.
 """
 
 from __future__ import annotations
@@ -62,38 +66,50 @@ class DiffusionResult:
     converged: bool
 
 
+def _commit_pair(Ht: torch.Tensor, pair: torch.Tensor, it: torch.Tensor) -> torch.Tensor:
+    """Ht <- pair[it & 1], the side chosen on the device; returns Ht."""
+    torch.index_select(pair, 0, (it & 1).reshape(1), out=Ht.unsqueeze(0))
+    return Ht
+
+
 def _stepper(cfg: DiffusionConfig, kw: dict, Ht: torch.Tensor):
-    """(Htau, step, unroll) for cfg.policy: the first Htau (a copy of Ht),
-    step(Ht, Htau, test) -> (Htau', sumsq), which also writes the loop test
-    of its iterations into test (a ``dual_time.LoopTest``), and the unroll
-    of the loop around it."""
+    """(Htau, step, unroll, commit) for cfg.policy on Ht's device: the
+    loop's first field leaf, step(Ht, Htau, test) -> (Htau', sumsq), which
+    also writes the loop test of its iterations into test (a
+    ``dual_time.LoopTest``), the unroll of the loop around it, and
+    commit(Ht, Htau, it) -> the new Ht from the loop's last field leaf and
+    count.  For the K=1 kernel tiers the leaf is the pair itself, (2,
+    *Ht.shape), side 0 a copy of Ht, which every pass returns unchanged;
+    elsewhere it is the field a pass reads."""
     if cfg.policy is ExecutionPolicy.JNP:
         def step(Ht, Htau, test):
             return dual_time.loop_test_plain(stencil3d.dual_time_step(Ht, Htau, **kw), test)
 
-        return Ht.clone(), step, 1
+        return Ht.clone(), step, 1, lambda Ht, Htau, it: Htau
 
-    bufs = (Ht.clone(), torch.empty_like(Ht))
     K = cfg.check_every if cfg.policy is ExecutionPolicy.PALLAS else 1
     partials = (dual_time.fused_partials(Ht, Ht.shape[0], K) if K > 1
                 else kernels.partials_3d(Ht.shape[-3:], Ht.device))
+    if K == 1:
+        tested = (ds3d.dual_time_step_ds_pair if cfg.policy is ExecutionPolicy.PALLAS_DS
+                  else dual_time.dual_time_step_pair)
+        pair = torch.empty((2, *Ht.shape), dtype=Ht.dtype, device=Ht.device)
+        pair[0].copy_(Ht)
+
+        def step(Ht, pair, test):
+            return tested(Ht, pair, **kw, partials=partials, test=test)
+
+        return pair, step, 1, _commit_pair
+
+    bufs = (Ht.clone(), torch.empty_like(Ht))
 
     def other(Htau):
         return bufs[1] if Htau is bufs[0] else bufs[0]
 
-    if cfg.policy is ExecutionPolicy.PALLAS_DS:
-        def step(Ht, Htau, test):
-            return ds3d.dual_time_step_ds(Ht, Htau, **kw, out=other(Htau), partials=partials,
-                                          test=test)
-    elif K == 1:
-        def step(Ht, Htau, test):
-            return dual_time.dual_time_step(Ht, Htau, **kw, out=other(Htau),
-                                            partials=partials, test=test)
-    else:
-        def step(Ht, Htau, test):
-            return dual_time.loop_test_plain(dual_time.dual_time_stepk(
-                Ht, Htau, K, **kw, scratch=other(Htau), partials=partials), test, K)
-    return bufs[0], step, 2
+    def step(Ht, Htau, test):
+        return dual_time.loop_test_plain(dual_time.dual_time_stepk(
+            Ht, Htau, K, **kw, scratch=other(Htau), partials=partials), test, K)
+    return bufs[0], step, 2, lambda Ht, Htau, it: Ht.copy_(Htau)
 
 
 def _physical_step(a: dict, cfg: DiffusionConfig, kw: dict) -> dict:
@@ -101,7 +117,7 @@ def _physical_step(a: dict, cfg: DiffusionConfig, kw: dict) -> dict:
     the commit (diffusion3d._step_fn's physical_step).  Returns the new Ht,
     the last err and the iterations."""
     Ht = a["Ht"]
-    Htau, step, unroll = _stepper(cfg, kw, Ht)
+    Htau, step, unroll, commit = _stepper(cfg, kw, Ht)
     test = dual_time.loop_test(Ht, cfg.dt, float(np.sqrt(cfg.nx * cfg.ny * cfg.nz)), cfg.tol,
                                cfg.iter_max)
     it = torch.zeros((), dtype=torch.int32, device=Ht.device)
@@ -114,8 +130,7 @@ def _physical_step(a: dict, cfg: DiffusionConfig, kw: dict) -> dict:
     Htau, err, it, _ = loops.while_loop(lambda s: s[3], body,
                                         (Htau, first.err, first.it, first.go), unroll=unroll,
                                         donate=True, name="diffusion.pseudo_time")
-    Ht = Htau if cfg.policy is ExecutionPolicy.JNP else Ht.copy_(Htau)
-    return dict(Ht=Ht, err=err, it=it)
+    return dict(Ht=commit(Ht, Htau, it), err=err, it=it)
 
 
 def _sync(device: torch.device) -> None:

@@ -16,10 +16,12 @@ the host (``ds.f32_pair``), so a spacing like 10/127 keeps full precision.
 The operation order is the JAX kernel's (ds3d.py:120-182).
 
 A CPU tensor runs ``ds3d_step_plain``; a CUDA tensor the kernel
-(csrc/ds3d.cu) or an error.  With ``test=`` (``dual_time.LoopTest``) the
-pseudo-time loop's test follows the iteration, in the kernel's launch on
-the card (its tested form), as ``dual_time.dual_time_step``'s does.  As in
-``ops/dual_time.py`` the output is a buffer other than the input.
+(csrc/ds3d.cu) or an error.  ``dual_time_step_ds_pair`` iterates on a
+ping-pong pair of states, the side read picked by the loop's count, and
+the pseudo-time loop's test (``dual_time.LoopTest``) follows the
+iteration, in the kernel's launch on the card (its tested form), as
+``dual_time.dual_time_step_pair``'s does.  As in ``ops/dual_time.py`` the
+output is a buffer other than the input.
 
 ``to_ds_padded``/``from_ds_padded``/``pad3d_ds`` build the JAX kernel's
 padded ds layout in numpy, and ``state_from_jax``/``state_to_jax`` convert
@@ -34,7 +36,7 @@ import numpy as np
 import torch
 
 from fpr_tpu_torch import kernels
-from fpr_tpu_torch.ops.dual_time import _pad_yx, _require_test, loop_test_plain
+from fpr_tpu_torch.ops.dual_time import _pad_yx, _require_test, pair_step_plain
 from fpr_tpu_torch.ops.ds import ds_add, ds_mul_ds, f32_pair, two_sum
 
 
@@ -101,8 +103,8 @@ def ds3d_step_plain(Ht_ds, Htau_ds, cp, out=None):
 
 def _launch_ds(Ht_ds, Htau_ds, cp, out, partials, test=None):
     """One launch of #11 (its tested form when test, a
-    ``kernels.LoopTestArgs``, is given); the buffers as the callers make
-    them."""
+    ``kernels.LoopTestArgs``, is given, with (Htau_ds, out) the ping-pong
+    pair); the buffers as the callers make them."""
     _, nz, ny, nx = Htau_ds.shape
     err = kernels.lib().fpr_ds3d(
         Ht_ds.data_ptr(), Htau_ds.data_ptr(), out.data_ptr(), partials.data_ptr(),
@@ -122,21 +124,34 @@ def _ds3d_cuda(Ht_ds, Htau_ds, cp, out=None, partials=None):
     return out, partials.sum()
 
 
-def _ds3d_tested_cuda(Ht_ds, Htau_ds, cp, test, out=None, partials=None):
-    """#11's tested form: one ds iteration and the loop test finished in the
-    launch; see ``dual_time_step_ds``.  The sum lands in a new 0-dim tensor."""
-    kernels.require_cuda_f32("dual_time_step_ds", Ht_ds, Htau_ds, out, partials)
-    _require_test("dual_time_step_ds", test)
-    out = torch.empty_like(Htau_ds) if out is None else out
+def _ds3d_pair_cuda(Ht_ds, pair, cp, test, partials=None):
+    """#11's tested form: one ds iteration on the pair, the side read picked
+    by the count in the launch, and the loop test finished there; see
+    ``dual_time_step_ds_pair``.  The sum lands in a new 0-dim tensor."""
+    kernels.require_cuda_f32("dual_time_step_ds_pair", Ht_ds, pair[0], pair[1], partials)
+    _require_test("dual_time_step_ds_pair", test)
     if partials is None:
-        partials = kernels.partials_3d(Htau_ds.shape[1:], Htau_ds.device)
-    sumsq = torch.empty((), dtype=torch.float32, device=Htau_ds.device)
-    _launch_ds(Ht_ds, Htau_ds, cp, out, partials, kernels.loop_test_args(Htau_ds, sumsq, test))
-    return out, sumsq
+        partials = kernels.partials_3d(Ht_ds.shape[1:], Ht_ds.device)
+    sumsq = torch.empty((), dtype=torch.float32, device=Ht_ds.device)
+    _launch_ds(Ht_ds, pair[0], cp, pair[1], partials, kernels.loop_test_args(Ht_ds, sumsq, test))
+    return pair, sumsq
 
 
-def dual_time_step_ds(Ht_ds, Htau_ds, dt, dtau, dx, dy, dz, D, *, out=None, partials=None,
-                      test=None):
+def _check_ds(name, Ht_ds, Htau_ds, out):
+    if Htau_ds.dim() != 4 or Htau_ds.shape[0] != 2 or min(Htau_ds.shape[1:]) < 3:
+        raise ValueError(f"{name}: expected a (2, nz, ny, nx) pair, got "
+                         f"{tuple(Htau_ds.shape)}")
+    if Htau_ds.dtype != torch.float32:
+        raise ValueError(f"{name}: ds pairs are float32, got {Htau_ds.dtype}")
+    for what, t in (("Ht_ds", Ht_ds), ("out", out)):
+        if t is not None and (t.shape != Htau_ds.shape or t.dtype != torch.float32):
+            raise ValueError(f"{name}: {what} {tuple(t.shape)} {t.dtype} does not match "
+                             "Htau_ds")
+    if out is not None and out.data_ptr() == Htau_ds.data_ptr():
+        raise ValueError(f"{name}: the output buffer must not be Htau_ds")
+
+
+def dual_time_step_ds(Ht_ds, Htau_ds, dt, dtau, dx, dy, dz, D, *, out=None, partials=None):
     """One ds pseudo-time iteration (#11, ds3d.dual_time_step_ds_padded on
     physical pairs).
 
@@ -144,27 +159,30 @@ def dual_time_step_ds(Ht_ds, Htau_ds, dt, dtau, dx, dy, dz, D, *, out=None, part
     ``out`` (a new tensor if None; never Htau_ds) and returns (out,
     sum(dHdtau_hi^2) over the interior, float32).  partials: a
     ``kernels.partials_3d`` buffer over (nz, ny, nx) to reuse on CUDA.
-    test: None, or a ``dual_time.LoopTest`` whose buffers get the loop test
-    after the iteration, in the launch on the card (its tested form).
     """
-    if Htau_ds.dim() != 4 or Htau_ds.shape[0] != 2 or min(Htau_ds.shape[1:]) < 3:
-        raise ValueError(f"dual_time_step_ds: expected a (2, nz, ny, nx) pair, got "
-                         f"{tuple(Htau_ds.shape)}")
-    if Htau_ds.dtype != torch.float32:
-        raise ValueError(f"dual_time_step_ds: ds pairs are float32, got {Htau_ds.dtype}")
-    for name, t in (("Ht_ds", Ht_ds), ("out", out)):
-        if t is not None and (t.shape != Htau_ds.shape or t.dtype != torch.float32):
-            raise ValueError(f"dual_time_step_ds: {name} {tuple(t.shape)} {t.dtype} does "
-                             "not match Htau_ds")
-    if out is not None and out.data_ptr() == Htau_ds.data_ptr():
-        raise ValueError("dual_time_step_ds: the output buffer must not be Htau_ds")
+    _check_ds("dual_time_step_ds", Ht_ds, Htau_ds, out)
     cp = ds_coeffs(dt, dtau, dx, dy, dz, D)
     if Htau_ds.device.type == "cpu":
-        result = ds3d_step_plain(Ht_ds, Htau_ds, cp, out)
-        return result if test is None else loop_test_plain(result, test)
-    if test is not None:
-        return _ds3d_tested_cuda(Ht_ds, Htau_ds, cp, test, out, partials)
+        return ds3d_step_plain(Ht_ds, Htau_ds, cp, out)
     return _ds3d_cuda(Ht_ds, Htau_ds, cp, out, partials)
+
+
+def dual_time_step_ds_pair(Ht_ds, pair, dt, dtau, dx, dy, dz, D, *, test, partials=None):
+    """One ds pseudo-time iteration on a ping-pong pair of (2, nz, ny, nx)
+    hi/lo states and the loop test after it (#11's tested form): reads
+    pair[test.it & 1], writes pair[(test.it + 1) & 1], as
+    ``dual_time.dual_time_step_pair`` does (pair: a (2, 2, nz, ny, nx)
+    tensor, two states).  Returns (pair,
+    sum(dHdtau_hi^2) over the interior, float32).
+    """
+    if pair.dim() != 5 or pair.shape[0] != 2:
+        raise ValueError(f"dual_time_step_ds_pair: expected a (2, 2, nz, ny, nx) pair, got "
+                         f"{tuple(pair.shape)}")
+    _check_ds("dual_time_step_ds_pair", Ht_ds, pair[0], pair[1])
+    cp = ds_coeffs(dt, dtau, dx, dy, dz, D)
+    if Ht_ds.device.type == "cpu":
+        return pair_step_plain(lambda src: ds3d_step_plain(Ht_ds, src, cp), pair, test)
+    return _ds3d_pair_cuda(Ht_ds, pair, cp, test, partials)
 
 
 # ---------------------------------------------------------------------------

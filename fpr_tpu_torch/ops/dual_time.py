@@ -13,12 +13,14 @@ with the Pallas kernels' operation order and their constants: 1/dx^2,
 field's dtype (pallas3d.py:223-249).  The JNP tier (``ops/stencil3d.py``)
 divides by dt instead and rounds differently.
 
-- ``dual_time_step``: one iteration and sum(dHdtau^2) (#8); with
-  ``test=`` (a ``LoopTest``) also the pseudo-time loop's test after it
-  (err, the iteration count, the loop's predicate), finished in the
-  kernel's launch on the card (its tested form) and by ``loop_test_plain``
-  on the CPU.  ``loop_test_plain`` is also the test of the tiers without a
-  tested form (JNP, #10).
+- ``dual_time_step``: one iteration and sum(dHdtau^2) (#8).
+- ``dual_time_step_pair``: one iteration on a ping-pong pair, reading the
+  side that the loop's count picks and writing the other, and the
+  pseudo-time loop's test after it (a ``LoopTest``: err, the iteration
+  count, the loop's predicate), finished in the kernel's launch on the
+  card (its tested form) and by ``pair_step_plain`` on the CPU.
+  ``loop_test_plain`` is also the test of the tiers without a tested form
+  (JNP, #10).
 - ``dual_time_stepk``: K iterations and the LAST one's sum(dHdtau^2)
   (#10's function).  On the card it runs the K-sweep kernel
   (csrc/dual_timek.cu), which keeps the intermediate sweeps on chip, once
@@ -118,6 +120,19 @@ def loop_test_plain(result, test: LoopTest, iters: int = 1):
     test.it.add_(iters)
     loop_go(test)
     return result
+
+
+def pair_step_plain(step, pair, test: LoopTest):
+    """The plain version of a tested step on a ping-pong pair (a (2, ...)
+    tensor): step(src) -> (Htau', sumsq) on pair[test.it & 1], Htau' put
+    into pair[(test.it + 1) & 1], then ``loop_test_plain``.  The sides are
+    picked on the device (a gather and a scatter indexed by the count), so
+    that a graph replays it with no host read.  Returns (pair, sumsq)."""
+    side = (test.it & 1).reshape(1).long()
+    new, sumsq = step(pair.index_select(0, side)[0])
+    pair.index_copy_(0, 1 - side, new[None])
+    loop_test_plain((pair, sumsq), test)
+    return pair, sumsq
 
 
 def _require_test(name, test: LoopTest) -> None:
@@ -236,17 +251,17 @@ def _dual_time_cuda(Ht, Htau, cf, out=None, partials=None):
     return out, partials.sum()
 
 
-def _dual_time_tested_cuda(Ht, Htau, cf, test, out=None, partials=None):
-    """#8's tested form: one iteration and the loop test finished in the
-    launch; see ``dual_time_step``.  The sum lands in a new 0-dim tensor."""
-    kernels.require_cuda_f32("dual_time_step", Ht, Htau, out, partials)
-    _require_test("dual_time_step", test)
-    out = torch.empty_like(Htau) if out is None else out
-    partials = kernels.partials_3d(Htau.shape, Htau.device) if partials is None else partials
-    sumsq = torch.empty((), dtype=torch.float32, device=Htau.device)
-    _launch(Ht, Htau, cf, out, partials, test=kernels.loop_test_args(Htau, sumsq, test))
+def _dual_time_pair_cuda(Ht, pair, cf, test, partials=None):
+    """#8's tested form: one iteration on the pair, the side read picked by
+    the count in the launch, and the loop test finished there; see
+    ``dual_time_step_pair``.  The sum lands in a new 0-dim tensor."""
+    kernels.require_cuda_f32("dual_time_step_pair", Ht, pair[0], pair[1], partials)
+    _require_test("dual_time_step_pair", test)
+    partials = kernels.partials_3d(Ht.shape, Ht.device) if partials is None else partials
+    sumsq = torch.empty((), dtype=torch.float32, device=Ht.device)
+    _launch(Ht, pair[0], cf, pair[1], partials, test=kernels.loop_test_args(Ht, sumsq, test))
     kernels.launches["dual_time"] += 1
-    return out, sumsq
+    return pair, sumsq
 
 
 def _launch_k(Ht, src, cf, out, partials, zboxes, planes, ht_shift):
@@ -288,26 +303,42 @@ def _check(name, Ht, Htau, out):
             raise ValueError(f"{name}: the output buffer must not be Htau")
 
 
-def dual_time_step(Ht, Htau, dt, dtau, dx, dy, dz, D, *, out=None, partials=None,
-                   test=None):
+def dual_time_step(Ht, Htau, dt, dtau, dx, dy, dz, D, *, out=None, partials=None):
     """One pseudo-time iteration (#8, pallas3d.dual_time_step_padded on the
     physical field).
 
     Writes Htau' into ``out`` (a new tensor if None; never Htau) and returns
     (out, sum(dHdtau^2) over the interior) as a 0-dim tensor.  partials: a
-    ``kernels.partials_3d`` buffer to reuse on CUDA.  test: None, or a
-    ``LoopTest`` whose buffers get the loop test after the iteration; on
-    the card the kernel's tested form finishes the sum and the test in its
-    launch (the sum's fold in another fixed order than ``partials.sum()``'s).
+    ``kernels.partials_3d`` buffer to reuse on CUDA.
     """
     _check("dual_time_step", Ht, Htau, out)
     cf = coeffs(dt, dtau, dx, dy, dz, D)
     if Htau.device.type == "cpu":
-        result = dual_time_step_plain(Ht, Htau, cf, out)
-        return result if test is None else loop_test_plain(result, test)
-    if test is not None:
-        return _dual_time_tested_cuda(Ht, Htau, cf, test, out, partials)
+        return dual_time_step_plain(Ht, Htau, cf, out)
     return _dual_time_cuda(Ht, Htau, cf, out, partials)
+
+
+def dual_time_step_pair(Ht, pair, dt, dtau, dx, dy, dz, D, *, test, partials=None):
+    """One pseudo-time iteration on a ping-pong pair and the loop test
+    after it (#8's tested form).
+
+    pair: a (2, nz, ny, nx) tensor, two buffers.  The iteration reads
+    pair[test.it & 1] and writes Htau' into pair[(test.it + 1) & 1], the
+    count read on the device, then writes the loop test into test's
+    buffers (a ``LoopTest``; its count one more).
+    Returns (pair, sum(dHdtau^2) over the interior).  On the card the
+    kernel's launch picks the side, finishes the sum (its fold in another
+    fixed order than ``partials.sum()``'s) and the test; partials: a
+    ``kernels.partials_3d`` buffer to reuse there.
+    """
+    if pair.dim() != 4 or pair.shape[0] != 2:
+        raise ValueError(f"dual_time_step_pair: expected a (2, nz, ny, nx) pair, got "
+                         f"{tuple(pair.shape)}")
+    _check("dual_time_step_pair", Ht, pair[0], pair[1])
+    cf = coeffs(dt, dtau, dx, dy, dz, D)
+    if Ht.device.type == "cpu":
+        return pair_step_plain(lambda src: dual_time_step_plain(Ht, src, cf), pair, test)
+    return _dual_time_pair_cuda(Ht, pair, cf, test, partials)
 
 
 def dual_time_stepk(Ht, Htau, K, dt, dtau, dx, dy, dz, D, *, scratch=None, partials=None):

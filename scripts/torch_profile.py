@@ -116,7 +116,7 @@ def diffusion_loop(cfg, calls):
     H = bc.dirichlet_faces_3d(stencil3d.init_gaussian(
         g, torch.float64 if ds_tier else torch.float32, device="cuda"))
     Ht = ds3d.to_ds(H) if ds_tier else H
-    Htau, step, _ = diffusion3d._stepper(cfg, kw, Ht)
+    Htau, step, *_ = diffusion3d._stepper(cfg, kw, Ht)
     state = {"Htau": Htau}
     test = ()
     if hasattr(dual_time, "loop_test"):  # a tree whose every step writes the loop test

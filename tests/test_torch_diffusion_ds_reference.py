@@ -90,24 +90,24 @@ def test_cell_is_correct():
 
 
 def test_cell_with_the_iterate_rounded_to_float32(monkeypatch):
-    real = ds3d.dual_time_step_ds
+    real = ds3d.ds3d_step_plain
 
-    def rounded(*args, **kw):
-        out, s = real(*args, **kw)
+    def rounded(Ht, Htau, cp, out=None):
+        out, s = real(Ht, Htau, cp, out)
         out[1].zero_()  # the lo part dropped: hi alone is float32
         return out, s
-    monkeypatch.setattr(ds3d, "dual_time_step_ds", rounded)
+    monkeypatch.setattr(ds3d, "ds3d_step_plain", rounded)
     assert _run_tiny()["correct"] is False
 
 
 def test_cell_with_a_step_that_returns_its_state(monkeypatch):
-    real = ds3d.dual_time_step_ds
+    real = ds3d.ds3d_step_plain
 
-    def stuck(Ht, Htau, *args, **kw):
-        out, s = real(Ht, Htau, *args, **kw)
+    def stuck(Ht, Htau, cp, out=None):
+        out, s = real(Ht, Htau, cp, out)
         out.copy_(Htau)
         return out, s
-    monkeypatch.setattr(ds3d, "dual_time_step_ds", stuck)
+    monkeypatch.setattr(ds3d, "ds3d_step_plain", stuck)
     assert _run_tiny()["correct"] is False
 
 

@@ -10,13 +10,19 @@ tested forms of #8 and #11) and by ``dual_time.loop_test_plain`` otherwise.
   iter_max; whole solves keep that loop's per-step counts and fields; only
   the K=1 kernel tiers hand the test to their kernel's wrapper; the CUDA
   wrappers' Python side, its launch replaced by a plain emulation, counts
-  one launch a pass, each carrying the test.
+  one launch a pass, each carrying the test.  ``_stepper``'s routes: the
+  K=1 kernel tiers carry the ping-pong pair in a loop that is not unrolled
+  (the parity route), #10 keeps its loop unrolled twice and JNP its own;
+  the parity route keeps the old loop's counts, err and fields whichever
+  side its last pass writes, its commit the side the count picks.
 - Marked ``card``: the tested kernels' fields are bitwise the untested
-  ones', their sum within the kernel tests' bound of ``partials.sum()``,
-  err, it and go torch's formula of that sum; solves at 64^3 and 128^3
-  keep the counts and fields of the untested launch followed by the plain
-  test; at most 5 graph nodes a pass and one launch a pass; the K=3
-  route's nodes a pass.
+  ones', on the side of the pair that the count picks, their sum within
+  the kernel tests' bound of ``partials.sum()``, err, it and go torch's
+  formula of that sum; solves at 64^3 and 128^3 keep the counts and fields
+  of the untested launch followed by the plain test; the parity route's
+  counts, err and fields bitwise those of the host loops, whichever side
+  its last pass writes; 2 graph nodes a pass and one launch a pass; the
+  K=3 route's nodes a pass.
 
 The file imports no JAX, so its card tests run on a machine that has none:
 
@@ -121,7 +127,7 @@ def test_plain_tested_form_is_the_untested_body(route, n, stop):
     and cond."""
     cfg, kw, Ht = _setup(**ROUTES[route], n=n, iter_max=100000 if stop == "tol" else 7)
     step_a, K = _untested(cfg, kw)
-    Hb, step_b, _ = d3._stepper(cfg, kw, Ht)
+    Hb, step_b, _, commit = d3._stepper(cfg, kw, Ht)
     Ha = Ht.clone()
     tol, dt, sqrt_n = (Ht.new_full((), v) for v in (cfg.tol, cfg.dt, _sqrt_n(cfg)))
     err, it = Ht.new_full((), float("inf")), torch.zeros((), dtype=torch.int32)
@@ -132,7 +138,7 @@ def test_plain_tested_form_is_the_untested_body(route, n, stop):
         err, it = torch.sqrt(sumsq) * dt / sqrt_n, it + K
         go = (err > tol) & (it < cfg.iter_max)
         Hb, sumsq_b = step_b(Ht, Hb, test)
-        assert _same(sumsq_b, sumsq) and _same(Hb, Ha)
+        assert _same(sumsq_b, sumsq) and _same(commit(torch.empty_like(Ht), Hb, test.it), Ha)
         assert _same(test.err, err) and _same(test.it, it) and _same(test.go, go.to(torch.int32))
         errs.append(float(err))
     if stop == "tol":  # the last iteration is the one where err crosses tol
@@ -151,10 +157,10 @@ def _solve_steps(cfg, capsys, device="cpu"):
 
 
 def _untested_then_plain(untested):
-    """A stand-in for a tested CUDA wrapper: the untested launch, then the
-    plain loop test."""
-    def tested(Ht, Htau, cf, test, out=None, partials=None):
-        return dual_time.loop_test_plain(untested(Ht, Htau, cf, out, partials), test)
+    """A stand-in for a tested CUDA wrapper: the untested launch on the
+    side of the pair that the count picks, then the plain loop test."""
+    def tested(Ht, pair, cf, test, partials=None):
+        return dual_time.pair_step_plain(lambda src: untested(Ht, src, cf), pair, test)
     return tested
 
 
@@ -170,8 +176,9 @@ def _both_routes(cfg, capsys, monkeypatch, device="cpu"):
         if torch.device(device).type == "cpu":
             m.setattr(d3, "_physical_step", _three_slot_step)
         else:
-            m.setattr(dual_time, "_dual_time_tested_cuda", _untested_then_plain(dual_time._dual_time_cuda))
-            m.setattr(ds3d, "_ds3d_tested_cuda", _untested_then_plain(ds3d._ds3d_cuda))
+            m.setattr(dual_time, "_dual_time_pair_cuda",
+                      _untested_then_plain(dual_time._dual_time_cuda))
+            m.setattr(ds3d, "_ds3d_pair_cuda", _untested_then_plain(ds3d._ds3d_cuda))
         loops.clear_cache()
         witness = _solve_steps(cfg, capsys, device)
     loops.clear_cache()
@@ -200,7 +207,7 @@ def test_routing_rule(monkeypatch):
         made["tests"] += 1
         return real_test(*a, **kw)
     monkeypatch.setattr(dual_time, "LoopTest", making)
-    for mod, entry in ((dual_time, "dual_time_step"), (ds3d, "dual_time_step_ds")):
+    for mod, entry in ((dual_time, "dual_time_step_pair"), (ds3d, "dual_time_step_ds_pair")):
         def counting(*a, _real=getattr(mod, entry), **kw):
             handed["tests"] += kw.get("test") is not None
             return _real(*a, **kw)
@@ -223,13 +230,20 @@ def test_routing_rule(monkeypatch):
 def _emulated_lib(tensors, tested):
     """Stand-ins of fpr_dual_time and fpr_ds3d on CPU tensors (pointers
     looked up in tensors): the plain iteration, and in the tested form the
-    loop test of csrc/fpr_common.cuh's finish_test in float32, written
-    through the LoopTestArgs' pointers; tested counts the launches that
-    carried a LoopTest."""
+    side of the pair (htau, out) that the count picks and the loop test of
+    csrc/fpr_common.cuh's finish_test in float32, written through the
+    LoopTestArgs' pointers; tested counts the launches that carried a
+    LoopTest."""
+    def sides(addr, htau, out):
+        if addr is None:
+            return tensors[htau], tensors[out]
+        tested["launches"] += 1
+        odd = ctypes.c_int.from_address(kernels.LoopTestArgs.from_address(addr).it).value & 1
+        return (tensors[out], tensors[htau]) if odd else (tensors[htau], tensors[out])
+
     def finish(addr, s):
         if addr is None:
             return
-        tested["launches"] += 1
         a = kernels.LoopTestArgs.from_address(addr)
         f32 = np.float32
         err = np.sqrt(f32(s)) * f32(a.dt) / f32(a.sqrt_n)
@@ -240,12 +254,14 @@ def _emulated_lib(tensors, tested):
         ctypes.c_int.from_address(a.go).value = int(bool(err > f32(a.tol) and it < a.iter_max))
 
     def dual(ht, htau, out, partials, n, *rest):
-        _, s = dual_time.dual_time_step_plain(tensors[ht], tensors[htau], rest[:6], tensors[out])
+        src, dst = sides(rest[-2], htau, out)
+        _, s = dual_time.dual_time_step_plain(tensors[ht], src, rest[:6], dst)
         finish(rest[-2], s)
         return 0
 
     def ds(ht, htau, out, partials, n, *rest):
-        _, s = ds3d.ds3d_step_plain(tensors[ht], tensors[htau], rest[:10], tensors[out])
+        src, dst = sides(rest[-2], htau, out)
+        _, s = ds3d.ds3d_step_plain(tensors[ht], src, rest[:10], dst)
         finish(rest[-2], s)
         return 0
     return types.SimpleNamespace(fpr_dual_time=dual, fpr_ds3d=ds)
@@ -260,14 +276,15 @@ def test_tested_wrappers_count_a_launch_a_pass(policy, monkeypatch):
     want = d3.solve(cfg, device="cpu")
     tensors, tested = {}, collections.Counter()
     name = "ds3d" if policy is PALLAS_DS else "dual_time"
-    mod, entry = (ds3d, "dual_time_step_ds") if name == "ds3d" else (dual_time, "dual_time_step")
-    tested_cuda = getattr(mod, f"_{'ds3d' if name == 'ds3d' else 'dual_time'}_tested_cuda")
+    mod, entry = ((ds3d, "dual_time_step_ds_pair") if name == "ds3d"
+                  else (dual_time, "dual_time_step_pair"))
+    tested_cuda = getattr(mod, f"_{name}_pair_cuda")
     coeffs = ds3d.ds_coeffs if name == "ds3d" else dual_time.coeffs
 
-    def via_wrapper(Ht, Htau, dt, dtau, dx, dy, dz, D, *, out, partials, test):
+    def via_wrapper(Ht, pair, dt, dtau, dx, dy, dz, D, *, test, partials):
         partials = torch.zeros(4)
-        tensors.update((t.data_ptr(), t) for t in (Ht, Htau, out))
-        return tested_cuda(Ht, Htau, coeffs(dt, dtau, dx, dy, dz, D), test, out, partials)
+        tensors.update((t.data_ptr(), t) for t in (Ht, pair[0], pair[1]))
+        return tested_cuda(Ht, pair, coeffs(dt, dtau, dx, dy, dz, D), test, partials)
     monkeypatch.setattr(mod, entry, via_wrapper)
     monkeypatch.setattr(kernels, "lib", lambda: _emulated_lib(tensors, tested))
     for f in ("require_cuda_f32", "require_cuda"):
@@ -280,6 +297,83 @@ def test_tested_wrappers_count_a_launch_a_pass(policy, monkeypatch):
     launched, passes = (b - a for a, b in zip(before, after))
     assert launched == tested["launches"] == passes == r.iters_total == want.iters_total > 0
     np.testing.assert_array_equal(r.H, want.H)
+
+
+# the stop of each physical step: by tol, or by an odd or an even iter_max,
+# so that the pair's last side is side 1 or side 0 (the commit's two
+# branches)
+STOPS = {"tol": 100000, "odd": 9, "even": 8}
+
+
+def _step_results(cfg, device, monkeypatch):
+    """(per-step (err, it), result) of a solve of cfg, each physical step's
+    err and count as the entry reads them."""
+    seen = []
+    real = loops.device_call
+
+    def recording(fn, carry, key=None):
+        out = real(fn, carry, key)
+        seen.append((out["err"].clone(), out["it"].clone()))
+        return out
+    with monkeypatch.context() as m:
+        m.setattr(loops, "device_call", recording)
+        r = d3.solve(cfg, device=device)
+    return seen, r
+
+
+def _same_steps(a, b):
+    (sa, ra), (sb, rb) = a, b
+    assert len(sa) == len(sb) > 0
+    for (ea, ia), (eb, ib) in zip(sa, sb):
+        assert _same(ea, eb) and _same(ia, ib)
+    assert (ra.iters_total, ra.timed_iters, ra.converged) == \
+        (rb.iters_total, rb.timed_iters, rb.converged)
+    np.testing.assert_array_equal(ra.H, rb.H)
+
+
+def test_stepper_routes():
+    """The K=1 kernel tiers get the pair and no unroll; JNP and the fused
+    K-sweep keep their routes; the commit copies the side that the count
+    picks."""
+    for route, unroll in (("pallas", 1), ("pallas_ds", 1), ("jnp", 1), ("pallas_k3", 2)):
+        cfg, kw, Ht = _setup(**ROUTES[route], n=8)
+        Htau, step, got, commit = d3._stepper(cfg, kw, Ht)
+        assert got == unroll and Htau is not Ht
+        if route in ("pallas", "pallas_ds"):
+            assert commit is d3._commit_pair
+            assert Htau.shape == (2, *Ht.shape) and _same(Htau[0], Ht)
+            test = _test(cfg, Ht)
+            pair, _ = step(Ht, Htau, test)
+            assert pair is Htau and int(test.it) == 1 and _same(pair[0], Ht)
+            assert not _same(pair[1], Ht)
+        else:
+            assert Htau.shape == Ht.shape and _same(Htau, Ht)
+    side = torch.stack([torch.full((2, 3), 1.5), torch.full((2, 3), -2.5)])
+    for it in (6, 7):
+        Ht = torch.zeros(2, 3)
+        out = d3._commit_pair(Ht, side, torch.tensor(it, dtype=torch.int32))
+        assert out is Ht and _same(Ht, side[it & 1])
+
+
+@pytest.mark.parametrize("stop", list(STOPS))
+@pytest.mark.parametrize("route", ["pallas", "pallas_ds"])
+def test_parity_route_keeps_counts_and_field(route, stop, monkeypatch):
+    """Each physical step stopped by tol or by an odd or an even iter_max
+    (its last pass writing side 1 or side 0 of the pair): each step's err
+    and count, and the solve's counts and field, bitwise those of the loop
+    as it was before the test moved into the carry (``_three_slot_step``,
+    which carries the field itself)."""
+    cfg = DiffusionConfig(nx=16, ny=16, nz=16, ttot=0.6, iter_max=STOPS[stop],
+                          tol=1e-10 if route == "pallas_ds" else 1e-7, **ROUTES[route])
+    got = _step_results(cfg, "cpu", monkeypatch)
+    with monkeypatch.context() as m:
+        m.setattr(d3, "_physical_step", _three_slot_step)
+        want = _step_results(cfg, "cpu", monkeypatch)
+    _same_steps(got, want)
+    its = [int(it) for _, it in got[0]]
+    if stop != "tol":
+        assert its == [STOPS[stop]] * 3
+    assert got[1].converged is (stop == "tol")
 
 
 # -- on the card --------------------------------------------------------------
@@ -301,11 +395,11 @@ def _pair(shape, kernel, rng, dev):
     if kernel == "dual_time":
         Ht, Hs = (torch.tensor(rng.random(shape, dtype=np.float32), device=dev) for _ in range(2))
         return (Ht, Hs, dual_time.coeffs(**kw), dual_time._dual_time_cuda,
-                dual_time._dual_time_tested_cuda, dual_time.dual_time_step_plain)
+                dual_time._dual_time_pair_cuda, dual_time.dual_time_step_plain)
     H = torch.tensor(rng.random(shape), device=dev)
     Ht = ds3d.to_ds(H)
     Hs = ds3d.to_ds(H + 1e-3 * torch.tensor(rng.standard_normal(shape), device=dev))
-    return (Ht, Hs, ds3d.ds_coeffs(**kw), ds3d._ds3d_cuda, ds3d._ds3d_tested_cuda,
+    return (Ht, Hs, ds3d.ds_coeffs(**kw), ds3d._ds3d_cuda, ds3d._ds3d_pair_cuda,
             ds3d.ds3d_step_plain)
 
 
@@ -318,21 +412,25 @@ def test_tested_kernel_against_untested_on_card(card, kernel, shape):
     _, s_plain = plain(Ht, Hs, cf)
     cfg = DiffusionConfig(nx=shape[2], ny=shape[1], nz=shape[0])
     sums = []
-    # go 1; go 0 by tol; go 0 by iter_max
-    for tol, iter_max in ((0.0, 10), (1e30, 10), (0.0, 6)):
-        c = dataclasses.replace(cfg, tol=tol, iter_max=iter_max)
-        test = _test(c, Ht, it0=5)
-        out, partials = torch.full_like(Hs, float("nan")), kernels.partials_3d(shape, card)
-        got, s = tested(Ht, Hs, cf, test, out, partials)
-        assert got is out and _same(out, out0)
-        for want in (s0, s_plain):
-            assert abs(float(s) - float(want)) <= REL_SUM * float(want)
-        want = _test(c, Ht, it0=5)
-        dual_time.loop_test_plain((None, s), want)
-        assert _same(test.err, want.err) and _same(test.it, want.it)
-        assert _same(test.go, want.go.to(torch.int32))
-        assert int(test.it) == 6 and int(test.go) == (tol == 0.0 and iter_max > 6)
-        sums.append(s)
+    # go 1; go 0 by tol; go 0 by iter_max; from an odd count (side 1 read)
+    # and an even one (side 0)
+    for tol, iter_max in ((0.0, 10), (1e30, 10), (0.0, 6), (0.0, 7)):
+        for it0 in (5, 6):
+            c = dataclasses.replace(cfg, tol=tol, iter_max=iter_max)
+            test = _test(c, Ht, it0=it0)
+            pair = torch.full((2, *Hs.shape), float("nan"), device=card)
+            pair[it0 & 1] = Hs
+            got, s = tested(Ht, pair, cf, test, kernels.partials_3d(shape, card))
+            assert got is pair and _same(pair[it0 & 1], Hs) and _same(pair[1 - (it0 & 1)], out0)
+            for want in (s0, s_plain):
+                assert abs(float(s) - float(want)) <= REL_SUM * float(want)
+            want = _test(c, Ht, it0=it0)
+            dual_time.loop_test_plain((None, s), want)
+            assert _same(test.err, want.err) and _same(test.it, want.it)
+            assert _same(test.go, want.go.to(torch.int32))
+            assert int(test.it) == it0 + 1
+            assert int(test.go) == (tol == 0.0 and iter_max > it0 + 1)
+            sums.append(s)
     assert all(_same(s, sums[0]) for s in sums)  # reruns give the same bits
     print(f"\n{kernel} {shape}: tested sum {float(sums[0])!r}, partials.sum() {float(s0)!r}, "
           f"plain {float(s_plain)!r}")
@@ -366,8 +464,12 @@ def _window(cfg, dev, name):
 
 
 # the K=3 route's nodes a pass before its body finished a LoopTest (PERF.md,
-# 512^3)
+# 512^3), and since (128^3 and 512^3): cond's four nodes gone from a pass
 K3_NODES_A_PASS_BEFORE = 14.5
+K3_NODES_A_PASS = 12.5
+# the parity route's nodes a pass: the tested launch and the WHILE's set
+# node
+PARITY_NODES_A_PASS = 2
 
 
 @pytest.mark.card
@@ -378,11 +480,42 @@ def test_nodes_and_tested_launches_a_pass_on_card(card, policy):
     name = "ds3d" if policy is PALLAS_DS else "dual_time"
     r, passes, nodes, launched = _window(cfg, card, name)
     assert passes == launched == r.iters_total > 0
-    assert nodes / passes <= 5
+    assert nodes == PARITY_NODES_A_PASS * passes
     # the fused K-sweep: one #10 call a pass, the plain test after it
     k3 = DiffusionConfig(nx=128, ny=128, nz=128, ttot=0.4, tol=1e-6, check_every=3)
     r3, passes3, nodes3, launched3 = _window(k3, card, "dual_timek")
     assert launched3 == passes3 and passes3 * 3 >= r3.iters_total > 0
     assert nodes3 / passes3 <= K3_NODES_A_PASS_BEFORE
+    assert abs(nodes3 / passes3 - K3_NODES_A_PASS) < 0.05
     print(f"\n{policy.value} 128^3: {nodes / passes:.3f} nodes a pass, {launched / passes} "
           f"launches a pass; K=3 128^3: {nodes3 / passes3:.3f} nodes a pass")
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("stop", list(STOPS))
+@pytest.mark.parametrize("policy", [PALLAS, PALLAS_DS], ids=["pallas", "pallas_ds"])
+def test_parity_route_against_host_loops_on_card(card, policy, stop, capsys, monkeypatch):
+    """The parity route at 64^3, each physical step stopped by tol or by an
+    odd or an even iter_max (its last pass writing side 1 or side 0): each
+    step's err and count, and the solve's counts, convergence and field,
+    bitwise those of the host loops; the counts, convergence and field
+    those of the untested launch on the side ``pair_step_plain`` picks,
+    then the plain test."""
+    cfg = DiffusionConfig(nx=64, ny=64, nz=64, ttot=0.6 if stop != "tol" else 2.0,
+                          policy=policy, **dict(CARD_SOLVES[policy], iter_max=STOPS[stop]))
+    loops.clear_cache()
+    got = _step_results(cfg, card, monkeypatch)
+    loops.clear_cache()
+    with loops.host_loops():
+        host = _step_results(cfg, card, monkeypatch)
+    _same_steps(got, host)
+    _, (its_u, r_u) = _both_routes(cfg, capsys, monkeypatch, device=card)
+    its = [int(it) for _, it in got[0]]
+    assert its == its_u and (got[1].iters_total, got[1].converged) == (r_u.iters_total,
+                                                                       r_u.converged)
+    np.testing.assert_array_equal(got[1].H, r_u.H)
+    if stop != "tol":
+        assert its == [STOPS[stop]] * len(its)
+    assert got[1].converged is (stop == "tol")
+    with capsys.disabled():
+        print(f"\n{policy.value} 64^3 stop {stop}: steps {its}")

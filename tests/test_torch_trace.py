@@ -128,7 +128,8 @@ def test_ds_launches_are_the_iterations(monkeypatch):
     one pseudo-time pass an iteration, and the plain route's result."""
     plain, tensors = ds3d.ds3d_step_plain, {}
 
-    def via_wrapper(Ht, Htau, cp, out):
+    def via_wrapper(Ht, Htau, cp, out=None):
+        out = torch.empty_like(Htau) if out is None else out
         partials = torch.zeros(4)
         tensors.update((t.data_ptr(), t) for t in (Ht, Htau, out, partials))
         return ds3d._ds3d_cuda(Ht, Htau, cp, out, partials)
